@@ -1,0 +1,108 @@
+"""Conv and dense blocks with the reference's layer semantics.
+
+Counterparts of ``hdrnet_tpu.models.layers``: He (variance-scaling,
+fan-in, truncated normal) init, zero biases, SAME padding as XLA computes
+it, and a *center-only* batch norm (learned shift, no scale, eps 1e-3)
+in place of the bias, before the activation. Tensors are NCHW inside.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3  # tf.contrib.layers.batch_norm default
+BN_MOMENTUM = 1.0 - 0.999  # Flax momentum 0.999 in torch's convention
+
+
+def he_normal_(weight, fan_in, generator=None):
+  """Flax ``variance_scaling(2.0, 'fan_in', 'truncated_normal')``."""
+  std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+  with torch.no_grad():
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def same_padding(size, kernel_size, stride):
+  """(lo, hi) padding of XLA's SAME for one spatial axis. A stride-2 3x3
+  conv on an even extent pads (0, 1), where torch's padding=1 pads (1, 1)."""
+  out = -(-size // stride)
+  total = max((out - 1) * stride + kernel_size - size, 0)
+  return total // 2, total - total // 2
+
+
+class CenterBatchNorm(nn.Module):
+  """Batch norm with a learned shift and no scale (layers.py:48-57).
+
+  Training-mode statistics follow ``F.batch_norm`` (unbiased running
+  variance), which differs from Flax; the serving path runs in eval mode.
+  """
+
+  def __init__(self, features):
+    super().__init__()
+    self.bias = nn.Parameter(torch.zeros(features))
+    self.register_buffer('running_mean', torch.zeros(features))
+    self.register_buffer('running_var', torch.ones(features))
+
+  def forward(self, x):
+    return F.batch_norm(x, self.running_mean, self.running_var, None,
+                        self.bias, self.training, BN_MOMENTUM, BN_EPS)
+
+
+class ConvBlock(nn.Module):
+  """Conv2d (SAME) + optional center-only BN + optional ReLU."""
+
+  def __init__(self, in_channels, features, kernel_size=3, stride=1,
+               use_bias=True, batch_norm=False, relu=True, generator=None):
+    super().__init__()
+    if kernel_size % 2 == 0:
+      raise ValueError('SAME padding here assumes an odd kernel size')
+    self.kernel_size = kernel_size
+    self.stride = stride
+    self.relu = relu
+    # SAME at stride 1 with an odd kernel is symmetric, so the conv pads;
+    # at stride 2 it depends on the extent's parity and forward pads.
+    self.conv = nn.utils.skip_init(
+        nn.Conv2d, in_channels, features, kernel_size, stride=stride,
+        padding=(kernel_size - 1) // 2 if stride == 1 else 0,
+        bias=use_bias and not batch_norm)
+    he_normal_(self.conv.weight, kernel_size * kernel_size * in_channels,
+               generator)
+    if self.conv.bias is not None:
+      nn.init.zeros_(self.conv.bias)
+    self.bn = CenterBatchNorm(features) if batch_norm else None
+
+  def forward(self, x):
+    k, s = self.kernel_size, self.stride
+    if s != 1:
+      top, bottom = same_padding(x.shape[-2], k, s)
+      left, right = same_padding(x.shape[-1], k, s)
+      x = F.pad(x, (left, right, top, bottom))
+    x = self.conv(x)
+    if self.bn is not None:
+      x = self.bn(x)
+    return F.relu(x) if self.relu else x
+
+
+class DenseBlock(nn.Module):
+  """Linear + optional center-only BN + optional ReLU."""
+
+  def __init__(self, in_features, features, use_bias=True, batch_norm=False,
+               relu=True, generator=None):
+    super().__init__()
+    self.relu = relu
+    self.fc = nn.utils.skip_init(nn.Linear, in_features, features,
+                                 bias=use_bias and not batch_norm)
+    he_normal_(self.fc.weight, in_features, generator)
+    if self.fc.bias is not None:
+      nn.init.zeros_(self.fc.bias)
+    self.bn = CenterBatchNorm(features) if batch_norm else None
+
+  def forward(self, x):
+    x = self.fc(x)
+    if self.bn is not None:
+      x = self.bn(x)
+    return F.relu(x) if self.relu else x

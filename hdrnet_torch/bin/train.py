@@ -1,0 +1,107 @@
+#!/usr/bin/env python
+"""Train a model with the PyTorch / CUDA port on one device.
+
+The flags and the ``Config`` they build are those of
+``hdrnet_tpu.bin.train`` (CLI parity with the reference
+bin/train.py:187-246); the model names are the port's. Trains on the
+first CUDA device, else on the CPU.
+
+Example:
+  python -m hdrnet_torch.bin.train ckpt/ data/train/filelist.txt \\
+      --model_name HDRNetCurves --batch_size 1 --nobatch_norm \\
+      --output_resolution 2048 2048
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from hdrnet_tpu.bin.train import config_from_args
+from hdrnet_torch.models import MODELS
+
+
+def build_parser():
+  from hdrnet_tpu.data import PIPELINES  # needs PIL
+  p = argparse.ArgumentParser(description=__doc__)
+  req = p.add_argument_group('required')
+  req.add_argument('checkpoint_dir', help='directory to save checkpoints')
+  req.add_argument('data_dir', help='training images / records')
+  req.add_argument('--eval_data_dir', default=None,
+                   help='validation data directory')
+
+  t = p.add_argument_group('training')
+  t.add_argument('--learning_rate', default=1e-4, type=float)
+  t.add_argument('--lr_schedule', default='constant',
+                 choices=['constant', 'cosine'],
+                 help='constant = reference behavior; cosine decays to '
+                      '--lr_end over --lr_decay_steps (default max_steps)')
+  t.add_argument('--lr_decay_steps', default=None, type=int)
+  t.add_argument('--lr_end', default=0.0, type=float)
+  t.add_argument('--lr_warmup_steps', default=0, type=int)
+  t.add_argument('--guide_lr_scale', default=1.0, type=float,
+                 help='multiply the guide modules\' lr (1.0 = reference '
+                      'behavior)')
+  t.add_argument('--guide_reg', default=0.0, type=float,
+                 help='guide-range regularizer weight (0 = off)')
+  t.add_argument('--guide_reg_target', default=0.2, type=float)
+  t.add_argument('--max_steps', default=None, type=int)
+  t.add_argument('--log_interval', type=float, default=1,
+                 help='seconds between log lines')
+  t.add_argument('--summary_interval', type=float, default=120)
+  t.add_argument('--checkpoint_interval', type=float, default=600)
+  t.add_argument('--eval_interval', type=float, default=3600)
+  t.add_argument('--seed', type=int, default=1234)
+  t.add_argument('--mesh_shape', type=int, nargs=2, default=None,
+                 help='(data, spatial) mesh; the port takes only 1 1')
+  t.add_argument('--profile_dir', default=None,
+                 help='write a torch.profiler trace of steps 10-15 here')
+
+  d = p.add_argument_group('data pipeline')
+  d.add_argument('--batch_size', default=16, type=int)
+  d.add_argument('--data_threads', default=2, type=int)
+  d.add_argument('--data_pipeline', default='ImageFilesDataPipeline',
+                 choices=sorted(PIPELINES))
+  for flag in ('rotate', 'flipud', 'fliplr', 'random_crop',
+               'cache_images', 'device_normalize', 'device_data'):
+    d.add_argument(f'--{flag}', dest=flag, action='store_true')
+    d.add_argument(f'--no{flag}', dest=flag, action='store_false')
+  d.add_argument('--blur_sigma', type=float, default=4.0,
+                 help='unsharp-mask pipeline blur sigma')
+  d.add_argument('--sharpen', type=float, default=1.0,
+                 help='unsharp-mask pipeline strength')
+
+  m = p.add_argument_group('model_params')
+  m.add_argument('--model_name', default='HDRNetCurves',
+                 choices=sorted(MODELS))
+  m.add_argument('--net_input_size', default=256, type=int)
+  m.add_argument('--output_resolution', default=[512, 512], type=int,
+                 nargs=2)
+  m.add_argument('--batch_norm', dest='batch_norm', action='store_true')
+  m.add_argument('--nobatch_norm', dest='batch_norm', action='store_false')
+  m.add_argument('--channel_multiplier', default=1, type=int)
+  m.add_argument('--guide_complexity', default=16, type=int)
+  m.add_argument('--luma_bins', default=8, type=int)
+  m.add_argument('--spatial_bin', default=16, type=int)
+  m.add_argument('--depth', default=5, type=int, help='baseline models')
+  m.add_argument('--width', default=32, type=int, help='baseline models')
+
+  p.set_defaults(rotate=False, flipud=False, fliplr=False,
+                 random_crop=True, cache_images=False,
+                 device_normalize=False, device_data=False,
+                 batch_norm=False)
+  return p
+
+
+def main(argv=None):
+  logging.basicConfig(
+      format='%(asctime)s [%(process)d] %(levelname)s %(filename)s:'
+             '%(lineno)s | %(message)s', level=logging.INFO)
+  args = build_parser().parse_args(argv)
+  from hdrnet_torch.training.loop import train
+  train(config_from_args(args), args.checkpoint_dir, args.data_dir,
+        eval_data_dir=args.eval_data_dir)
+
+
+if __name__ == '__main__':
+  main()

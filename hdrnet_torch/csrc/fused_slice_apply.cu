@@ -47,7 +47,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "slice_common.cuh"
+
 namespace {
+
+using hdrnet::clamp01;
+using hdrnet::depth_taps;
+using hdrnet::spatial_taps;
+using hdrnet::Taps;
 
 constexpr int kNIn = 3;
 constexpr int kNOut = 3;
@@ -60,7 +67,6 @@ constexpr int kShifts = kCcm + (kNIn + 1) * kNIn;
 constexpr int kSlopes = kShifts + kNIn * kNPts;
 constexpr int kMix = kSlopes + kNIn * kNPts;
 constexpr int kNParams = kMix + kNIn + 1;  // 112
-constexpr float kEps = 1e-8f;
 
 __device__ __forceinline__ float load_unit(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_unit(const uint8_t* p) {
@@ -72,14 +78,6 @@ __device__ __forceinline__ void store(uint8_t* p, float v) {
   // Clip is enforced by the wrapper, so v * 255 + 0.5 is in [0.5, 255.5].
   *p = static_cast<uint8_t>(
       static_cast<int>(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f)));
-}
-
-__device__ __forceinline__ float clamp01(float v) {
-  return fminf(fmaxf(v, 0.0f), 1.0f);
-}
-
-__device__ __forceinline__ int clampi(int v, int hi) {
-  return min(max(v, 0), hi);
 }
 
 // Literal relu form of the curves guide (pallas.py:514-526).
@@ -144,28 +142,10 @@ __global__ void __launch_bounds__(256)
 
     const float guide = curves_guide(p, img);
 
-    // Spatial taps: weights at unclamped centres, clamped reads.
-    const float gx = (static_cast<float>(x) + 0.5f) * sx;
-    const float fx = floorf(gx - 0.5f);
-    const float wx[2] = {fmaxf(1.0f - fabsf(fx + 0.5f - gx), 0.0f),
-                         fmaxf(1.0f - fabsf(fx + 1.5f - gx), 0.0f)};
-    const int ix[2] = {clampi(static_cast<int>(fx), gw - 1),
-                       clampi(static_cast<int>(fx) + 1, gw - 1)};
-    const float gy = (static_cast<float>(y) + 0.5f) * sy;
-    const float fy = floorf(gy - 0.5f);
-    const float wy[2] = {fmaxf(1.0f - fabsf(fy + 0.5f - gy), 0.0f),
-                         fmaxf(1.0f - fabsf(fy + 1.5f - gy), 0.0f)};
-    const int iy[2] = {clampi(static_cast<int>(fy), gh - 1),
-                       clampi(static_cast<int>(fy) + 1, gh - 1)};
-    // Depth taps: smoothed tent (IEEE sqrtf; no fast math).
-    const float gz = guide * static_cast<float>(gd);
-    const float fz = floorf(gz - 0.5f);
-    const float dz0 = fz + 0.5f - gz;
-    const float dz1 = fz + 1.5f - gz;
-    const float wz0 = fmaxf(1.0f - sqrtf(dz0 * dz0 + kEps), 0.0f);
-    const float wz1 = fmaxf(1.0f - sqrtf(dz1 * dz1 + kEps), 0.0f);
-    const int iz0 = clampi(static_cast<int>(fz), gd - 1);
-    const int iz1 = clampi(static_cast<int>(fz) + 1, gd - 1);
+    // Taps: weights at unclamped centres, clamped reads.
+    const Taps ty = spatial_taps(y, sy, gh);
+    const Taps tx = spatial_taps(x, sx, gw);
+    const Taps tz = depth_taps(guide, gd);
 
     const float* g = grid + bb * grid_stride;
     float sliced[kNC];
@@ -175,11 +155,11 @@ __global__ void __launch_bounds__(256)
     for (int a = 0; a < 2; ++a) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float wyx = wy[a] * wx[c];
-        const float* cell = g + (static_cast<long long>(iy[a]) * gw + ix[c]) *
-                                    gd * kNC;
-        add_cell(sliced, wyx * wz0, cell + iz0 * kNC);
-        add_cell(sliced, wyx * wz1, cell + iz1 * kNC);
+        const float wyx = ty.w[a] * tx.w[c];
+        const float* cell =
+            g + (static_cast<long long>(ty.i[a]) * gw + tx.i[c]) * gd * kNC;
+        add_cell(sliced, wyx * tz.w[0], cell + tz.i[0] * kNC);
+        add_cell(sliced, wyx * tz.w[1], cell + tz.i[1] * kNC);
       }
     }
 

@@ -20,10 +20,11 @@ import contextlib
 import numpy as np
 import torch
 
-from hdrnet_tpu.config import ModelConfig
+from hdrnet_tpu.config import Config, ModelConfig
 from hdrnet_torch.models import make_model
 from hdrnet_torch.ops.downsample import nearest_lowres
 from hdrnet_torch.ops.fused import enhance_fused
+from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 
 __all__ = ['Enhancer', 'ModelConfig', 'full_float32']
 
@@ -69,6 +70,16 @@ class Enhancer:
     self.model = model.to(device).eval()
     self.device = next(self.model.parameters()).device
     self.guide_params = self.model.guide.packed_params()
+
+  @classmethod
+  def from_checkpoint(cls, checkpoint_dir, device='cpu'):
+    """Serves the newest step that ``hdrnet_torch.training`` saved in
+    `checkpoint_dir`, with the architecture of its ``config.json``."""
+    path = latest_checkpoint(checkpoint_dir)
+    if path is None:
+      raise FileNotFoundError(f'no checkpoint in {checkpoint_dir}')
+    config = Config.load(checkpoint_dir)
+    return cls(config.model, load(path)['model'], device=device)
 
   def _check_frame(self, frame):
     if frame.device != self.device:

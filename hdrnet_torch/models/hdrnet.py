@@ -90,8 +90,12 @@ class HDRNetCurves(nn.Module):
   """Main model: coefficient backbone + curves guide + slice-apply.
 
   ``forward(lowres, fullres)`` takes NHWC tensors, like the Flax model,
-  and runs the composite path on the reference slice-apply (CPU only for
-  now; serving on the card goes through ``hdrnet_torch.inference``).
+  and is differentiable: on the card the slice-apply runs kernel K3 and
+  its backward K4 and K5; on the CPU their plain versions
+  (:mod:`hdrnet_torch.ops.slice_ops`). ``return_guide=True`` also returns
+  the guide map, which the guide regularizer reads (the Flax model sows
+  it as ``intermediates/guide_map``). Serving goes through the fused
+  kernel of ``hdrnet_torch.inference`` instead.
   """
 
   def __init__(self, cfg: ModelConfig, generator=None):
@@ -103,7 +107,8 @@ class HDRNetCurves(nn.Module):
                                             generator)
     self.guide = CurveGuide(cfg.n_in, generator=generator)
 
-  def forward(self, lowres, fullres):
+  def forward(self, lowres, fullres, return_guide=False):
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     guide = self.guide(fullres)
-    return bilateral_slice_apply(grid, guide, fullres, has_offset=True)
+    out = bilateral_slice_apply(grid, guide, fullres, has_offset=True)
+    return (out, guide) if return_guide else out

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3  # tf.contrib.layers.batch_norm default
-BN_MOMENTUM = 1.0 - 0.999  # Flax momentum 0.999 in torch's convention
+BN_DECAY = 0.999  # Flax BatchNorm momentum: the running stats' decay
 
 
 def he_normal_(weight, fan_in, generator=None):
@@ -37,8 +37,11 @@ def same_padding(size, kernel_size, stride):
 class CenterBatchNorm(nn.Module):
   """Batch norm with a learned shift and no scale (layers.py:48-57).
 
-  Training-mode statistics follow ``F.batch_norm`` (unbiased running
-  variance), which differs from Flax; the serving path runs in eval mode.
+  Training mode is Flax ``BatchNorm``'s, written out: normalize with the
+  batch mean and the *biased* batch variance E[x^2] - E[x]^2 (clipped at
+  0), and move the running statistics as
+  ``running = 0.999 * running + 0.001 * batch`` for both. Eval mode
+  normalizes with the running statistics.
   """
 
   def __init__(self, features):
@@ -48,8 +51,19 @@ class CenterBatchNorm(nn.Module):
     self.register_buffer('running_var', torch.ones(features))
 
   def forward(self, x):
-    return F.batch_norm(x, self.running_mean, self.running_var, None,
-                        self.bias, self.training, BN_MOMENTUM, BN_EPS)
+    if not self.training:
+      return F.batch_norm(x, self.running_mean, self.running_var, None,
+                          self.bias, False, 0.0, BN_EPS)
+    # Features on axis 1 (NCHW or NC): reduce over every other axis.
+    axes = [0] + list(range(2, x.ndim))
+    mean = x.mean(axes)
+    var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+      self.running_mean.mul_(BN_DECAY).add_((1 - BN_DECAY) * mean)
+      self.running_var.mul_(BN_DECAY).add_((1 - BN_DECAY) * var)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    y = (x - mean.reshape(shape)) * torch.rsqrt(var + BN_EPS).reshape(shape)
+    return y + self.bias.reshape(shape)
 
 
 class ConvBlock(nn.Module):

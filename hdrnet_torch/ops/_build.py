@@ -1,10 +1,11 @@
 """Builds the CUDA kernels in ``hdrnet_torch/csrc`` and loads them.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, into ``build/hdrnet_torch/<hash>/`` at the
-root of the checkout, keyed by a hash of the sources and flags, so a
-fresh checkout builds once and an edited source rebuilds.
+Each ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc``, all
+started together, and one more call links the objects into a shared
+library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``build/hdrnet_torch/<hash>/`` at the root of
+the checkout, keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and
+flags, so a fresh checkout builds once and an edited source rebuilds.
 
 No ``--use_fast_math``: the kernels rely on IEEE division (u8 / 255) and
 IEEE ``sqrt`` (the smoothed depth tent) to match the plain versions.
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'hdrnet_torch'
 LIB_NAME = 'libhdrnet_kernels.so'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,21 @@ _SIGNATURES = {
     # sy, sx, stream
     'hdrnet_enhance_fused': (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _F, _F, _P),
+    # grid, guide, image, out, b, h, w, gh, gw, gd, n_in, n_out,
+    # has_offset, sy, sx, stream
+    'hdrnet_slice_apply_fwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _F, _P),
+    # grid, guide, image, ct, d_guide, d_image, b, h, w, gh, gw, gd, n_in,
+    # n_out, has_offset, sy, sx, stream
+    'hdrnet_slice_apply_pix_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _F, _P),
+    # guide, image, ct, out, b, h, w, gh, gw, gd, n_in, n_out, has_offset,
+    # sy, sx, pad_y, pad_x, stream
+    'hdrnet_slice_apply_grid_bwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _F, _I, _I, _P),
+    # channels, gd, &nsub, &record stride -> dynamic shared bytes
+    'hdrnet_slice_apply_grid_bwd_smem': (_I, _I, ctypes.POINTER(_I),
+                                         ctypes.POINTER(_I)),
 }
 
 
@@ -80,16 +96,37 @@ def _source_hash():
 
 
 def _build(out_dir, srcs):
+  """One nvcc per source, all at once, then one link. Returns the
+  compilers' output (ptxas resource usage included) and the seconds."""
   nvcc = find_nvcc()
   out_dir.mkdir(parents=True, exist_ok=True)
-  tmp = out_dir / f'{LIB_NAME}.{os.getpid()}.tmp'
-  cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
+  tag = os.getpid()
   t0 = time.perf_counter()
+  objs, procs, log = [], [], []
+  for src in srcs:
+    obj = out_dir / f'{src.stem}.{tag}.o'
+    cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+    procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT,
+                                        text=True)))
+    objs.append(obj)
+  failed = False
+  for cmd, proc in procs:
+    out, _ = proc.communicate()
+    log.append(' '.join(cmd) + '\n' + out)
+    failed |= proc.returncode != 0
+  if failed:
+    raise RuntimeError('nvcc failed:\n' + '\n'.join(log))
+  tmp = out_dir / f'{LIB_NAME}.{tag}.tmp'
+  cmd = [nvcc, '-shared', '-o', str(tmp), *map(str, objs)]
   proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  seconds = time.perf_counter() - t0
-  log = ' '.join(cmd) + '\n' + proc.stdout + proc.stderr
+  log.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+  log = '\n'.join(log)
   if proc.returncode:
-    raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
+    raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n{log}')
+  seconds = time.perf_counter() - t0
+  for obj in objs:
+    obj.unlink()
   (out_dir / 'build.log').write_text(log)
   os.replace(tmp, out_dir / LIB_NAME)  # atomic: readers never see a partial
   return log, seconds

@@ -58,11 +58,31 @@ def _unpack(params):
   return ccm_ext, curves[:n], curves[n:], mix
 
 
+class _Clip01(torch.autograd.Function):
+  """clip(x, 0, 1) with JAX's gradient: 1 inside, 0.5 at exactly 0 or 1
+  (``jnp.clip`` is min(max(x, 0), 1), and JAX splits a tie's gradient
+  between the two arguments), 0 outside. ``torch.clamp`` passes 1 at the
+  ties."""
+
+  @staticmethod
+  def forward(ctx, x):
+    ctx.save_for_backward(x)
+    return torch.clamp(x, 0.0, 1.0)
+
+  @staticmethod
+  def backward(ctx, g):
+    (x,) = ctx.saved_tensors
+    inside = ((x > 0.0) & (x < 1.0)).to(g.dtype)
+    tie = ((x == 0.0) | (x == 1.0)).to(g.dtype)
+    return g * (inside + 0.5 * tie)
+
+
 def curves_guide(img, ccm_ext, shifts, slopes, mix):
   """(..., n) float32 image -> (...) guide in [0, 1], in the literal relu
   form: color matrix + bias, a sum of shifted ReLUs over the knots of each
   channel, channel mix + bias, clip. Elementwise products only, so no
-  TF32 matmul on the card.
+  TF32 matmul on the card. The gradients at ties are JAX's: the knot
+  ReLUs pass 0 at 0, the final clip 0.5 at 0 and 1.
 
   ccm_ext (n+1, n) with the bias last; shifts, slopes (n, n_pts);
   mix (n+1,) with the bias last.
@@ -75,10 +95,10 @@ def curves_guide(img, ccm_ext, shifts, slopes, mix):
       g = g + img[..., j] * ccm_ext[j, c]
     cur = torch.zeros_like(g)
     for k in range(shifts.shape[1]):
-      cur = cur + slopes[c, k] * torch.clamp(g - shifts[c, k], min=0.0)
+      cur = cur + slopes[c, k] * torch.relu(g - shifts[c, k])
     term = cur * mix[c]
     acc = term if acc is None else acc + term
-  return torch.clamp(acc + mix[n], 0.0, 1.0)
+  return _Clip01.apply(acc + mix[n])
 
 
 def _check(grid5, frame, params, clip_output, u8_output):

@@ -1,0 +1,228 @@
+"""Slice-apply with an external guide and its backward passes: kernels
+K3, K4 and K5, the training path of ``HDRNetCurves``.
+
+  slice_apply_fwd(grid5, guide, image, has_offset)            K3
+  slice_apply_pix_bwd(grid5, guide, image, ct, has_offset)    K4
+  slice_apply_grid_bwd(grid_shape, guide, image, ct, ...)     K5
+
+They have the semantics of ``hdrnet_tpu.ops.pallas.slice_apply_fwd``,
+``slice_apply_pix_bwd`` and ``slice_apply_grid_bwd`` (the reference C++
+op's forward and VJPs, ops/bilateral_slice_apply.cc), on the port's
+channels-last layouts: packed grid (B, gh, gw, gd, C) with
+C = n_out * ni_tot, guide (B, H, W), image (B, H, W, n_in), output and
+cotangent (B, H, W, n_out). n_in = 0 with an offset is the plain
+bilateral slice.
+
+On CUDA tensors (float32, contiguous) each launches its hand-written
+kernel in ``csrc/slice_apply.cu``; on CPU tensors it runs its plain
+version below, built on :mod:`hdrnet_torch.ops.reference`, which also
+takes float64 (the finite-difference tests use it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from hdrnet_torch.ops import _build
+from hdrnet_torch.ops import reference as ref
+
+MAX_N_IN = 6  # kMaxNIn in csrc/slice_apply.cu
+# Dynamic shared memory one block may use on Hopper (sm_90).
+_MAX_SMEM = 227 * 1024
+
+# Kernel launches by the wrappers (never by the plain versions).
+fwd_launches = 0       # K3
+pix_bwd_launches = 0   # K4
+grid_bwd_launches = 0  # K5
+
+
+def _ni_tot(n_in, has_offset):
+  return n_in + 1 if has_offset else n_in
+
+
+def _grid6(grid5, n_in, has_offset):
+  b, gh, gw, gd, c = grid5.shape
+  ni_tot = _ni_tot(n_in, has_offset)
+  return grid5.reshape(b, gh, gw, gd, c // ni_tot, ni_tot)
+
+
+def _check(grid_shape, guide, image, ct, has_offset):
+  """Shapes and types; returns (n_in, n_out)."""
+  if len(grid_shape) != 5:
+    raise ValueError(f'grid must be (B, gh, gw, gd, C), got {grid_shape}')
+  if guide.ndim != 3 or image.ndim != 4:
+    raise ValueError(f'guide must be (B, H, W) and image (B, H, W, n_in), '
+                     f'got {tuple(guide.shape)}, {tuple(image.shape)}')
+  b, h, w = guide.shape
+  n_in = image.shape[-1]
+  ni_tot = _ni_tot(n_in, has_offset)
+  if ni_tot == 0 or grid_shape[-1] % ni_tot:
+    raise ValueError(f'grid channels {grid_shape[-1]} do not split into '
+                     f'n_in + offset = {ni_tot}')
+  n_out = grid_shape[-1] // ni_tot
+  if tuple(image.shape[:3]) != (b, h, w) or grid_shape[0] != b:
+    raise ValueError(f'batch or size mismatch: grid {grid_shape}, guide '
+                     f'{tuple(guide.shape)}, image {tuple(image.shape)}')
+  if ct is not None and tuple(ct.shape) != (b, h, w, n_out):
+    raise ValueError(f'ct must be {(b, h, w, n_out)}, got '
+                     f'{tuple(ct.shape)}')
+  tensors = [guide, image] + ([] if ct is None else [ct])
+  dtypes = {t.dtype for t in tensors}
+  if len(dtypes) != 1 or not dtypes.pop().is_floating_point:
+    raise TypeError('slice-apply takes tensors of one floating dtype')
+  return n_in, n_out
+
+
+def _on_card(name, *tensors):
+  """True for CUDA tensors (after checking them), False for CPU ones."""
+  devices = {t.device for t in tensors}
+  if len(devices) != 1:
+    raise ValueError(f'{name}: tensors on different devices: {devices}')
+  dev = devices.pop()
+  if dev.type == 'cpu':
+    return False
+  if dev.type != 'cuda':
+    raise ValueError(f'{name}: unsupported device {dev}')
+  if any(t.dtype != torch.float32 for t in tensors):
+    raise TypeError(f'{name}: the kernel takes float32 tensors')
+  for t in tensors:
+    if not t.is_contiguous():
+      raise ValueError(f'{name}: tensors must be contiguous')
+  return True
+
+
+def _stream(dev):
+  return torch.cuda.current_stream(dev).cuda_stream
+
+
+# --- plain versions ---------------------------------------------------------
+
+
+def slice_apply_fwd_plain(grid5, guide, image, has_offset=True):
+  """Plain K3: (B, gh, gw, gd, C), (B, H, W), (B, H, W, n_in) ->
+  (B, H, W, n_out)."""
+  _check(tuple(grid5.shape), guide, image, None, has_offset)
+  return ref.bilateral_slice_apply(_grid6(grid5, image.shape[-1], has_offset),
+                                   guide, image, has_offset)
+
+
+def slice_apply_pix_bwd_plain(grid5, guide, image, ct, has_offset=True,
+                              need_input=True):
+  """Plain K4: (d_guide (B, H, W), d_image (B, H, W, n_in) or None)."""
+  _check(tuple(grid5.shape), guide, image, ct, has_offset)
+  grid6 = _grid6(grid5, image.shape[-1], has_offset)
+  d_guide = ref.bilateral_slice_apply_guide_vjp(grid6, guide, image, ct,
+                                                has_offset)
+  d_image = (ref.bilateral_slice_apply_input_vjp(grid6, guide, ct, has_offset)
+             if need_input else None)
+  return d_guide, d_image
+
+
+def slice_apply_grid_bwd_plain(grid_shape, guide, image, ct, has_offset=True):
+  """Plain K5: grid_shape (B, gh, gw, gd, C) -> its cotangent."""
+  grid_shape = tuple(grid_shape)
+  n_in, n_out = _check(grid_shape, guide, image, ct, has_offset)
+  b, gh, gw, gd, c = grid_shape
+  d = ref.bilateral_slice_apply_grid_vjp(
+      guide, image, ct, (gh, gw, gd, n_out, _ni_tot(n_in, has_offset)),
+      has_offset)
+  return d.reshape(grid_shape)
+
+
+# --- wrappers ----------------------------------------------------------------
+
+
+def _dims(grid_shape, guide, image, has_offset):
+  b, h, w = guide.shape
+  _, gh, gw, gd, _ = grid_shape
+  n_in = image.shape[-1]
+  if n_in > MAX_N_IN:
+    raise ValueError(f'the kernels take n_in <= {MAX_N_IN}, got {n_in}')
+  return (b, h, w, gh, gw, gd, n_in)
+
+
+def slice_apply_fwd(grid5, guide, image, has_offset=True):
+  """Slice + affine apply with an external guide (no clip).
+
+  CUDA tensors: kernel K3. CPU tensors: ``slice_apply_fwd_plain``.
+  """
+  global fwd_launches
+  n_in, n_out = _check(tuple(grid5.shape), guide, image, None, has_offset)
+  if not _on_card('slice_apply_fwd', grid5, guide, image):
+    return slice_apply_fwd_plain(grid5, guide, image, has_offset)
+  b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image, has_offset)
+  out = torch.empty((b, h, w, n_out), dtype=torch.float32,
+                    device=guide.device)
+  with torch.cuda.device(guide.device):
+    err = _build.library().lib.hdrnet_slice_apply_fwd(
+        grid5.data_ptr(), guide.data_ptr(), image.data_ptr(), out.data_ptr(),
+        b, h, w, gh, gw, gd, n_in, n_out, int(has_offset), gh / h, gw / w,
+        _stream(guide.device))
+  _build.check(err, 'hdrnet_slice_apply_fwd')
+  fwd_launches += 1
+  return out
+
+
+def slice_apply_pix_bwd(grid5, guide, image, ct, has_offset=True,
+                        need_input=True):
+  """Guide and input cotangents of the slice-apply, from one gather.
+
+  Returns (d_guide (B, H, W), d_image (B, H, W, n_in) or None when not
+  ``need_input``). CUDA tensors: kernel K4. CPU tensors: the plain
+  version.
+  """
+  global pix_bwd_launches
+  n_in, n_out = _check(tuple(grid5.shape), guide, image, ct, has_offset)
+  if not _on_card('slice_apply_pix_bwd', grid5, guide, image, ct):
+    return slice_apply_pix_bwd_plain(grid5, guide, image, ct, has_offset,
+                                     need_input)
+  b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image, has_offset)
+  dev = guide.device
+  d_guide = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+  d_image = (torch.empty((b, h, w, n_in), dtype=torch.float32, device=dev)
+             if need_input else None)
+  with torch.cuda.device(dev):
+    err = _build.library().lib.hdrnet_slice_apply_pix_bwd(
+        grid5.data_ptr(), guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
+        d_guide.data_ptr(), None if d_image is None else d_image.data_ptr(),
+        b, h, w, gh, gw, gd, n_in, n_out, int(has_offset), gh / h, gw / w,
+        _stream(dev))
+  _build.check(err, 'hdrnet_slice_apply_pix_bwd')
+  pix_bwd_launches += 1
+  return d_guide, d_image
+
+
+def slice_apply_grid_bwd(grid_shape, guide, image, ct, has_offset=True):
+  """Grid cotangent (B, gh, gw, gd, C) of the slice-apply: the splat over
+  the mirror-padded image with z-extreme depth weights forced to 1.
+
+  Deterministic on the card: kernel K5 sums in a fixed order, so two runs
+  give the same bits. CPU tensors: the plain version.
+  """
+  global grid_bwd_launches
+  grid_shape = tuple(int(d) for d in grid_shape)
+  n_in, n_out = _check(grid_shape, guide, image, ct, has_offset)
+  if not _on_card('slice_apply_grid_bwd', guide, image, ct):
+    return slice_apply_grid_bwd_plain(grid_shape, guide, image, ct,
+                                      has_offset)
+  b, h, w, gh, gw, gd, _ = _dims(grid_shape, guide, image, has_offset)
+  lib = _build.library().lib
+  nsub, stride = ctypes.c_int(), ctypes.c_int()
+  smem = lib.hdrnet_slice_apply_grid_bwd_smem(grid_shape[-1], gd,
+                                              ctypes.byref(nsub),
+                                              ctypes.byref(stride))
+  if nsub.value < 1 or smem > _MAX_SMEM:
+    raise ValueError(f'grid_bwd: {grid_shape[-1]} channels x {gd} bins '
+                     f'exceed one block ({smem} bytes of shared memory)')
+  pad_y, pad_x = ref.pad_amounts(h, w, gh, gw)
+  out = torch.empty(grid_shape, dtype=torch.float32, device=guide.device)
+  with torch.cuda.device(guide.device):
+    err = lib.hdrnet_slice_apply_grid_bwd(
+        guide.data_ptr(), image.data_ptr(), ct.data_ptr(), out.data_ptr(),
+        b, h, w, gh, gw, gd, n_in, n_out, int(has_offset), gh / h, gw / w,
+        pad_y, pad_x, _stream(guide.device))
+  _build.check(err, 'hdrnet_slice_apply_grid_bwd')
+  grid_bwd_launches += 1
+  return out

@@ -1,4 +1,4 @@
-"""Public bilateral slice / slice-apply ops (forward).
+"""Public, differentiable bilateral slice / slice-apply ops.
 
 Batched, channels-last, with the API of ``hdrnet_tpu.ops.slice_ops``:
 
@@ -10,47 +10,72 @@ Batched, channels-last, with the API of ``hdrnet_tpu.ops.slice_ops``:
 
 The packed layout flattens (no, ni_tot) row-major (channel = i*ni_tot + j).
 
-Only the ``reference`` backend exists so far: the plain-torch forward of
-:mod:`hdrnet_torch.ops.reference`, which the composite
-``HDRNetCurves.forward`` uses. The CUDA slice-apply with an external
-guide (kernel K3, the training forward of
-``hdrnet_tpu.ops.pallas.slice_apply_fwd``) and its gradients are not
-ported yet; serving goes through :mod:`hdrnet_torch.ops.fused` instead.
+The gradient is the JAX package's custom VJP (the reference C++ op's),
+not the derivative of the forward: its grid cotangent is a splat over the
+mirror-padded image with the extreme depth weights forced to 1 (see
+:mod:`hdrnet_torch.ops.reference`). The device picks the route: on CUDA
+tensors the forward is kernel K3 and the backward kernels K4 (guide and
+input) and K5 (grid); on CPU tensors their plain versions run
+(:mod:`hdrnet_torch.ops.slice_apply`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from hdrnet_torch.ops import reference as ref
+from hdrnet_torch.ops import slice_apply as sa
 
 
-def _require_cpu(*tensors):
-  for t in tensors:
-    if t.device.type != 'cpu':
-      raise NotImplementedError(
-          'bilateral_slice_apply on a CUDA tensor needs kernel K3 (the '
-          'slice-apply training forward, hdrnet_tpu/ops/pallas.py '
-          'slice_apply_fwd), which is not ported yet; serve with '
-          'hdrnet_torch.inference.Enhancer')
+class _SliceApply(torch.autograd.Function):
+  """Packed-grid slice-apply whose backward is the reference VJP."""
+
+  @staticmethod
+  def forward(ctx, grid5, guide, image, has_offset):
+    ctx.has_offset = has_offset
+    ctx.save_for_backward(grid5, guide, image)
+    return sa.slice_apply_fwd(grid5, guide, image, has_offset)
+
+  @staticmethod
+  def backward(ctx, ct):
+    grid5, guide, image = ctx.saved_tensors
+    need_grid, need_guide, need_image = ctx.needs_input_grad[:3]
+    ct = ct.contiguous()
+    d_grid = d_guide = d_image = None
+    if need_guide or need_image:
+      d_guide, d_image = sa.slice_apply_pix_bwd(
+          grid5, guide, image, ct, ctx.has_offset, need_input=need_image)
+    if need_grid:
+      d_grid = sa.slice_apply_grid_bwd(grid5.shape, guide, image, ct,
+                                       ctx.has_offset)
+    return d_grid, d_guide, d_image, None
 
 
 def bilateral_slice_apply(grid, guide, image, has_offset=True):
-  """Bilateral slice + per-pixel affine apply. Returns (b, h, w, no)."""
-  _require_cpu(grid, guide, image)
-  if grid.ndim == 5:
-    n_in = image.shape[-1]
-    ni_tot = n_in + 1 if has_offset else n_in
-    if grid.shape[-1] % ni_tot:
-      raise ValueError(
-          f'packed grid channels {grid.shape[-1]} not divisible by {ni_tot}')
-    grid = grid.reshape(grid.shape[:-1] + (grid.shape[-1] // ni_tot, ni_tot))
-  elif grid.ndim != 6:
+  """Bilateral slice + per-pixel affine apply. Differentiable.
+
+  Returns (b, h, w, no).
+  """
+  n_in = image.shape[-1]
+  ni_tot = n_in + 1 if has_offset else n_in
+  if grid.ndim == 6:
+    if grid.shape[-1] != ni_tot:
+      raise ValueError(f'grid input channels {grid.shape[-1]} != {ni_tot}')
+    grid = grid.reshape(grid.shape[:4] + (-1,))
+  elif grid.ndim != 5:
     raise ValueError(f'grid must be rank 5 or 6, got {tuple(grid.shape)}')
-  return ref.bilateral_slice_apply(grid, guide, image, has_offset=has_offset)
+  elif not ni_tot or grid.shape[-1] % ni_tot:
+    raise ValueError(
+        f'packed grid channels {grid.shape[-1]} not divisible by {ni_tot}')
+  return _SliceApply.apply(grid.contiguous(), guide.contiguous(),
+                           image.contiguous(), bool(has_offset))
 
 
 def bilateral_slice(grid, guide):
-  """Batched trilinear slice: (b, gh, gw, gd, C), (b, h, w) -> (b, h, w, C)."""
-  _require_cpu(grid, guide)
-  return ref.bilateral_slice(grid, guide)
+  """Batched trilinear slice: (b, gh, gw, gd, C), (b, h, w) -> (b, h, w, C).
+
+  The slice-apply with a zero-channel input and an offset-only grid, as
+  in the JAX package; its gradients are the reference BilateralSlice VJPs
+  (ops/bilateral_slice.cc:72-168).
+  """
+  empty = guide.new_zeros(guide.shape + (0,))
+  return bilateral_slice_apply(grid, guide, empty, has_offset=True)

@@ -8,7 +8,11 @@ so every pytest-xdist worker collects the same tests.
 K2 (preview downsample) must be bit-exact. K1 (fused guide + slice +
 apply) must agree to 1e-4 at float32 (another order of float32 sums,
 and FMA contraction in the kernel) and, for uint8 output, to 1 code on
-fewer than 1% of values.
+fewer than 1% of values. K3 (slice-apply) and K4's input cotangent agree
+to 1e-4; K4's guide cotangent, which carries a factor gd, to 1e-4 of its
+largest value; K5's grid cotangent, a sum over thousands of pixels, to
+2e-4 of its largest value (the JAX package's gate for its own splat
+kernel), and K5 gives the same bits on every run.
 """
 
 import numpy as np
@@ -16,7 +20,7 @@ import pytest
 import torch
 
 from hdrnet_torch.inference import Enhancer, ModelConfig
-from hdrnet_torch.ops import downsample, fused
+from hdrnet_torch.ops import downsample, fused, slice_apply, slice_ops
 
 pytestmark = pytest.mark.gpu
 
@@ -144,3 +148,117 @@ def test_serving_matches_cpu(cuda):
   for a, b in zip(on_card.stream(frames), on_cpu.stream(frames)):
     diff = a.astype(int) - b.astype(int)
     assert np.abs(diff).max() <= 1 and (diff != 0).mean() < 0.01
+
+
+def _train_inputs(seed, b, h, w, n_in, dev, gh=16, gw=16, gd=8, n_out=3):
+  """Grid, guide (with exact 0 and 1 and a band outside [0, 1]), image,
+  cotangent."""
+  rng = np.random.RandomState(seed)
+  c = n_out * (n_in + 1)
+  grid = rng.randn(b, gh, gw, gd, c).astype(np.float32)
+  guide = (rng.rand(b, h, w) * 1.2 - 0.1).astype(np.float32)
+  guide[0, :2] = 0.0
+  guide[0, 2:4] = 1.0
+  image = rng.rand(b, h, w, n_in).astype(np.float32)
+  ct = rng.randn(b, h, w, n_out).astype(np.float32)
+  return [torch.from_numpy(a).to(dev) for a in (grid, guide, image, ct)]
+
+
+def _scaled_close(got, want, rel):
+  scale = max(1.0, float(want.abs().max()))
+  torch.testing.assert_close(got, want, rtol=0, atol=rel * scale)
+
+
+TRAIN_SHAPES = [(2, 101, 60, 16, 16, 8), (2, 37, 1031, 10, 6, 8),
+                (1, 270, 481, 32, 32, 16)]
+
+
+@pytest.mark.parametrize('n_in', [0, 3])
+@pytest.mark.parametrize('shape', TRAIN_SHAPES)
+def test_slice_apply_kernels_match_plain(cuda, shape, n_in):
+  b, h, w, gh, gw, gd = shape
+  n_out = 5 if n_in == 0 else 3
+  grid, guide, image, ct = _train_inputs(6, b, h, w, n_in, cuda, gh, gw, gd,
+                                         n_out)
+  counts = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
+            slice_apply.grid_bwd_launches)
+  out = slice_apply.slice_apply_fwd(grid, guide, image)
+  d_guide, d_image = slice_apply.slice_apply_pix_bwd(grid, guide, image, ct)
+  d_grid = slice_apply.slice_apply_grid_bwd(grid.shape, guide, image, ct)
+  again = slice_apply.slice_apply_grid_bwd(grid.shape, guide, image, ct)
+  torch.cuda.synchronize()
+  assert (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
+          slice_apply.grid_bwd_launches) == (counts[0] + 1, counts[1] + 1,
+                                             counts[2] + 2)
+  torch.testing.assert_close(
+      out, slice_apply.slice_apply_fwd_plain(grid, guide, image), rtol=0,
+      atol=1e-4)
+  want_dg, want_di = slice_apply.slice_apply_pix_bwd_plain(grid, guide,
+                                                           image, ct)
+  _scaled_close(d_guide, want_dg, 1e-4)
+  torch.testing.assert_close(d_image, want_di, rtol=0, atol=1e-4)
+  _scaled_close(d_grid, slice_apply.slice_apply_grid_bwd_plain(
+      grid.shape, guide, image, ct), 2e-4)
+  assert torch.equal(d_grid, again)  # deterministic: no float atomics
+
+
+def test_slice_apply_op_grads_on_card_match_cpu(cuda):
+  """The autograd op on the card (K3, K4, K5) against the same op on the
+  CPU (the plain versions), for all three inputs and the plain slice."""
+  grid, guide, image, ct = _train_inputs(7, 2, 67, 90, 3, 'cpu', 5, 7, 8)
+  grid = grid.reshape(2, 5, 7, 8, 3, 4)
+
+  def grads(dev):
+    args = [t.to(dev).requires_grad_() for t in (grid, guide, image)]
+    out = slice_ops.bilateral_slice_apply(*args)
+    g = torch.autograd.grad((out * ct.to(dev)).sum(), args)
+    s_args = [t.to(dev).requires_grad_() for t in (grid[..., 0], guide)]
+    sl = slice_ops.bilateral_slice(*s_args)
+    g += torch.autograd.grad((sl * ct.to(dev)).sum(), s_args)
+    return [x.cpu() for x in (out,) + g]
+
+  for got, want in zip(grads(cuda), grads('cpu')):
+    _scaled_close(got, want, 2e-4)
+
+
+def test_slice_apply_wrappers_reject_bad_cuda_inputs(cuda):
+  grid, guide, image, ct = _train_inputs(8, 1, 20, 30, 3, cuda)
+  with pytest.raises(ValueError, match='contiguous'):
+    slice_apply.slice_apply_fwd(grid, guide.transpose(1, 2).contiguous()
+                                .transpose(1, 2), image)
+  with pytest.raises(TypeError, match='float32'):
+    slice_apply.slice_apply_fwd(grid.double(), guide.double(), image.double())
+  with pytest.raises(ValueError, match='devices'):
+    slice_apply.slice_apply_pix_bwd(grid, guide, image, ct.cpu())
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+  """One Adam step of a small HDRNetCurves (guide_reg on) on the card
+  (K3, K4, K5, full-float32 cuDNN) against the same step on the CPU:
+  loss to 1e-5 relative, each gradient to 1e-4 of its leaf's max."""
+  from hdrnet_torch.config import ModelConfig, TrainConfig
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.training import loop, step
+  cfg = ModelConfig(net_input_size=64, spatial_bin=8, luma_bins=4)
+  tc = TrainConfig(learning_rate=1e-3, guide_lr_scale=0.5)
+  rng = np.random.RandomState(9)
+  batch = {'lowres_input': rng.randint(0, 256, (2, 64, 64, 3)),
+           'image_input': rng.randint(0, 256, (2, 96, 130, 3)),
+           'image_output': rng.randint(0, 256, (2, 96, 130, 3))}
+  batch = {k: v.astype(np.uint8) for k, v in batch.items()}
+  runs = []
+  for dev in (cuda, torch.device('cpu')):
+    model = make_model(cfg, generator=torch.Generator().manual_seed(4))
+    model = model.to(dev)
+    state = step.create_state(model, loop.make_optimizer(model, tc))
+    counts = slice_apply.fwd_launches
+    state, m = step.make_train_step(guide_reg=0.5)(
+        state, step.to_device(batch, dev))
+    assert slice_apply.fwd_launches == counts + (dev.type == 'cuda')
+    runs.append((float(m['loss']),
+                 [p.grad.cpu() for p in model.parameters()]))
+  (loss_card, g_card), (loss_cpu, g_cpu) = runs
+  np.testing.assert_allclose(loss_card, loss_cpu, rtol=1e-5)
+  for a, b in zip(g_card, g_cpu):
+    torch.testing.assert_close(a, b, rtol=0,
+                               atol=1e-4 * float(b.abs().max()))

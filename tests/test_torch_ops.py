@@ -252,10 +252,17 @@ def test_cpu_wrappers_do_not_launch():
 
 
 def test_slice_ops_refuse_cuda_tensors():
+  """The slice ops run a kernel on CUDA tensors and the plain version on
+  CPU ones; tensors split across devices, or on any other device, are
+  refused rather than moved."""
   meta = torch.empty((1, 2, 2, 2, 3, 4), device='meta')
-  with pytest.raises(NotImplementedError, match='K3'):
+  with pytest.raises(ValueError, match='different devices'):
     slice_ops.bilateral_slice_apply(meta, torch.empty((1, 4, 4)),
                                     torch.empty((1, 4, 4, 3)))
+  with pytest.raises(ValueError, match='unsupported device'):
+    slice_ops.bilateral_slice_apply(
+        meta, torch.empty((1, 4, 4), device='meta'),
+        torch.empty((1, 4, 4, 3), device='meta'))
 
 
 def test_build_finds_nvcc_from_cuda_home_first(tmp_path, monkeypatch):
@@ -267,4 +274,5 @@ def test_build_finds_nvcc_from_cuda_home_first(tmp_path, monkeypatch):
   assert _build.find_nvcc() == str(nvcc)
   assert len(_build._source_hash()) == 16
   assert {p.name for p in _build._sources()} == {'downsample.cu',
-                                                 'fused_slice_apply.cu'}
+                                                 'fused_slice_apply.cu',
+                                                 'slice_apply.cu'}

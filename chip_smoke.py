@@ -6,13 +6,18 @@ hand-written kernels from ``hdrnet_torch/csrc`` (into
 ``build/hdrnet_torch/``) and checks each against its plain PyTorch version
 on the card. Serving: it drives ``Enhancer.process`` and
 ``Enhancer.stream`` of the default ``HDRNetCurves`` (256^2 preview,
-l8/s16, seeded weights) on 4K frames (kernels K2, K1). Training: it holds
-the CUDA path's gradients of one 2048^2 step to the plain versions', then
-trains the model at the width of ``scripts/ll/train_std.sh`` (l8/s16/cm1,
-256^2 preview, 2048^2, batch 1, Adam 1e-4) for 30 steps (kernels K3, K4,
-K5), saves, restores and serves the checkpoint. The launch counters show
-that each path ran its kernels; CUDA events time the kernels, the serving
-path and the train step.
+l8/s16, seeded weights) on 4K frames (kernels K2, K1), then those of
+``HDRNetPointwiseNNGuide`` (K2, K6) and ``HDRNetGaussianPyrNN`` (K2, one
+K6 a pyramid level) at the same widths with gc 16 and perturbed guide
+batch-norm statistics. Training: it holds the CUDA path's gradients of
+one 2048^2 step of ``HDRNetCurves`` and of ``HDRNetGaussianPyrNN`` to the
+plain versions', then trains ``HDRNetCurves`` at the width of
+``scripts/ll/train_std.sh`` (l8/s16/cm1, 256^2 preview, 2048^2, batch 1,
+Adam 1e-4) for 30 steps and ``HDRNetGaussianPyrNN`` at that of
+``scripts/ll/train_gpyrnn.sh`` (the same widths) for 20 (kernels K3, K4,
+K5), saving, restoring and serving each checkpoint. The launch counters
+show that each path ran its kernels; CUDA events time the kernels, the
+serving paths and the train steps.
 
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
@@ -23,6 +28,7 @@ any result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -43,8 +49,15 @@ K4_GUIDE_REL = 1e-4  # of max(1, max |want|): the guide cotangent carries gd
 K5_REL = 2e-4      # of max(1, max |want|): sums over ~66k pixels a cell,
                    # the JAX package's gate for its own splat kernel
 GRAD_REL = 1e-4    # model gradients, of each leaf's max |g|
-RESUME_TOL = 1e-6  # one step after a restore vs one step of the original
+# One step after a restore vs one step of the original, both with cuDNN's
+# deterministic algorithms: the restore is exact, so the bits must match.
+# (cuDNN's default weight-gradient algorithms for the backbone's convs sum
+# in no fixed order, about 1e-6 apart from run to run after Adam.)
+RESUME_TOL = 0.0
 TRAIN_STEPS = 30
+PYR_TRAIN_STEPS = 20
+NN = 'HDRNetPointwiseNNGuide'
+PYR = 'HDRNetGaussianPyrNN'
 
 
 def _nvidia_smi():
@@ -54,19 +67,42 @@ def _nvidia_smi():
   return out.strip().splitlines()[0].strip()
 
 
+def _kernel_label(mangled):
+  """'name<args>' of a mangled kernel name: float and uint8 arguments as
+  f32 and u8, a class argument (the guide functor) by its own name."""
+  k = re.search(r'([a-z][a-z_]*_kernel)(I\w*)?', mangled)
+  if not k:
+    return mangled
+  rest, i, args = k.group(2) or '', 1, []
+  while i < len(rest) and rest[i] != 'E':
+    if rest[i] in 'fh':
+      args.append({'f': 'f32', 'h': 'u8'}[rest[i]])
+      i += 1
+    elif rest[i] == 'N':  # nested name: S_ (substitution) and <len><id>
+      i += 1
+      while i < len(rest) and rest[i] != 'E':
+        if rest.startswith('S_', i):
+          i += 2
+          continue
+        n = re.match(r'\d+', rest[i:])
+        if not n:
+          return mangled
+        i += len(n.group())
+        args.append(rest[i:i + int(n.group())])
+        i += int(n.group())
+      i += 1
+    else:
+      return mangled
+  return f'{k.group(1)}<{",".join(args)}>' if args else k.group(1)
+
+
 def _ptxas_summary(log):
   """Registers, shared memory and spills per kernel from -Xptxas -v."""
   rows = []
   for line in log.splitlines():
     m = re.search(r"Compiling entry function '(\w+)'", line)
     if m:
-      k = re.search(r'([a-z][a-z_]*_kernel)(?:I(\w+?)E)?', m.group(1))
-      types = {'f': 'f32', 'h': 'u8'}
-      if k and k.group(2):
-        name = f'{k.group(1)}<{",".join(types.get(t, t) for t in k.group(2))}>'
-      else:
-        name = k.group(1) if k else m.group(1)
-      rows.append({'kernel': name})
+      rows.append({'kernel': _kernel_label(m.group(1))})
       continue
     if not rows:
       continue
@@ -228,14 +264,15 @@ def _train_batches(n, cfg, seed=7):
   return out
 
 
-def _check_model_gradients(dev, full_float32):
-  """Every parameter gradient of one 2048^2 step of the default model on
-  the CUDA path against the same step on the plain versions."""
+def _check_model_gradients(dev, full_float32, model_name='HDRNetCurves'):
+  """Every parameter gradient of one 2048^2 step of the model at the
+  default widths on the CUDA path against the same step on the plain
+  versions."""
   import hdrnet_torch.models.hdrnet as hdrnet_module
   from hdrnet_torch.config import ModelConfig
   from hdrnet_torch.models import make_model
   from hdrnet_torch.training import metrics, step
-  cfg = ModelConfig(output_resolution=list(TRAIN_HW))
+  cfg = ModelConfig(model_name=model_name, output_resolution=list(TRAIN_HW))
   model = make_model(cfg, generator=torch.Generator().manual_seed(11)).to(dev)
   batch = step.normalize_batch(step.to_device(_train_batches(1, cfg)[0], dev))
   params = list(model.parameters())
@@ -263,17 +300,32 @@ def _check_model_gradients(dev, full_float32):
     worst = max(worst, err / max(scale, 1e-30))
   if abs(float(loss) - float(want_loss)) > 1e-6 * abs(float(want_loss)):
     raise AssertionError(f'loss {float(loss)} vs plain {float(want_loss)}')
-  print(f'gradient end to end: default model, 2048^2 batch, {len(params)} '
-        f'leaves, worst |g - g_plain| / max|g_plain| {worst:.3e} (<= '
-        f'{GRAD_REL:.0e}); loss {float(loss):.6f} vs plain '
+  print(f'gradient end to end: {model_name} at the default widths, 2048^2 '
+        f'batch, {len(params)} leaves, worst |g - g_plain| / max|g_plain| '
+        f'{worst:.3e} (<= {GRAD_REL:.0e}); loss {float(loss):.6f} vs plain '
         f'{float(want_loss):.6f}', flush=True)
   return worst
 
 
-def _train_full_width(dev, tag, enh_cls):
-  """scripts/ll/train_std.sh's model and optimizer: 30 steps with one K3,
-  K4 and K5 each, save, restore, one more step each way, serve the
-  checkpoint at 4K. Returns the launch counts and timings."""
+@contextlib.contextmanager
+def _cudnn_deterministic():
+  saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+  torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+      True, False)
+  try:
+    yield
+  finally:
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+
+
+def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
+                      steps=TRAIN_STEPS):
+  """The model and optimizer of scripts/ll/train_std.sh (HDRNetCurves) or
+  train_gpyrnn.sh (HDRNetGaussianPyrNN): `steps` steps with one K3, K4
+  and K5 a slice-apply (three a step for the pyramid), save, restore, one
+  more step each way, serve the checkpoint at 4K. Returns the launch
+  counts and timings."""
   import shutil
   from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
   from hdrnet_torch.models import make_model
@@ -281,8 +333,9 @@ def _train_full_width(dev, tag, enh_cls):
   from hdrnet_torch.ops import slice_apply as sa
   from hdrnet_torch.training import loop, step
   from hdrnet_torch.training.checkpoint import Checkpointer
+  per_step = 3 if model_name == PYR else 1
   cfg = Config(
-      model=ModelConfig(model_name='HDRNetCurves', net_input_size=256,
+      model=ModelConfig(model_name=model_name, net_input_size=256,
                         output_resolution=list(TRAIN_HW), luma_bins=8,
                         spatial_bin=16, channel_multiplier=1,
                         batch_norm=False),
@@ -302,7 +355,7 @@ def _train_full_width(dev, tag, enh_cls):
   sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
   losses, emas = [], []
   t0 = time.perf_counter()
-  for i in range(TRAIN_STEPS):
+  for i in range(steps):
     state, m = train_step(state, step.to_device(host[i % 4], dev))
     losses.append(m['loss'])
     emas.append(m['ema_loss'])
@@ -311,8 +364,9 @@ def _train_full_width(dev, tag, enh_cls):
   launches = {'K3': sa.fwd_launches, 'K4': sa.pix_bwd_launches,
               'K5': sa.grid_bwd_launches}
   peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-  if launches != {'K3': TRAIN_STEPS, 'K4': TRAIN_STEPS, 'K5': TRAIN_STEPS}:
-    raise AssertionError(f'launches over {TRAIN_STEPS} steps: {launches}')
+  n = steps * per_step
+  if launches != {'K3': n, 'K4': n, 'K5': n}:
+    raise AssertionError(f'launches over {steps} steps: {launches}')
   losses = [float(x) for x in losses]
   ema = float(emas[-1])
   if not all(np.isfinite(losses)) or not ema < losses[0]:
@@ -325,33 +379,40 @@ def _train_full_width(dev, tag, enh_cls):
   Checkpointer(ckpt_dir).save(state.step, state)
   restored = Checkpointer(ckpt_dir).restore(fresh(99))
   batch = step.to_device(host[0], dev)
-  _, m_a = train_step(state, batch)
-  _, m_b = train_step(restored, batch)
+  with _cudnn_deterministic():
+    _, m_a = train_step(state, batch)
+    _, m_b = train_step(restored, batch)
   resume_err = abs(float(m_a['loss']) - float(m_b['loss']))
   for a, b in zip(state.model.parameters(), restored.model.parameters()):
     resume_err = max(resume_err, float((a - b).detach().abs().max()))
   if not resume_err <= RESUME_TOL:
-    raise AssertionError(f'resume: {resume_err:.3e} > {RESUME_TOL:.0e}')
+    raise AssertionError(f'resume: max diff {resume_err:.3e}, not '
+                         f'bit-identical')
 
-  # Serve the checkpoint: one K2 and one K1 for a 4K frame.
+  # Serve the checkpoint: one K2, and one K1 (three K6 for the pyramid)
+  # for a 4K frame.
   enh = enh_cls.from_checkpoint(ckpt_dir, device=dev)
   x = torch.rand((1, *UHD, 3), device=dev)
-  downsample.launches = fused.launches = 0
+  downsample.launches = fused.launches = fused.nn_launches = 0
   out = enh.process(x)
   torch.cuda.synchronize()
-  if (downsample.launches, fused.launches) != (1, 1):
-    raise AssertionError('serving the checkpoint did not run K2 and K1')
+  want = (1, 0, 3) if model_name == PYR else (1, 1, 0)
+  if (downsample.launches, fused.launches, fused.nn_launches) != want:
+    raise AssertionError(f'serving the checkpoint: launches K2 '
+                         f'{downsample.launches}, K1 {fused.launches}, K6 '
+                         f'{fused.nn_launches}; expected {want}')
   if out.shape != x.shape or not torch.isfinite(out).all():
     raise AssertionError('serving the checkpoint: output malformed')
   shutil.rmtree(ckpt_dir, ignore_errors=True)
-  print(f'training at full width (l8/s16/cm1, 256^2, 2048^2, b=1, Adam '
-        f'1e-4): {TRAIN_STEPS} steps, loss step 1 {losses[0]:.6f} -> step '
-        f'{TRAIN_STEPS} {losses[-1]:.6f}, EMA {ema:.6f}; launches '
-        f'{launches}; resume max diff {resume_err:.3e} (<= '
-        f'{RESUME_TOL:.0e}); checkpoint served at 4K through K2 + K1; '
-        f'{TRAIN_STEPS / first_s:.2f} steps/s over the first '
-        f'{TRAIN_STEPS} (allocator and cuDNN warm-up included); peak '
-        f'memory allocated {peak_mib:.1f} MiB {tag}', flush=True)
+  print(f'training {model_name} at full width (l8/s16/cm1, 256^2, 2048^2, '
+        f'b=1, Adam 1e-4): {steps} steps, loss step 1 {losses[0]:.6f} -> '
+        f'step {steps} {losses[-1]:.6f}, EMA {ema:.6f}; launches '
+        f'{launches}; resume max diff {resume_err:.3e} (bit-identical under '
+        f'cudnn.deterministic); checkpoint served at 4K through '
+        f'{"K2 + 3 K6" if model_name == PYR else "K2 + K1"}; '
+        f'{steps / first_s:.2f} steps/s over the first {steps} (allocator '
+        f'and cuDNN warm-up included); peak memory allocated '
+        f'{peak_mib:.1f} MiB {tag}', flush=True)
 
   # Steady-state step rate and memory.
   batches = [step.to_device(b, dev) for b in host]
@@ -365,6 +426,45 @@ def _train_full_width(dev, tag, enh_cls):
   step_ms = (time.perf_counter() - t0) * 1e3 / n
   steady_peak = torch.cuda.max_memory_allocated() / 2 ** 20
   return launches, step_ms, peak_mib, steady_peak
+
+
+def _nn_enhancer(enh_cls, name, dev, seed):
+  """An Enhancer of an NN-guide model at the default widths (gc 16), with
+  seeded weights and perturbed guide batch-norm statistics, so that the
+  fold into the kernel's parameters is exercised."""
+  from hdrnet_torch.config import ModelConfig
+  from hdrnet_torch.models import make_model
+  cfg = ModelConfig(model_name=name)
+  state = make_model(cfg, generator=torch.Generator().manual_seed(
+      seed)).state_dict()
+  gen = torch.Generator().manual_seed(seed + 1)
+  for k, v in state.items():
+    if k.startswith('guide') and '.bn.' in k:
+      if k.endswith('running_var'):
+        state[k] = 0.5 + 1.5 * torch.rand(v.shape, generator=gen)
+      else:
+        state[k] = 0.1 * torch.randn(v.shape, generator=gen)
+  return enh_cls(cfg, state, device=dev, seed=seed)
+
+
+@contextlib.contextmanager
+def _plain_serving(full_float32):
+  """Inside the block the Enhancer's entry points run the plain versions
+  of K2 and K1/K6 (in full float32), for comparison only."""
+  import hdrnet_torch.inference as inference
+  from hdrnet_torch.ops import downsample, fused
+
+  def plain(*args, **kw):
+    with full_float32():
+      return fused.enhance_fused_plain(*args, **kw)
+
+  saved = inference.enhance_fused, inference.nearest_lowres
+  inference.enhance_fused = plain
+  inference.nearest_lowres = downsample.nearest_lowres_plain
+  try:
+    yield
+  finally:
+    inference.enhance_fused, inference.nearest_lowres = saved
 
 
 def main():
@@ -531,15 +631,152 @@ def main():
     print(f'timing {tag}: {name} 4K kernel {kernel_ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms', flush=True)
 
-  # 8. Training: K3/K4/K5 vs plain, gradients end to end, then the
-  # training path at full width, its counts reset just before it.
+  # 8. K6 against its plain version at 4K: the NN-guide model's gc-16
+  # guide (BN folded) and an odd gc, f32 clip off and on, u8, on the
+  # model's backbone grid and a near-identity grid.
+  nn_enh = _nn_enhancer(Enhancer, NN, dev, seed=1)
+  nn_params = nn_enh.guide_params
+
+  def nn_grid(x):
+    grid = nn_enh._backbone_grid(downsample.nearest_lowres_plain(x, 256))
+    b, gh, gw, gd, no, ni = grid.shape
+    return grid.reshape(b, gh, gw, gd, no * ni)
+
+  def plain_k6(*args, **kw):
+    with full_float32():
+      return fused.enhance_fused_plain(*args, 'nn', **kw)
+
+  odd_gc = 7
+  pgen = torch.Generator().manual_seed(9)
+  odd_params = fused.pack_nn_params(
+      0.8 * torch.randn(4, odd_gc, generator=pgen),
+      0.8 * torch.randn(odd_gc + 1, generator=pgen)).to(dev)
+  gn4k = nn_grid(x4k)
+  k6_err = 0.0
+  for p, what in ((nn_params, 'gc 16'), (odd_params, f'gc {odd_gc}')):
+    for clip in (False, True):
+      got = fused.enhance_fused(gn4k, x4k, p, 'nn', clip_output=clip)
+      want = plain_k6(gn4k, x4k, p, clip_output=clip)
+      k6_err = max(k6_err, _max_err(got, want, K1_TOL,
+                                    f'K6 4K {what} clip={clip}'))
+  gn4k8 = nn_grid(x4k8)
+  k6_u8 = []
+  for grid in (gn4k8, 0.05 * gn4k8 + _identity_grid(1, dev)):
+    got = fused.enhance_fused(grid, x4k8, nn_params, 'nn', clip_output=True,
+                              u8_output=True)
+    want = plain_k6(grid, x4k8, nn_params, clip_output=True, u8_output=True)
+    k6_u8.append(_u8_check(got, want, 'K6 4K u8'))
+  got = fused.enhance_fused(_identity_grid(1, dev), x4k, nn_params, 'nn')
+  k6_id = _max_err(got, x4k, IDENTITY_TOL, 'K6 identity grid')
+  with torch.no_grad(), full_float32():
+    g = nn_enh.model.guide(x4k)
+  print(f'K6 enhance_fused nn: max abs err {k6_err:.3e} (<= {K1_TOL:.0e}) at '
+        f'4K f32 clip off/on, gc 16 and {odd_gc}; u8 (max codes, share '
+        f'differing) backbone grid {k6_u8[0]}, near-identity grid '
+        f'{k6_u8[1]}; identity grid max |out - in| {k6_id:.3e} (<= '
+        f'{IDENTITY_TOL:.0e}); gc-16 guide in [{float(g.min()):.4f}, '
+        f'{float(g.max()):.4f}], std {float(g.std()):.4f}', flush=True)
+
+  # 9. HDRNetPointwiseNNGuide end to end, counts reset just before.
+  torch.cuda.synchronize()
+  downsample.launches = fused.launches = fused.nn_launches = 0
+  nn_outs = [nn_enh.process(f) for f in frames]
+  torch.cuda.synchronize()
+  after_process = (downsample.launches, fused.launches, fused.nn_launches)
+  nn_outs_u8 = list(nn_enh.stream(frames_u8))
+  nn_launches = {'K2': downsample.launches, 'K1': fused.launches,
+                 'K6': fused.nn_launches}
+  if after_process != (3, 0, 3) or nn_launches != {'K2': 11, 'K1': 0,
+                                                   'K6': 11}:
+    raise AssertionError(f'{NN} launches: process {after_process}, after '
+                         f'stream {nn_launches}; expected one K2 and one K6 '
+                         f'a frame')
+  with _plain_serving(full_float32):
+    want_outs = [nn_enh.process(f) for f in frames]
+    want_u8 = list(nn_enh.stream(frames_u8))
+  nn_err = 0.0
+  for f, out, want in zip(frames, nn_outs, want_outs):
+    if out.shape != f.shape or not torch.isfinite(out).all():
+      raise AssertionError(f'{NN} process output malformed')
+    nn_err = max(nn_err, _max_err(out, want, K1_TOL, f'{NN} process'))
+  if len(nn_outs_u8) != len(frames_u8):
+    raise AssertionError(f'{NN} stream dropped frames')
+  nn_stream = [_u8_check(torch.from_numpy(a), torch.from_numpy(b),
+                         f'{NN} stream') for a, b in zip(nn_outs_u8, want_u8)]
+  print(f'end to end {NN} (256^2, l8/s16/cm1, gc 16): process x3 at 4K f32 '
+        f'max abs err {nn_err:.3e} vs the plain chain; stream x8 at 4K u8 '
+        f'in order, worst {max(nn_stream)}; launches {nn_launches}',
+        flush=True)
+
+  # 10. HDRNetGaussianPyrNN end to end: K2, the bilinear pyramid
+  # 2160x3840 -> 1080x1920 -> 540x960, one K6 a level, upsample-add, clip.
+  pyr_enh = _nn_enhancer(Enhancer, PYR, dev, seed=2)
+  pyr_frames_u8 = frames_u8[:4]
+  torch.cuda.synchronize()
+  downsample.launches = fused.launches = fused.nn_launches = 0
+  pyr_outs = [pyr_enh.process(f) for f in frames[:2]]
+  torch.cuda.synchronize()
+  after_process = (downsample.launches, fused.launches, fused.nn_launches)
+  pyr_outs_u8 = list(pyr_enh.stream(pyr_frames_u8))
+  pyr_launches = {'K2': downsample.launches, 'K1': fused.launches,
+                  'K6': fused.nn_launches}
+  if after_process != (2, 0, 6) or pyr_launches != {'K2': 6, 'K1': 0,
+                                                    'K6': 18}:
+    raise AssertionError(f'{PYR} launches: process {after_process}, after '
+                         f'stream {pyr_launches}; expected one K2 and three '
+                         f'K6 a frame')
+  with _plain_serving(full_float32):
+    want_outs = [pyr_enh.process(f) for f in frames[:2]]
+    want_u8 = list(pyr_enh.stream(pyr_frames_u8))
+  pyr_err = 0.0
+  for f, out, want in zip(frames, pyr_outs, want_outs):
+    if out.shape != f.shape or not torch.isfinite(out).all():
+      raise AssertionError(f'{PYR} process output malformed')
+    pyr_err = max(pyr_err, _max_err(out, want, K1_TOL, f'{PYR} process'))
+  if len(pyr_outs_u8) != len(pyr_frames_u8):
+    raise AssertionError(f'{PYR} stream dropped frames')
+  pyr_stream = [_u8_check(torch.from_numpy(a), torch.from_numpy(b),
+                          f'{PYR} stream')
+                for a, b in zip(pyr_outs_u8, want_u8)]
+  print(f'end to end {PYR} (256^2, l8/s16/cm1, gc 16, levels 2160x3840 -> '
+        f'1080x1920 -> 540x960): process x2 at 4K f32 max abs err '
+        f'{pyr_err:.3e} vs the plain chain; stream x4 at 4K u8 in order, '
+        f'worst {max(pyr_stream)}; launches {pyr_launches}', flush=True)
+
+  # 11. Timing of K6 and of the two new serving paths.
+  for name, args, kw in [
+      ('K6 f32', (gn4k, x4k, nn_params), {'clip_output': True}),
+      ('K6 u8', (gn4k8, x4k8, nn_params),
+       {'clip_output': True, 'u8_output': True})]:
+    plain_ms = _time_ms(lambda: plain_k6(*args, **kw), 5, warmup=1)
+    kernel_ms = _time_ms(lambda: fused.enhance_fused(*args, 'nn', **kw), 100)
+    times[name] = (kernel_ms, plain_ms)
+    print(f'timing {tag}: {name} 4K gc 16 kernel {kernel_ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms', flush=True)
+  nn_proc_ms = _time_ms(lambda: nn_enh.process(x4k), 30)
+  pyr_proc_ms = _time_ms(lambda: pyr_enh.process(x4k), 30)
+  print(f'timing {tag}: process 4K f32 {NN} {nn_proc_ms:.4f} ms/frame '
+        f'({1e3 / nn_proc_ms:.1f} fps); {PYR} {pyr_proc_ms:.4f} ms/frame '
+        f'({1e3 / pyr_proc_ms:.1f} fps)', flush=True)
+  del frames, nn_outs, pyr_outs, want_outs
+  torch.cuda.empty_cache()
+
+  # 12. Training: K3/K4/K5 vs plain, gradients end to end, then the
+  # training paths at full width, their counts reset just before each.
   from hdrnet_torch.ops import slice_apply as sa
   train_errs = _check_train_kernels(gen, dev, full_float32)
   _check_model_gradients(dev, full_float32)
+  _check_model_gradients(dev, full_float32, PYR)
   train_launches, step_ms, peak_mib, steady_peak = _train_full_width(
       dev, tag, Enhancer)
+  pyr_train_launches, pyr_step_ms, _, pyr_peak = _train_full_width(
+      dev, tag, Enhancer, PYR, PYR_TRAIN_STEPS)
+  print(f'timing {tag}: {PYR} train step at full width {pyr_step_ms:.4f} ms '
+        f'({1e3 / pyr_step_ms:.2f} steps/s, host clock over 20 steps); '
+        f'peak memory allocated during those steps {pyr_peak:.1f} MiB',
+        flush=True)
 
-  # 9. Training timing: the kernels at 2048^2 b=1 against their plain
+  # 13. Training timing: the kernels at 2048^2 b=1 against their plain
   # versions, and their share of a train step.
   g5, guide, image, ct = _train_inputs(gen, 1, TRAIN_HW, 3, dev)
   for name, kernel, plain, args in [
@@ -569,6 +806,12 @@ def main():
        'replaces': 'hdrnet_tpu/ops/pallas.py:635',
        'launches': launches['K1'], 'max_abs_err': k1_err,
        'ms': times['K1 f32'][0], 'plain_ms': times['K1 f32'][1]},
+      {'name': 'K6 enhance_fused nn (NN guide + slice + apply)',
+       'route': 'cuda', 'source': 'hdrnet_torch/csrc/fused_slice_apply.cu',
+       'replaces': 'hdrnet_tpu/ops/pallas.py:529',
+       'launches': nn_launches['K6'] + pyr_launches['K6'],
+       'max_abs_err': k6_err, 'ms': times['K6 f32'][0],
+       'plain_ms': times['K6 f32'][1]},
       {'name': 'K2 nearest_lowres (preview downsample)', 'route': 'cuda',
        'source': 'hdrnet_torch/csrc/downsample.cu',
        'replaces': 'hdrnet_tpu/ops/downsample.py:75',

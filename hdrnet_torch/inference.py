@@ -1,12 +1,16 @@
-"""Serving path for ``HDRNetCurves`` (counterpart of
+"""Serving path of the HDRNet models (counterpart of
 ``hdrnet_tpu.inference.Enhancer``).
 
 Per frame: cut the nearest preview from the frame (kernel K2,
 ``ops.downsample``), run the coefficient CNN on it (plain torch convs in
-full float32), and do the curves guide, slice, affine apply and clip at
-full resolution in one pass (kernel K1, ``ops.fused``). On a CUDA
-device the kernels run; on the CPU the same sequence runs their plain
-versions. The device is given by the caller.
+full float32), and do the guide, slice, affine apply and clip at full
+resolution in one pass (``ops.fused``): kernel K1 for ``HDRNetCurves``'s
+curves guide, K6 for ``HDRNetPointwiseNNGuide``'s NN guide. For
+``HDRNetGaussianPyrNN`` the frame's bilinear pyramid is built in torch,
+K6 runs once a level on its 3-output block of the grid, and the levels
+are upsampled and added coarse to fine before one clip. On a CUDA device
+the kernels run; on the CPU the same sequence runs their plain versions.
+The device is given by the caller.
 
 ``ModelConfig`` (from the standard-library-only ``hdrnet_tpu.config``) is
 re-exported here, so callers of the port need no ``hdrnet_tpu`` import.
@@ -22,11 +26,16 @@ import torch
 
 from hdrnet_tpu.config import Config, ModelConfig
 from hdrnet_torch.models import make_model
-from hdrnet_torch.ops.downsample import nearest_lowres
+from hdrnet_torch.models.hdrnet import (HDRNetGaussianPyrNN, gaussian_pyramid,
+                                        upsample_add)
+from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 
-__all__ = ['Enhancer', 'ModelConfig', 'full_float32']
+__all__ = ['Enhancer', 'ModelConfig', 'SERVED_MODELS', 'full_float32']
+
+SERVED_MODELS = ('HDRNetCurves', 'HDRNetPointwiseNNGuide',
+                 'HDRNetGaussianPyrNN')
 
 
 @contextlib.contextmanager
@@ -49,7 +58,7 @@ def full_float32():
 
 
 class Enhancer:
-  """Serves full-resolution enhancement with an ``HDRNetCurves`` model.
+  """Serves full-resolution enhancement with one of ``SERVED_MODELS``.
 
   config: the ``ModelConfig``. state_dict: converted weights
   (``hdrnet_torch.convert``); without them the model is initialised from
@@ -58,8 +67,8 @@ class Enhancer:
 
   def __init__(self, config: ModelConfig, state_dict=None, *, device='cpu',
                seed=0):
-    if config.model_name != 'HDRNetCurves':
-      raise ValueError(f'only HDRNetCurves is served so far, got '
+    if config.model_name not in SERVED_MODELS:
+      raise ValueError(f'the port serves {SERVED_MODELS}, got '
                        f'{config.model_name!r}')
     if (config.n_in, config.n_out) != (3, 3):
       raise ValueError('the fused kernel serves 3-channel in and out')
@@ -69,7 +78,15 @@ class Enhancer:
       model.load_state_dict(state_dict)
     self.model = model.to(device).eval()
     self.device = next(self.model.parameters()).device
-    self.guide_params = self.model.guide.packed_params()
+    self.pyramid = isinstance(model, HDRNetGaussianPyrNN)
+    # Packed guide parameters, one vector a guide (BN folded for the NN
+    # guides); for the pyramid one a level, finest first.
+    if self.pyramid:
+      self.guide_mode = 'nn'
+      self.guide_params = [g.packed_params() for g in model.level_guides()]
+    else:
+      self.guide_mode = model.guide.guide_mode
+      self.guide_params = model.guide.packed_params()
 
   @classmethod
   def from_checkpoint(cls, checkpoint_dir, device='cpu'):
@@ -92,12 +109,23 @@ class Enhancer:
       return self.model.coefficients(lowres)
 
   def _fused_forward(self, lowres, frame, clip, u8_output=False):
-    """Backbone on the NCHW preview, then K1 on the NHWC frame."""
+    """Backbone on the NCHW preview, then K1 or K6 on the NHWC frame; for
+    the pyramid, K6 on each level, the coarse-to-fine sum, then the clip
+    (the levels are summed before it, so it cannot ride on the kernel)."""
     grid = self._backbone_grid(lowres)
-    b, gh, gw, gd, no, ni1 = grid.shape
-    packed = grid.reshape(b, gh, gw, gd, no * ni1)
-    return enhance_fused(packed, frame, self.guide_params, clip_output=clip,
-                         u8_output=u8_output)
+    b, gh, gw, gd, _, ni1 = grid.shape
+    if not self.pyramid:
+      packed = grid.reshape(b, gh, gw, gd, -1)
+      return enhance_fused(packed, frame, self.guide_params, self.guide_mode,
+                           clip_output=clip, u8_output=u8_output)
+    levels = gaussian_pyramid(frame, len(self.guide_params))
+    current = None
+    for il, (lvl, params) in enumerate(zip(levels[::-1],
+                                           self.guide_params[::-1])):
+      sub = grid[..., 3 * il:3 * (il + 1), :].reshape(b, gh, gw, gd, 3 * ni1)
+      out = enhance_fused(sub.contiguous(), lvl.contiguous(), params, 'nn')
+      current = out if current is None else upsample_add(current, out)
+    return torch.clamp(current, 0.0, 1.0) if clip else current
 
   def __call__(self, lowres, fullres, clip=True):
     """Enhance with a given NHWC preview: (b, s, s, 3), (b, H, W, 3)."""
@@ -106,16 +134,20 @@ class Enhancer:
     return self._fused_forward(lowres.permute(0, 3, 1, 2), fullres, clip)
 
   def process(self, frame, clip=True):
-    """Enhance one (B, H, W, 3) frame end to end: preview downsample,
-    coefficients, guide + slice + apply."""
+    """Enhance one (B, H, W, 3) float32 frame end to end: preview
+    downsample, coefficients, guide + slice + apply (per level for the
+    pyramid)."""
     self._check_frame(frame)
     low = nearest_lowres(frame, self.model_cfg.net_input_size)
     return self._fused_forward(low, frame, clip)
 
   def make_stream_fn(self, full_shape):
     """uint8-in, uint8-out pipeline step for frames of `full_shape`
-    (B, H, W, 3) on the device: K2 and K1 dequantize in the kernel and
-    K1 requantizes the clipped result, so the frame stays uint8."""
+    (B, H, W, 3) on the device: K2 and K1 (K6) dequantize in the kernel
+    and K1 (K6) requantizes the clipped result, so the frame stays uint8.
+    The pyramid dequantizes the frame to float32, runs, clips and
+    requantizes as trunc(x * 255 + 0.5) in torch, as the JAX package's
+    fallback does."""
     full_shape = tuple(full_shape)
     s = self.model_cfg.net_input_size
 
@@ -125,7 +157,11 @@ class Enhancer:
                          f'{frame_u8.dtype} {tuple(frame_u8.shape)}')
       self._check_frame(frame_u8)
       low = nearest_lowres(frame_u8, s)
-      return self._fused_forward(low, frame_u8, clip=True, u8_output=True)
+      if not self.pyramid:
+        return self._fused_forward(low, frame_u8, clip=True, u8_output=True)
+      out = self._fused_forward(low, to_unit(frame_u8), clip=True)
+      # Two roundings (the product, then the sum), then truncation.
+      return (out * 255.0 + 0.5).to(torch.int32).to(torch.uint8)
     return fn
 
   def stream(self, frames, depth=2):

@@ -1,9 +1,13 @@
-"""Model registry. Ported so far: ``HDRNetCurves``."""
+"""Model registry. Ported so far: the three HDRNet models."""
 
-from hdrnet_torch.models.hdrnet import CoefficientBackbone, HDRNetCurves
+from hdrnet_torch.models.hdrnet import (CoefficientBackbone, HDRNetCurves,
+                                        HDRNetGaussianPyrNN,
+                                        HDRNetPointwiseNNGuide)
 
 MODELS = {
     'HDRNetCurves': HDRNetCurves,
+    'HDRNetPointwiseNNGuide': HDRNetPointwiseNNGuide,
+    'HDRNetGaussianPyrNN': HDRNetGaussianPyrNN,
 }
 
 __all__ = list(MODELS) + ['MODELS', 'CoefficientBackbone', 'make_model']

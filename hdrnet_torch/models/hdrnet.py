@@ -1,10 +1,13 @@
-"""HDRNet with the curves guide (counterpart of
-``hdrnet_tpu.models.hdrnet``: ``CoefficientBackbone`` and ``HDRNetCurves``).
+"""The HDRNet models (counterparts of ``hdrnet_tpu.models.hdrnet``):
+``CoefficientBackbone``, ``HDRNetCurves``, ``HDRNetPointwiseNNGuide`` and
+``HDRNetGaussianPyrNN``.
 
 A low-res coefficient CNN predicts a bilateral grid of affine color
 transforms; a pointwise full-res guide indexes the grid; slice-apply
-does the full-resolution work. Submodule and parameter names follow the
-Flax modules, so :mod:`hdrnet_torch.convert` maps weights by name.
+does the full-resolution work. The pyramid model does so on each level
+of a bilinear Gaussian pyramid and adds the levels coarse to fine.
+Submodule and parameter names follow the Flax modules, so
+:mod:`hdrnet_torch.convert` maps weights by name.
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from hdrnet_tpu.config import ModelConfig
-from hdrnet_torch.models.guides import CurveGuide
+from hdrnet_torch.models.guides import CurveGuide, PointwiseNNGuide
 from hdrnet_torch.models.layers import ConvBlock, DenseBlock
+from hdrnet_torch.ops.resize import resize_bilinear
 from hdrnet_torch.ops.slice_ops import bilateral_slice_apply
 
 
@@ -105,10 +109,81 @@ class HDRNetCurves(nn.Module):
     self.n_in_tot = cfg.n_in + 1  # affine offset
     self.coefficients = CoefficientBackbone(cfg, self.n_out, self.n_in_tot,
                                             generator)
-    self.guide = CurveGuide(cfg.n_in, generator=generator)
+    self.guide = self.make_guide(cfg, generator)
+
+  @staticmethod
+  def make_guide(cfg, generator):
+    return CurveGuide(cfg.n_in, generator=generator)
 
   def forward(self, lowres, fullres, return_guide=False):
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     guide = self.guide(fullres)
     out = bilateral_slice_apply(grid, guide, fullres, has_offset=True)
     return (out, guide) if return_guide else out
+
+
+class HDRNetPointwiseNNGuide(HDRNetCurves):
+  """``HDRNetCurves`` with the pointwise NN guide; served by kernel K6."""
+
+  @staticmethod
+  def make_guide(cfg, generator):
+    return PointwiseNNGuide(cfg.n_in, cfg.guide_complexity,
+                            generator=generator)
+
+
+def gaussian_pyramid(x, n_scales):
+  """[x, x/2, x/4, ...]: NHWC levels, finest first, each the bilinear
+  (align_corners) resize of the one before to (h // 2, w // 2)."""
+  levels = [x]
+  for _ in range(n_scales - 1):
+    h, w = levels[-1].shape[1:3]
+    levels.append(resize_bilinear(levels[-1], (h // 2, w // 2),
+                                  align_corners=True))
+  return levels
+
+
+def upsample_add(current, level_out):
+  """One coarse-to-fine step: `current` resized bilinearly (align_corners)
+  to `level_out`'s extent, plus `level_out`."""
+  return resize_bilinear(current, level_out.shape[1:3],
+                         align_corners=True) + level_out
+
+
+class HDRNetGaussianPyrNN(nn.Module):
+  """Multi-scale variant: a 3-level bilinear Gaussian pyramid of the
+  full-res input, one NN guide (``guide_level_{l}``, finest first) and
+  one 3-output slice of the grid per level, summed coarse to fine.
+
+  The backbone predicts ``n_out = 3 * n_scales`` outputs; grid output
+  block ``il`` (channels 3 il .. 3 il + 2) belongs to the il-th
+  *coarsest* level. ``forward(lowres, fullres, return_guide=False)``
+  takes NHWC tensors; ``return_guide=True`` also returns the list of
+  level guides, finest first (the order the Flax model sows them).
+  """
+
+  n_scales = 3
+
+  def __init__(self, cfg: ModelConfig, generator=None):
+    super().__init__()
+    self.cfg = cfg
+    self.n_out = 3 * self.n_scales
+    self.n_in_tot = cfg.n_in + 1
+    self.coefficients = CoefficientBackbone(cfg, self.n_out, self.n_in_tot,
+                                            generator)
+    for il in range(self.n_scales):
+      self.add_module(f'guide_level_{il}', PointwiseNNGuide(
+          cfg.n_in, cfg.guide_complexity, generator=generator))
+
+  def level_guides(self):
+    return [getattr(self, f'guide_level_{il}') for il in range(self.n_scales)]
+
+  def forward(self, lowres, fullres, return_guide=False):
+    grid = self.coefficients(lowres.permute(0, 3, 1, 2))
+    levels = gaussian_pyramid(fullres, self.n_scales)
+    guides = [g(lvl) for g, lvl in zip(self.level_guides(), levels)]
+    current = None
+    for il, (lvl, guide) in enumerate(zip(levels[::-1], guides[::-1])):
+      out = bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
+                                  lvl, has_offset=True)
+      current = out if current is None else upsample_add(current, out)
+    return (current, guides) if return_guide else current

@@ -7,8 +7,9 @@ happens at first use, into ``build/hdrnet_torch/<hash>/`` at the root of
 the checkout, keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and
 flags, so a fresh checkout builds once and an edited source rebuilds.
 
-No ``--use_fast_math``: the kernels rely on IEEE division (u8 / 255) and
-IEEE ``sqrt`` (the smoothed depth tent) to match the plain versions.
+No ``--use_fast_math``: the kernels rely on IEEE division (u8 / 255),
+IEEE ``sqrt`` (the smoothed depth tent) and the accurate ``expf`` (the NN
+guide's sigmoid) to match the plain versions.
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ _SIGNATURES = {
     # sy, sx, stream
     'hdrnet_enhance_fused': (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _F, _F, _P),
+    # grid, frame, u8_in, params, gc, out, u8_out, clip, b, h, w, gh, gw,
+    # gd, sy, sx, stream
+    'hdrnet_enhance_fused_nn': (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _F, _P),
     # grid, guide, image, out, b, h, w, gh, gw, gd, n_in, n_out,
     # has_offset, sy, sx, stream
     'hdrnet_slice_apply_fwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,11 +1,14 @@
-"""Fused curves guide + bilateral slice + affine apply, kernel K1.
+"""Fused guide + bilateral slice + affine apply: kernels K1 and K6.
 
-``enhance_fused`` is the serving op of ``HDRNetCurves``: from an NHWC
-frame and the packed bilateral grid it computes the curves guide per
-pixel, slices the grid trilinearly at it, applies the 3x4 affine, and
+``enhance_fused`` is the serving op of the HDRNet models: from an NHWC
+frame and the packed bilateral grid it computes the guide per pixel,
+slices the grid trilinearly at it, applies the 3x4 affine, and
 optionally clips and requantizes to uint8. It has the semantics of
-``hdrnet_tpu.ops.pallas.enhance_fused`` in curves mode, on NHWC frames
-instead of channel-first ones.
+``hdrnet_tpu.ops.pallas.enhance_fused`` on NHWC frames instead of
+channel-first ones, in its two guide modes: ``'curves'`` (K1, the
+``HDRNetCurves`` guide) and ``'nn'`` (K6, the pointwise MLP guide of
+``HDRNetPointwiseNNGuide`` and of each ``HDRNetGaussianPyrNN`` level,
+with its batch norm folded into the first layer).
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/fused_slice_apply.cu``; on a CPU tensor it runs
@@ -28,9 +31,15 @@ N_CHANNELS = N_OUT * (N_IN + 1)  # packed grid channels
 # Packed guide parameters: ccm_ext (4, 3) | shifts (3, 16) | slopes (3, 16)
 # | mix (4,), the layout csrc/fused_slice_apply.cu reads.
 N_PARAMS = (N_IN + 1) * N_IN + 2 * N_IN * N_PTS + N_IN + 1
+# The NN guide's width bound: its (N_IN + 2) * gc + 1 packed parameters
+# are staged in the kernel's static shared memory (kMaxGC there).
+MAX_GUIDE_COMPLEXITY = 64
+GUIDE_MODES = ('curves', 'nn')
 
-# Kernel launches by enhance_fused (never by the plain version).
+# Kernel launches by enhance_fused (never by the plain version): K1 in
+# curves mode, K6 in NN mode.
 launches = 0
+nn_launches = 0
 
 
 def pack_curves_params(ccm_ext, curves, mix):
@@ -101,7 +110,59 @@ def curves_guide(img, ccm_ext, shifts, slopes, mix):
   return _Clip01.apply(acc + mix[n])
 
 
-def _check(grid5, frame, params, clip_output, u8_output):
+def pack_nn_params(w1_ext, w2_ext):
+  """Packs the NN guide's parameters into one ((n_in+2)*gc + 1,) float32
+  vector: w1_ext (n_in+1, gc) row-major (conv1 with the batch norm
+  folded in, the bias as its last row), then w2_ext (gc+1,) (conv2, the
+  bias last). (The tuple ``hdrnet_tpu.inference._nn_guide_params``
+  returns.)"""
+  w1_ext = torch.as_tensor(w1_ext, dtype=torch.float32)
+  w2_ext = torch.as_tensor(w2_ext, dtype=torch.float32).reshape(-1)
+  if w1_ext.ndim != 2 or w1_ext.shape[0] != N_IN + 1:
+    raise ValueError(f'w1_ext must be ({N_IN + 1}, gc), got '
+                     f'{tuple(w1_ext.shape)}')
+  if w2_ext.numel() != w1_ext.shape[1] + 1:
+    raise ValueError(f'w2_ext must hold gc + 1 = {w1_ext.shape[1] + 1} '
+                     f'values, got {w2_ext.numel()}')
+  return torch.cat([w1_ext.reshape(-1), w2_ext]).contiguous()
+
+
+def nn_guide_complexity(params):
+  """gc of a packed NN-guide vector; raises on a length no gc gives, or
+  a gc above MAX_GUIDE_COMPLEXITY."""
+  n = params.numel()
+  gc, rem = divmod(n - 1, N_IN + 2)
+  if rem or gc < 1:
+    raise ValueError(f'NN guide params must pack (n_in+2)*gc + 1 values, '
+                     f'got {n}')
+  if gc > MAX_GUIDE_COMPLEXITY:
+    raise ValueError(f'guide complexity {gc} > {MAX_GUIDE_COMPLEXITY}, the '
+                     'kernel\'s shared-memory bound')
+  return gc
+
+
+def _unpack_nn(params):
+  gc = nn_guide_complexity(params)
+  w1_ext = params[:(N_IN + 1) * gc].reshape(N_IN + 1, gc)
+  return w1_ext, params[(N_IN + 1) * gc:]
+
+
+def nn_guide(img, w1_ext, w2_ext):
+  """(..., n) float32 image -> (...) guide in (0, 1): the pointwise MLP
+  sigmoid(w2 . relu(W1^T x + b1) + b2), with the batch norm already
+  folded into W1 and b1.
+
+  w1_ext (n+1, gc) with the bias last; w2_ext (gc+1,) with the bias
+  last. Two matrix products on the frame's last axis: full float32 on
+  the CPU, and on the card when TF32 matmuls are off (``full_float32``).
+  """
+  n = img.shape[-1]
+  hidden = torch.relu(img @ w1_ext[:n] + w1_ext[n])
+  w2_ext = w2_ext.reshape(-1)
+  return torch.sigmoid(hidden @ w2_ext[:-1] + w2_ext[-1])
+
+
+def _check(grid5, frame, params, clip_output, u8_output, guide_mode):
   if u8_output and not clip_output:
     raise ValueError('u8 output requires clip_output=True')
   if grid5.ndim != 5 or grid5.shape[-1] != N_CHANNELS:
@@ -117,18 +178,30 @@ def _check(grid5, frame, params, clip_output, u8_output):
     raise TypeError('grid and params must be float32')
   if frame.dtype not in (torch.float32, torch.uint8):
     raise TypeError(f'frame must be float32 or uint8, got {frame.dtype}')
-  if params.shape != (N_PARAMS,):
-    raise ValueError(f'params must be packed ({N_PARAMS},), got '
+  if guide_mode not in GUIDE_MODES:
+    raise ValueError(f'guide_mode must be one of {GUIDE_MODES}, got '
+                     f'{guide_mode!r}')
+  if params.ndim != 1:
+    raise ValueError(f'params must be a packed vector, got '
                      f'{tuple(params.shape)}')
+  if guide_mode == 'curves' and params.shape != (N_PARAMS,):
+    raise ValueError(f'curves params must be packed ({N_PARAMS},), got '
+                     f'{tuple(params.shape)}')
+  if guide_mode == 'nn':
+    nn_guide_complexity(params)
 
 
-def enhance_fused_plain(grid5, frame, params, clip_output=False,
-                        u8_output=False):
-  """Plain-torch K1: (B, gh, gw, gd, 12) grid, (B, H, W, 3) frame ->
-  (B, H, W, 3) float32, or uint8 with ``u8_output``."""
-  _check(grid5, frame, params, clip_output, u8_output)
+def enhance_fused_plain(grid5, frame, params, guide_mode='curves',
+                        clip_output=False, u8_output=False):
+  """Plain-torch K1 (curves) and K6 (nn): (B, gh, gw, gd, 12) grid,
+  (B, H, W, 3) frame -> (B, H, W, 3) float32, or uint8 with
+  ``u8_output``."""
+  _check(grid5, frame, params, clip_output, u8_output, guide_mode)
   img = to_unit(frame)
-  guide = curves_guide(img, *_unpack(params))
+  if guide_mode == 'curves':
+    guide = curves_guide(img, *_unpack(params))
+  else:
+    guide = nn_guide(img, *_unpack_nn(params))
   b, gh, gw, gd, _ = grid5.shape
   grid6 = grid5.reshape(b, gh, gw, gd, N_OUT, N_IN + 1)
   out = ref.bilateral_slice_apply(grid6, guide, img, has_offset=True)
@@ -139,26 +212,32 @@ def enhance_fused_plain(grid5, frame, params, clip_output=False,
   return out
 
 
-def enhance_fused(grid5, frame, params, clip_output=False, u8_output=False):
+def enhance_fused(grid5, frame, params, guide_mode='curves',
+                  clip_output=False, u8_output=False):
   """Fused guide + slice + apply.
 
   grid5: (B, gh, gw, gd, 12) float32, the packed grid (channel
     i * 4 + j holds affine entry [i, j]; j = 3 is the offset).
   frame: (B, H, W, 3) float32, or uint8 (divided by 255 in the kernel).
-  params: (112,) float32 from ``pack_curves_params``.
+  params: the packed guide parameters: (112,) float32 from
+    ``pack_curves_params`` for ``guide_mode='curves'``; ((n_in+2)*gc + 1,)
+    float32 from ``pack_nn_params`` for ``'nn'``, gc <=
+    MAX_GUIDE_COMPLEXITY.
   clip_output: clip to [0, 1]. u8_output: requantize the clipped result
     to uint8 as trunc(v * 255 + 0.5); needs ``clip_output``.
   Returns (B, H, W, 3) float32 or uint8.
 
-  CUDA tensors: kernel K1. CPU tensors: ``enhance_fused_plain``.
+  CUDA tensors: kernel K1 (curves) or K6 (nn). CPU tensors:
+  ``enhance_fused_plain``.
   """
-  global launches
-  _check(grid5, frame, params, clip_output, u8_output)
+  global launches, nn_launches
+  _check(grid5, frame, params, clip_output, u8_output, guide_mode)
   devices = {grid5.device, frame.device, params.device}
   if len(devices) != 1:
     raise ValueError(f'tensors on different devices: {devices}')
   if frame.device.type == 'cpu':
-    return enhance_fused_plain(grid5, frame, params, clip_output, u8_output)
+    return enhance_fused_plain(grid5, frame, params, guide_mode, clip_output,
+                               u8_output)
   if frame.device.type != 'cuda':
     raise ValueError(f'unsupported device {frame.device}')
   for name, t in (('grid', grid5), ('frame', frame), ('params', params)):
@@ -172,12 +251,24 @@ def enhance_fused(grid5, frame, params, clip_output=False, u8_output=False):
                     dtype=torch.uint8 if u8_output else torch.float32,
                     device=frame.device)
   lib = _build.library().lib
+  u8_in = int(frame.dtype == torch.uint8)
   with torch.cuda.device(frame.device):
     stream = torch.cuda.current_stream(frame.device).cuda_stream
-    err = lib.hdrnet_enhance_fused(
-        grid5.data_ptr(), frame.data_ptr(), int(frame.dtype == torch.uint8),
-        params.data_ptr(), out.data_ptr(), int(u8_output), int(clip_output),
-        b, h, w, gh, gw, gd, gh / h, gw / w, stream)
-  _build.check(err, 'hdrnet_enhance_fused')
-  launches += 1
+    if guide_mode == 'curves':
+      name = 'hdrnet_enhance_fused'
+      err = lib.hdrnet_enhance_fused(
+          grid5.data_ptr(), frame.data_ptr(), u8_in, params.data_ptr(),
+          out.data_ptr(), int(u8_output), int(clip_output), b, h, w, gh, gw,
+          gd, gh / h, gw / w, stream)
+    else:
+      name = 'hdrnet_enhance_fused_nn'
+      err = lib.hdrnet_enhance_fused_nn(
+          grid5.data_ptr(), frame.data_ptr(), u8_in, params.data_ptr(),
+          nn_guide_complexity(params), out.data_ptr(), int(u8_output),
+          int(clip_output), b, h, w, gh, gw, gd, gh / h, gw / w, stream)
+  _build.check(err, name)
+  if guide_mode == 'curves':
+    launches += 1
+  else:
+    nn_launches += 1
   return out

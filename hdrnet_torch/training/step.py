@@ -95,7 +95,9 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
   batch: tensors with the keys lowres_input, lowres_output (unused by the
   loss, as in the reference), image_input, image_output; integer dtypes
   are normalized on the device. guide_reg > 0 adds the guide-range hinge
-  guide_reg * relu(guide_reg_target - std(guide))^2 to the loss.
+  guide_reg * relu(guide_reg_target - std(guide))^2 to the loss; for a
+  model with several guide maps (the pyramid's levels), the mean of the
+  maps' hinges, as the JAX step takes it.
   """
 
   def step(state, batch):
@@ -109,7 +111,9 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
       target = batch['image_output']
       loss = metrics.l2_loss(target, out)
       if guide_reg > 0.0:
-        loss = loss + guide_reg * guide_range_hinge(guide, guide_reg_target)
+        guides = guide if isinstance(guide, (list, tuple)) else [guide]
+        hinges = [guide_range_hinge(g, guide_reg_target) for g in guides]
+        loss = loss + guide_reg * sum(hinges) / len(hinges)
       opt.zero_grad(set_to_none=True)
       loss.backward()
       opt.step()

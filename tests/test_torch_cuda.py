@@ -5,14 +5,14 @@ the card with ``python -m pytest -m gpu tests/test_torch_cuda.py``. The
 card is looked for inside a fixture, never at import or collection time,
 so every pytest-xdist worker collects the same tests.
 
-K2 (preview downsample) must be bit-exact. K1 (fused guide + slice +
-apply) must agree to 1e-4 at float32 (another order of float32 sums,
-and FMA contraction in the kernel) and, for uint8 output, to 1 code on
-fewer than 1% of values. K3 (slice-apply) and K4's input cotangent agree
-to 1e-4; K4's guide cotangent, which carries a factor gd, to 1e-4 of its
-largest value; K5's grid cotangent, a sum over thousands of pixels, to
-2e-4 of its largest value (the JAX package's gate for its own splat
-kernel), and K5 gives the same bits on every run.
+K2 (preview downsample) must be bit-exact. K1 and K6 (fused curves or NN
+guide + slice + apply) must agree to 1e-4 at float32 (another order of
+float32 sums, and FMA contraction in the kernel) and, for uint8 output,
+to 1 code on fewer than 1% of values. K3 (slice-apply) and K4's input
+cotangent agree to 1e-4; K4's guide cotangent, which carries a factor
+gd, to 1e-4 of its largest value; K5's grid cotangent, a sum over
+thousands of pixels, to 2e-4 of its largest value (the JAX package's
+gate for its own splat kernel), and K5 gives the same bits on every run.
 """
 
 import numpy as np
@@ -127,6 +127,106 @@ def test_wrappers_reject_bad_cuda_inputs(cuda):
     fused.enhance_fused(grid, frame.cpu(), params)
   with pytest.raises(ValueError, match='contiguous'):
     downsample.nearest_lowres(frame.transpose(1, 2), 8)
+
+
+def _nn_inputs(seed, b, h, w, gc, dev, u8):
+  """A backbone-like grid, a frame, and packed NN-guide parameters whose
+  guide spreads over (0, 1)."""
+  grid, frame, _ = _inputs(seed, b, h, w, dev, u8)
+  rng = np.random.RandomState(seed + 100)
+  w1_ext = rng.randn(4, gc) * 0.8
+  w2_ext = rng.randn(gc + 1) * 0.8
+  params = fused.pack_nn_params(torch.tensor(w1_ext), torch.tensor(w2_ext))
+  return grid, frame, params.to(dev)
+
+
+@pytest.mark.parametrize('gc', [4, 16])
+@pytest.mark.parametrize('b', [1, 2])
+@pytest.mark.parametrize('u8_in,u8_out,clip', [
+    (False, False, False), (False, False, True), (True, True, True),
+    (True, False, False)])
+def test_fused_nn_kernel(cuda, gc, b, u8_in, u8_out, clip):
+  """K6: f32 clip off and on, u8 -> u8, u8 -> f32, at 101x60."""
+  grid, frame, params = _nn_inputs(5, b, 101, 60, gc, cuda, u8_in)
+  counts = (fused.launches, fused.nn_launches)
+  got = fused.enhance_fused(grid, frame, params, 'nn', clip_output=clip,
+                            u8_output=u8_out)
+  assert (fused.launches, fused.nn_launches) == (counts[0], counts[1] + 1)
+  want = fused.enhance_fused_plain(grid, frame, params, 'nn',
+                                   clip_output=clip, u8_output=u8_out)
+  torch.cuda.synchronize()
+  assert got.shape == frame.shape and got.dtype == want.dtype
+  if u8_out:
+    diff = (got.int() - want.int()).cpu().numpy()
+    assert np.abs(diff).max() <= 1
+    assert (diff != 0).mean() < 0.01
+  else:
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_fused_nn_kernel_identity_grid(cuda):
+  _, frame, params = _nn_inputs(6, 1, 135, 241, 16, cuda, u8=False)
+  grid = torch.zeros((1, 16, 16, 8, 12), device=cuda)
+  for i in range(3):
+    grid[..., i * 4 + i] = 1.0
+  got = fused.enhance_fused(grid, frame, params, 'nn')
+  torch.testing.assert_close(got, frame, rtol=0, atol=2e-4)
+
+
+def test_fused_nn_kernel_checks_its_arguments(cuda):
+  grid, frame, params = _nn_inputs(7, 1, 32, 48, 16, cuda, u8=False)
+  too_wide = torch.zeros(5 * (fused.MAX_GUIDE_COMPLEXITY + 1) + 1,
+                         device=cuda)
+  with pytest.raises(ValueError, match='complexity'):
+    fused.enhance_fused(grid, frame, too_wide, 'nn')
+  with pytest.raises(ValueError, match='gc'):
+    fused.enhance_fused(grid, frame, params[:-2], 'nn')
+  with pytest.raises(ValueError, match='devices'):
+    fused.enhance_fused(grid, frame, params.cpu(), 'nn')
+  with pytest.raises(ValueError, match='contiguous'):
+    fused.enhance_fused(grid, frame.transpose(1, 2), params, 'nn')
+
+
+def test_resize_bilinear_gradient_is_deterministic(cuda):
+  """The pyramid's upsample backward gathers in a fixed order: the same
+  bits on every run (index_select's scatter-add would not give them)."""
+  from hdrnet_torch.ops import resize
+  x = torch.rand((1, 540, 960, 3), device=cuda, requires_grad=True)
+  probe = torch.randn((1, 1080, 1920, 3), device=cuda)
+  grads = []
+  for _ in range(3):
+    out = resize.resize_bilinear(x, (1080, 1920), align_corners=True)
+    grads.append(torch.autograd.grad((out * probe).sum(), x)[0])
+  assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+  x64 = x.detach().cpu().double().requires_grad_()
+  out = resize.resize_bilinear(x64, (1080, 1920), align_corners=True)
+  want = torch.autograd.grad((out * probe.cpu().double()).sum(), x64)[0]
+  torch.testing.assert_close(grads[0].cpu().double(), want, rtol=0,
+                             atol=1e-4)
+
+
+@pytest.mark.parametrize('name', ['HDRNetPointwiseNNGuide',
+                                  'HDRNetGaussianPyrNN'])
+def test_nn_serving_matches_cpu(cuda, name):
+  """process and stream of the NN-guide models on the card (K2, K6, and
+  for the pyramid the torch levels and upsample-add) against the same
+  seeded model on the CPU."""
+  cfg = ModelConfig(model_name=name)
+  on_card = Enhancer(cfg, device=cuda, seed=4)
+  on_cpu = Enhancer(cfg, device='cpu', seed=4)
+  rng = np.random.RandomState(6)
+  frame = torch.from_numpy(rng.rand(2, 301, 533, 3).astype(np.float32))
+  counts = (downsample.launches, fused.nn_launches)
+  got = on_card.process(frame.to(cuda)).cpu()
+  k6 = 3 if name == 'HDRNetGaussianPyrNN' else 1
+  assert (downsample.launches, fused.nn_launches) == (counts[0] + 1,
+                                                      counts[1] + k6)
+  torch.testing.assert_close(got, on_cpu.process(frame), rtol=0, atol=1e-4)
+  frames = [(rng.rand(1, 301, 533, 3) * 255).astype(np.uint8)
+            for _ in range(2)]
+  for a, b in zip(on_card.stream(frames), on_cpu.stream(frames)):
+    diff = a.astype(int) - b.astype(int)
+    assert np.abs(diff).max() <= 1 and (diff != 0).mean() < 0.01
 
 
 def test_serving_matches_cpu(cuda):

@@ -1,11 +1,12 @@
 """hdrnet_torch never imports JAX.
 
-The machine with the card has no JAX, so the port must import, serve and
-train without it: no module under ``hdrnet_torch/`` may import jax, flax,
-optax, or any ``hdrnet_tpu`` module but the JAX-free ones it reuses: the
-standard-library-only ``hdrnet_tpu.config``, the host input pipeline
-``hdrnet_tpu.data`` (numpy and PIL; imported inside ``train`` only) and
-the flag-to-config mapping of ``hdrnet_tpu.bin.train``.
+The machine with the card has no JAX, so the port must import, serve
+(all three HDRNet models) and train without it: no module under
+``hdrnet_torch/`` may import jax, flax, optax, or any ``hdrnet_tpu``
+module but the JAX-free ones it reuses: the standard-library-only
+``hdrnet_tpu.config``, the host input pipeline ``hdrnet_tpu.data`` (numpy
+and PIL; imported inside ``train`` only) and the flag-to-config mapping
+of ``hdrnet_tpu.bin.train``.
 """
 
 import ast
@@ -71,6 +72,11 @@ cfg = ModelConfig(net_input_size=64, spatial_bin=8, luma_bins=4)
 enh = Enhancer(cfg, device='cpu')
 out = enh.process(torch.rand(1, 40, 48, 3))
 assert out.shape == (1, 40, 48, 3), out.shape
+for name in ('HDRNetPointwiseNNGuide', 'HDRNetGaussianPyrNN'):
+  nn_cfg = ModelConfig(model_name=name, net_input_size=64, spatial_bin=8,
+                       luma_bins=4, guide_complexity=4)
+  out = Enhancer(nn_cfg, device='cpu').process(torch.rand(1, 41, 47, 3))
+  assert out.shape == (1, 41, 47, 3), (name, out.shape)
 print('served without jax')
 
 from hdrnet_torch.config import TrainConfig

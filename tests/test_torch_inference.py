@@ -93,5 +93,7 @@ def test_cpu_serving_launches_no_kernel(enhancers):
 
 
 def test_enhancer_serves_only_curves():
+  """The Enhancer serves the three HDRNet models and refuses any model
+  the port does not have, such as the UNet baseline."""
   with pytest.raises(ValueError, match='HDRNetCurves'):
-    Enhancer(ModelConfig(model_name='HDRNetPointwiseNNGuide'))
+    Enhancer(ModelConfig(model_name='UNet'))

@@ -19,11 +19,27 @@ K5), saving, restoring and serving each checkpoint. The launch counters
 show that each path ran its kernels; CUDA events time the kernels, the
 serving paths and the train steps.
 
+Any frame size and giant frames: it holds K7 (the offset and
+total-extent arguments of K1 and K6) to its plain version on 4K bands
+and the bands to the whole-frame kernel bit for bit; serves one
+4320x7680 frame through ``Enhancer.enhance_sharded`` in four H-bands on
+the card for all three models (bit-identical to ``process``, within
+K1_TOL of the same bands on the plain versions, 4 K1, 4 K6 and 12 K6
+launches), timed in turns with ``process``, and times K7 on those 8K
+bands in turns with the whole-frame kernel; serves four photo
+sizes through ``bin/run.py``'s per-image function
+(``Enhancer.enhance_any``) for all three models against the plain chain;
+and holds K2 to its plain version at the JAX row-gather variant's cases
+(K2g).
+
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
-object describing each kernel, and ``{"ok": true, "device": ...}``.
-Without a CUDA device, or outside a checkout, it fails before printing
-any result. It imports nothing of JAX.
+object describing each kernel (its launches on the path that runs it,
+its error, its time, its plain version's, and the least time the card
+could take for its work, from its bytes at 3.35 TB/s and its float32
+operations at 67 TFLOP/s), and ``{"ok": true, "device": ...}``. Without
+a CUDA device, or outside a checkout, it fails before printing any
+result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +56,8 @@ import torch
 
 UHD = (2160, 3840)
 FHD = (1080, 1920)
+EIGHT_K = (4320, 7680)  # 4320 = 4 bands x 4 (the pyramid's two halvings)
+PHOTO_SIZES = ((3024, 4032), (4032, 3024), (1365, 2047), (723, 1085))
 TRAIN_HW = (2048, 2048)
 K1_TOL = 1e-4      # float32 sums in another order, FMA contraction
 IDENTITY_TOL = 2e-4  # the smoothed depth tent's own deficit, 1 - sqrt(1e-8)
@@ -58,6 +76,48 @@ TRAIN_STEPS = 30
 PYR_TRAIN_STEPS = 20
 NN = 'HDRNetPointwiseNNGuide'
 PYR = 'HDRNetGaussianPyrNN'
+
+# The least time the card could take (H100 SXM data sheet at 700 W): the
+# larger of the bytes a kernel must move over the memory rate and its
+# float32 operations over the non-tensor float32 rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations a pixel (an FMA counts two), from the kernels' code:
+# curves guide 3 x (3 FMA + 16 x (sub, max, FMA) + FMA) + add + clip; NN
+# guide gc x (3 FMA, max, FMA) + the sigmoid (4); slice + apply: the y and
+# x taps (14 each), the depth taps (15), 12 corner weights, 8 corners x
+# 12 FMA, the 3 x 3 FMA affine and the clip; K4: the taps and weights
+# with their depth derivatives (68), 8 corners x 12 x 2 FMA, and the
+# 15-FMA contraction into d_guide; K5, a padded pixel: the C = 12
+# products, the weights (30) and 4 cells x 2 depth bins x 12 FMA.
+CURVES_GUIDE_OPS = 219
+SLICE_APPLY_OPS = 271
+K4_OPS = 482
+K5_OPS = 234
+
+
+def _nn_guide_ops(gc):
+  return 9 * gc + 4
+
+
+def _bound(n_bytes, n_ops):
+  """(ms, 'bytes' or 'operations'): the least time for the work."""
+  t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+  t_ops = n_ops / F32_OPS_PER_S * 1e3
+  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _nbytes(*tensors):
+  return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _fused_bound(grid, frame, params, guide_ops, out_u8=False, reads=1):
+  """Bound of K1/K6/K7 on this frame: the frame read once, the grid and
+  parameters `reads` times (once a band), the output written once."""
+  out_bytes = frame.numel() * (1 if out_u8 else 4)
+  pixels = frame.numel() // 3
+  return _bound(_nbytes(frame) + reads * _nbytes(grid, params) + out_bytes,
+                pixels * (guide_ops + SLICE_APPLY_OPS))
 
 
 def _nvidia_smi():
@@ -324,8 +384,9 @@ def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
   """The model and optimizer of scripts/ll/train_std.sh (HDRNetCurves) or
   train_gpyrnn.sh (HDRNetGaussianPyrNN): `steps` steps with one K3, K4
   and K5 a slice-apply (three a step for the pyramid), save, restore, one
-  more step each way, serve the checkpoint at 4K. Returns the launch
-  counts and timings."""
+  more step each way, evaluate the checkpoint through bin/evaluate.py's
+  functions (training graph and serving path), serve it at 4K. Returns
+  the launch counts and timings."""
   import shutil
   from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
   from hdrnet_torch.models import make_model
@@ -389,6 +450,32 @@ def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
     raise AssertionError(f'resume: max diff {resume_err:.3e}, not '
                          f'bit-identical')
 
+  # Evaluate the checkpoint as bin/evaluate.py does, on the four batches:
+  # the training graph (one K3 a slice-apply) and the serving path (one
+  # K1, or three K6), counts reset just before each; the PSNRs agree.
+  from hdrnet_torch.bin import evaluate
+  from hdrnet_torch.training.checkpoint import latest_checkpoint, load
+  weights = load(latest_checkpoint(ckpt_dir))['model']
+  psnrs, eval_launches = {}, {}
+  for serving in (False, True):
+    fwd = evaluate.make_forward(cfg.model, weights, dev, serving)
+    torch.cuda.synchronize()
+    sa.fwd_launches = fused.launches = fused.nn_launches = 0
+    psnrs[serving] = [evaluate.evaluate_batch(fwd, b, dev)[0] for b in host]
+    torch.cuda.synchronize()
+    eval_launches[serving] = (sa.fwd_launches, fused.launches,
+                              fused.nn_launches)
+  want = {False: (4 * per_step, 0, 0),
+          True: (0, 0, 12) if model_name == PYR else (0, 4, 0)}
+  if eval_launches != want:
+    raise AssertionError(f'evaluate launches (K3, K1, K6) {eval_launches}; '
+                         f'expected {want}')
+  eval_rel = max(abs(a - b) / abs(b) for a, b in zip(psnrs[True],
+                                                     psnrs[False]))
+  if not (np.isfinite(psnrs[False]).all() and eval_rel <= 1e-5):
+    raise AssertionError(f'evaluate PSNRs: serving {psnrs[True]}, training '
+                         f'graph {psnrs[False]}')
+
   # Serve the checkpoint: one K2, and one K1 (three K6 for the pyramid)
   # for a 4K frame.
   enh = enh_cls.from_checkpoint(ckpt_dir, device=dev)
@@ -408,7 +495,11 @@ def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
         f'b=1, Adam 1e-4): {steps} steps, loss step 1 {losses[0]:.6f} -> '
         f'step {steps} {losses[-1]:.6f}, EMA {ema:.6f}; launches '
         f'{launches}; resume max diff {resume_err:.3e} (bit-identical under '
-        f'cudnn.deterministic); checkpoint served at 4K through '
+        f'cudnn.deterministic); bin/evaluate.py on 4 batches: PSNR '
+        f'{np.mean(psnrs[False]):.4f} dB (training graph) vs '
+        f'{np.mean(psnrs[True]):.4f} dB (serving), worst rel diff '
+        f'{eval_rel:.2e} (<= 1e-5), launches (K3, K1, K6) {eval_launches}; '
+        f'checkpoint served at 4K through '
         f'{"K2 + 3 K6" if model_name == PYR else "K2 + K1"}; '
         f'{steps / first_s:.2f} steps/s over the first {steps} (allocator '
         f'and cuDNN warm-up included); peak memory allocated '
@@ -449,22 +540,84 @@ def _nn_enhancer(enh_cls, name, dev, seed):
 
 @contextlib.contextmanager
 def _plain_serving(full_float32):
-  """Inside the block the Enhancer's entry points run the plain versions
-  of K2 and K1/K6 (in full float32), for comparison only."""
+  """Inside the block the Enhancer's entry points and bin/run.py's
+  per-image function run the plain versions of K2 and K1/K6/K7 (in full
+  float32), for comparison only."""
   import hdrnet_torch.inference as inference
+  from hdrnet_torch.bin import run
   from hdrnet_torch.ops import downsample, fused
 
   def plain(*args, **kw):
     with full_float32():
       return fused.enhance_fused_plain(*args, **kw)
 
-  saved = inference.enhance_fused, inference.nearest_lowres
+  saved = (inference.enhance_fused, inference.nearest_lowres,
+           run.nearest_lowres)
   inference.enhance_fused = plain
   inference.nearest_lowres = downsample.nearest_lowres_plain
+  run.nearest_lowres = downsample.nearest_lowres_plain
   try:
     yield
   finally:
-    inference.enhance_fused, inference.nearest_lowres = saved
+    (inference.enhance_fused, inference.nearest_lowres,
+     run.nearest_lowres) = saved
+
+
+def _check_k7(cases, x, x8, full_float32):
+  """K7 at 4K, for each (grid, u8 grid, params, mode): the four H-bands
+  and a band with a column offset against the plain version with the
+  same offsets (K1_TOL), the bands against the whole-frame kernel (bit
+  for bit), and one u8 -> u8 band (1 code on < 1%, and bit for bit
+  against the whole frame). Returns the max error and the u8 stats."""
+  from hdrnet_torch.ops import fused
+  h, w = x.shape[1:3]
+  hl = h // 4
+  err, u8_stats = 0.0, []
+
+  def plain(*args, **kw):
+    with full_float32():
+      return fused.enhance_fused_plain(*args, **kw)
+
+  def same(got, want, what):
+    diff = float((got.float() - want.float()).abs().max())
+    if diff != 0.0:
+      raise AssertionError(f'{what}: {diff} from the whole-frame kernel')
+
+  for grid, grid8, params, mode in cases:
+    whole = fused.enhance_fused(grid, x, params, mode, clip_output=True)
+    bands = []
+    for i in range(4):
+      band = x[:, i * hl:(i + 1) * hl]
+      kw = dict(clip_output=True, y_offset=i * hl, h_total=h)
+      got = fused.enhance_fused(grid, band, params, mode, **kw)
+      err = max(err, _max_err(got, plain(grid, band, params, mode, **kw),
+                              K1_TOL, f'K7 {mode} band {i}'))
+      bands.append(got)
+    same(torch.cat(bands, 1), whole, f'K7 {mode} four bands')
+    y0, x0, cw = h // 3, 2 * w // 5, w // 4
+    tile = x[:, y0:y0 + hl, x0:x0 + cw].contiguous()
+    kw = dict(clip_output=True, y_offset=y0, x_offset=x0, h_total=h,
+              w_total=w)
+    got = fused.enhance_fused(grid, tile, params, mode, **kw)
+    err = max(err, _max_err(got, plain(grid, tile, params, mode, **kw),
+                            K1_TOL, f'K7 {mode} tile'))
+    same(got, whole[:, y0:y0 + hl, x0:x0 + cw], f'K7 {mode} tile')
+    band8 = x8[:, hl:2 * hl]
+    kw = dict(clip_output=True, u8_output=True, y_offset=hl, h_total=h)
+    got = fused.enhance_fused(grid8, band8, params, mode, **kw)
+    u8_stats.append(_u8_check(got, plain(grid8, band8, params, mode, **kw),
+                              f'K7 {mode} u8 band'))
+    whole8 = fused.enhance_fused(grid8, x8, params, mode, clip_output=True,
+                                 u8_output=True)
+    same(got, whole8[:, hl:2 * hl], f'K7 {mode} u8 band')
+  torch.cuda.synchronize()
+  print(f'K7 enhance_fused bands: max abs err {err:.3e} (<= {K1_TOL:.0e}) '
+        f'vs plain at 4K f32, curves and NN gc 16, four {hl}-row H-bands '
+        f'and a {hl}x{cw} tile at ({y0}, {x0}); bands and tile equal the '
+        f'whole-frame kernel bit for bit; u8 band (max codes, share '
+        f'differing) {u8_stats}, bit for bit against the whole frame',
+        flush=True)
+  return err
 
 
 def main():
@@ -761,7 +914,154 @@ def main():
   del frames, nn_outs, pyr_outs, want_outs
   torch.cuda.empty_cache()
 
-  # 12. Training: K3/K4/K5 vs plain, gradients end to end, then the
+  # 12. K7 against its plain version at 4K: H-bands and a tile, curves
+  # (K1) and NN (K6, gc 16), f32 and one u8 band.
+  k7_err = _check_k7([(g4k, g4k8, params, 'curves'),
+                      (gn4k, gn4k8, nn_params, 'nn')], x4k, x4k8,
+                     full_float32)
+
+  # 13. enhance_sharded: one 8K frame in four H-bands on this card, all
+  # three models, against process on the same frame (bit for bit) and
+  # against the same bands on the plain versions; the counts reset just
+  # before each and read just after; then the two timed in turns.
+  x8k = frame(1, EIGHT_K)
+  low8k = downsample.nearest_lowres(x8k, 256).permute(0, 2, 3, 1)
+  bands = [dev] * 4
+  k7_launches = 0
+  sharded_err = 0.0
+  for name, e in (('HDRNetCurves', enh), (NN, nn_enh), (PYR, pyr_enh)):
+    want = e.process(x8k)
+    torch.cuda.synchronize()
+    downsample.launches = fused.launches = fused.nn_launches = 0
+    fused.band_launches = 0
+    got = e.enhance_sharded(low8k, x8k, bands)
+    torch.cuda.synchronize()
+    counts = (fused.launches, fused.nn_launches, fused.band_launches)
+    k7_launches += fused.band_launches
+    expect = {'HDRNetCurves': (4, 0, 4), NN: (0, 4, 4), PYR: (0, 12, 12)}
+    if counts != expect[name] or downsample.launches:
+      raise AssertionError(f'{name} enhance_sharded launches (K1, K6, K7) '
+                           f'{counts}, K2 {downsample.launches}; expected '
+                           f'{expect[name]} and no K2')
+    if got.shape != x8k.shape or not torch.equal(got, want):
+      raise AssertionError(f'{name} enhance_sharded: not bit-identical to '
+                           f'process, max diff '
+                           f'{float((got - want).abs().max())}')
+    with _plain_serving(full_float32):
+      want = e.enhance_sharded(low8k, x8k, bands)
+    err = _max_err(got, want, K1_TOL, f'{name} enhance_sharded vs plain')
+    sharded_err = max(sharded_err, err)
+    del got, want
+
+    def sharded():
+      low = downsample.nearest_lowres(x8k, 256).permute(0, 2, 3, 1)
+      return e.enhance_sharded(low, x8k, bands)
+    turns = [_time_ms(lambda: e.process(x8k), 10), _time_ms(sharded, 10),
+             _time_ms(sharded, 10), _time_ms(lambda: e.process(x8k), 10)]
+    print(f'enhance_sharded {name} at 8K f32 (4320x7680, four bands on '
+          f'one card): bit-identical to process; max abs err {err:.3e} (<= '
+          f'{K1_TOL:.0e}) vs the plain bands; launches (K1, K6, K7) '
+          f'{counts}; timing {tag}, in turns process / sharded / sharded / '
+          f'process: {" / ".join(f"{t:.4f}" for t in turns)} ms',
+          flush=True)
+
+  # K7's time on the bands counted above: the four 1080-row bands of the
+  # 8K frame, each mode in turns with the whole frame in one kernel. The
+  # NN mode's (16 of the 20 launches) goes into the kernels line.
+  h8 = EIGHT_K[0] // 4
+  k7_turns = {}
+  for mode, grid8k, p in (('curves', backbone_grid(x8k), params),
+                          ('nn', nn_grid(x8k), nn_params)):
+
+    def four_bands(fn, grid8k=grid8k, p=p, mode=mode):
+      return lambda: [fn(grid8k, x8k[:, i * h8:(i + 1) * h8], p, mode,
+                         clip_output=True, y_offset=i * h8,
+                         h_total=EIGHT_K[0]) for i in range(4)]
+
+    def whole(grid8k=grid8k, p=p, mode=mode):
+      return fused.enhance_fused(grid8k, x8k, p, mode, clip_output=True)
+    k7_turns[mode] = [_time_ms(whole, 50),
+                      _time_ms(four_bands(fused.enhance_fused), 50),
+                      _time_ms(four_bands(fused.enhance_fused), 50),
+                      _time_ms(whole, 50)]
+  k7_plain_ms = _time_ms(four_bands(plain_k1), 2, warmup=1)
+  times['K7'] = ((k7_turns['nn'][1] + k7_turns['nn'][2]) / 2, k7_plain_ms)
+  k7_bound = _fused_bound(grid8k, x8k, nn_params, _nn_guide_ops(
+      fused.nn_guide_complexity(nn_params)), reads=4)
+  print(f'timing {tag}: K7 four {h8}-row bands of an 8K f32 frame, in turns '
+        f'whole frame / bands / bands / whole frame: curves '
+        f'{" / ".join(f"{t:.4f}" for t in k7_turns["curves"])} ms; NN gc 16 '
+        f'{" / ".join(f"{t:.4f}" for t in k7_turns["nn"])} ms; plain NN '
+        f'bands {k7_plain_ms:.4f} ms; bound of the NN bands '
+        f'{k7_bound[0]:.4f} ms ({k7_bound[1]})', flush=True)
+  # A band of a batch of frames is not contiguous, so enhance_sharded
+  # copies it: the cost of the four band copies of a b=2 8K frame.
+  x8k2 = frame(2, EIGHT_K)
+  h8 = EIGHT_K[0] // 4
+  copy_ms = _time_ms(lambda: [x8k2[:, i * h8:(i + 1) * h8].contiguous()
+                              for i in range(4)], 10)
+  print(f'timing {tag}: the four band copies of a b=2 8K f32 frame '
+        f'({_nbytes(x8k2) / 1e6:.1f} MB) {copy_ms:.4f} ms', flush=True)
+  del x8k, low8k, x8k2
+  torch.cuda.empty_cache()
+
+  # 14. enhance_any through bin/run.py's per-image function: four photo
+  # sizes for each model, the counts reset just before and read just
+  # after, against the plain chain; then the time of each.
+  from hdrnet_torch.bin import run as run_cli
+  photos = [frame(1, hw)[0] for hw in PHOTO_SIZES]
+  photos[-1] = photos[-1].cpu().numpy()  # a host array, as main reads
+  torch.cuda.synchronize()
+  downsample.launches = fused.launches = fused.nn_launches = 0
+  fused.band_launches = 0
+  any_outs = {name: [run_cli.enhance_image(e, p)[0] for p in photos]
+              for name, e in (('HDRNetCurves', enh), (NN, nn_enh),
+                              (PYR, pyr_enh))}
+  torch.cuda.synchronize()
+  any_launches = {'K2': downsample.launches, 'K1': fused.launches,
+                  'K6': fused.nn_launches, 'K7': fused.band_launches}
+  if any_launches != {'K2': 12, 'K1': 4, 'K6': 16, 'K7': 0}:
+    raise AssertionError(f'enhance_any launches {any_launches}; expected '
+                         f'one K2 a photo, one K1 or K6 a photo (three '
+                         f'for the pyramid)')
+  any_err, any_ms = 0.0, {}
+  for name, e in (('HDRNetCurves', enh), (NN, nn_enh), (PYR, pyr_enh)):
+    with _plain_serving(full_float32):
+      wants = [run_cli.enhance_image(e, p)[0] for p in photos]
+    for hw, got, want in zip(PHOTO_SIZES, any_outs[name], wants):
+      if got.shape != (1, *hw, 3) or not torch.isfinite(got).all():
+        raise AssertionError(f'{name} enhance_any {hw}: output malformed')
+      any_err = max(any_err, _max_err(got, want, K1_TOL,
+                                      f'{name} enhance_any {hw}'))
+    any_ms[name] = [_time_ms(lambda: run_cli.enhance_image(e, p), 10)
+                    for p in photos]
+  del any_outs, wants
+  print(f'enhance_any through bin/run.py at {PHOTO_SIZES}, three models: '
+        f'exact shapes, max abs err {any_err:.3e} (<= {K1_TOL:.0e}) vs the '
+        f'plain chain; launches {any_launches}; timing {tag} ms a photo '
+        f'(preview, backbone, kernels): {json.dumps(any_ms)}', flush=True)
+
+  # 15. K2g: the JAX row-gather variant's cases on K2's kernel, bit-exact.
+  k2g_err = 0.0
+  for b, hw, s_out, u8 in [(3, (135, 240), 64, False),
+                           (3, (135, 240), 64, True), (4, UHD, 256, False)]:
+    x = frame(b, hw, u8)
+    k2g_err = max(k2g_err, _max_err(downsample.nearest_lowres(x, s_out),
+                                    downsample.nearest_lowres_plain(x, s_out),
+                                    0.0, f'K2g b={b} {hw} u8={u8}'))
+  x4k_b4 = x
+  k2g_ms = _time_ms(lambda: downsample.nearest_lowres(x4k_b4, 256), 100)
+  k2g_plain_ms = _time_ms(
+      lambda: downsample.nearest_lowres_plain(x4k_b4, 256), 20)
+  times['K2g'] = (k2g_ms, k2g_plain_ms)
+  print(f'K2g (K2 at the gather cases): max abs err {k2g_err} vs plain at '
+        f'b=3 135x240 -> 64 f32/u8 and 4K b=4 -> 256 f32; timing {tag}: 4K '
+        f'b=4 kernel {k2g_ms:.4f} ms, plain {k2g_plain_ms:.4f} ms',
+        flush=True)
+  del x, x4k_b4
+  torch.cuda.empty_cache()
+
+  # 16. Training: K3/K4/K5 vs plain, gradients end to end, then the
   # training paths at full width, their counts reset just before each.
   from hdrnet_torch.ops import slice_apply as sa
   train_errs = _check_train_kernels(gen, dev, full_float32)
@@ -776,7 +1076,7 @@ def main():
         f'peak memory allocated during those steps {pyr_peak:.1f} MiB',
         flush=True)
 
-  # 13. Training timing: the kernels at 2048^2 b=1 against their plain
+  # 17. Training timing: the kernels at 2048^2 b=1 against their plain
   # versions, and their share of a train step.
   g5, guide, image, ct = _train_inputs(gen, 1, TRAIN_HW, 3, dev)
   for name, kernel, plain, args in [
@@ -800,39 +1100,67 @@ def main():
         f'{share:.1%} of a step; peak memory allocated during those steps '
         f'{steady_peak:.1f} MiB', flush=True)
 
-  kernels = [
-      {'name': 'K1 enhance_fused (curves guide + slice + apply)',
-       'route': 'cuda', 'source': 'hdrnet_torch/csrc/fused_slice_apply.cu',
-       'replaces': 'hdrnet_tpu/ops/pallas.py:635',
-       'launches': launches['K1'], 'max_abs_err': k1_err,
-       'ms': times['K1 f32'][0], 'plain_ms': times['K1 f32'][1]},
-      {'name': 'K6 enhance_fused nn (NN guide + slice + apply)',
-       'route': 'cuda', 'source': 'hdrnet_torch/csrc/fused_slice_apply.cu',
-       'replaces': 'hdrnet_tpu/ops/pallas.py:529',
-       'launches': nn_launches['K6'] + pyr_launches['K6'],
-       'max_abs_err': k6_err, 'ms': times['K6 f32'][0],
-       'plain_ms': times['K6 f32'][1]},
-      {'name': 'K2 nearest_lowres (preview downsample)', 'route': 'cuda',
-       'source': 'hdrnet_torch/csrc/downsample.cu',
-       'replaces': 'hdrnet_tpu/ops/downsample.py:75',
-       'launches': launches['K2'], 'max_abs_err': k2_err,
-       'ms': times['K2 f32'][0], 'plain_ms': times['K2 f32'][1]},
-      {'name': 'K3 slice_apply_fwd (slice + apply, external guide)',
-       'route': 'cuda', 'source': 'hdrnet_torch/csrc/slice_apply.cu',
-       'replaces': 'hdrnet_tpu/ops/pallas.py:570',
-       'launches': train_launches['K3'], 'max_abs_err': train_errs['K3'],
-       'ms': times['K3'][0], 'plain_ms': times['K3'][1]},
-      {'name': 'K4 slice_apply_pix_bwd (guide and input cotangents)',
-       'route': 'cuda', 'source': 'hdrnet_torch/csrc/slice_apply.cu',
-       'replaces': 'hdrnet_tpu/ops/pallas.py:694',
-       'launches': train_launches['K4'], 'max_abs_err': train_errs['K4'],
-       'ms': times['K4'][0], 'plain_ms': times['K4'][1]},
-      {'name': 'K5 slice_apply_grid_bwd (grid cotangent, deterministic)',
-       'route': 'cuda', 'source': 'hdrnet_torch/csrc/slice_apply.cu',
-       'replaces': 'hdrnet_tpu/ops/pallas.py:757',
-       'launches': train_launches['K5'], 'max_abs_err': train_errs['K5'],
-       'ms': times['K5'][0], 'plain_ms': times['K5'][1]},
+  # The least time each kernel could take at the shapes it was timed at.
+  k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)
+  gc = fused.nn_guide_complexity(nn_params)
+  k6_bound = _fused_bound(gn4k, x4k, nn_params, _nn_guide_ops(gc))
+  pixels = TRAIN_HW[0] * TRAIN_HW[1]
+  grid_bytes = _nbytes(g5)
+  pad_y, pad_x = (-(-TRAIN_HW[0] // (2 * 16)), -(-TRAIN_HW[1] // (2 * 16)))
+  padded = (TRAIN_HW[0] + 2 * pad_y) * (TRAIN_HW[1] + 2 * pad_x)
+  bounds = {
+      'K1': k1_bound, 'K6': k6_bound, 'K7': k7_bound,
+      # K2 reads only the sampled pixels and writes the preview.
+      'K2': _bound(3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0),
+      'K2g': _bound(4 * 3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0),
+      # K3: grid, guide, image in; output out.
+      'K3': _bound(grid_bytes + pixels * (1 + 3 + 3) * 4,
+                   pixels * SLICE_APPLY_OPS),
+      # K4 as timed (d_guide only): grid, guide, image, ct in; d_guide out.
+      'K4': _bound(grid_bytes + pixels * (1 + 3 + 3 + 1) * 4,
+                   pixels * K4_OPS),
+      # K5: guide, image, ct in; the grid cotangent out; every padded
+      # pixel's splat.
+      'K5': _bound(grid_bytes + pixels * (1 + 3 + 3) * 4, padded * K5_OPS),
+  }
+  rows = [
+      ('K1', 'K1 enhance_fused (curves guide + slice + apply)',
+       'hdrnet_torch/csrc/fused_slice_apply.cu',
+       'hdrnet_tpu/ops/pallas.py:635', launches['K1'], k1_err, 'K1 f32'),
+      ('K6', 'K6 enhance_fused nn (NN guide + slice + apply)',
+       'hdrnet_torch/csrc/fused_slice_apply.cu',
+       'hdrnet_tpu/ops/pallas.py:529',
+       nn_launches['K6'] + pyr_launches['K6'], k6_err, 'K6 f32'),
+      ('K7', 'K7 enhance_fused band (offset and total extent of K1/K6; '
+       'timed on four 1080-row NN gc-16 bands of an 8K frame)',
+       'hdrnet_torch/csrc/fused_slice_apply.cu',
+       'hdrnet_tpu/ops/pallas.py:446', k7_launches,
+       max(k7_err, sharded_err), 'K7'),
+      ('K2', 'K2 nearest_lowres (preview downsample)',
+       'hdrnet_torch/csrc/downsample.cu', 'hdrnet_tpu/ops/downsample.py:75',
+       launches['K2'], k2_err, 'K2 f32'),
+      ('K2g', 'K2g nearest_lowres gather variant (K2\'s kernel)',
+       'hdrnet_torch/csrc/downsample.cu',
+       'hdrnet_tpu/ops/downsample.py:177', any_launches['K2'], k2g_err,
+       'K2g'),
+      ('K3', 'K3 slice_apply_fwd (slice + apply, external guide)',
+       'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:570',
+       train_launches['K3'], train_errs['K3'], 'K3'),
+      ('K4', 'K4 slice_apply_pix_bwd (guide and input cotangents)',
+       'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:694',
+       train_launches['K4'], train_errs['K4'], 'K4'),
+      ('K5', 'K5 slice_apply_grid_bwd (grid cotangent, deterministic)',
+       'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:757',
+       train_launches['K5'], train_errs['K5'], 'K5'),
   ]
+  # No single PyTorch call computes any of these functions: grid_sample
+  # has no smoothed depth tent and interpolate another nearest table.
+  kernels = [{'name': name, 'route': 'cuda', 'source': source,
+              'replaces': replaces, 'launches': n, 'max_abs_err': err,
+              'ms': times[key][0], 'plain_ms': times[key][1],
+              'bound_ms': bounds[kid][0], 'bound_by': bounds[kid][1],
+              'library_ms': None}
+             for kid, name, source, replaces, n, err, key in rows]
   print(smi)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

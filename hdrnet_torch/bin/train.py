@@ -3,8 +3,9 @@
 
 The flags and the ``Config`` they build are those of
 ``hdrnet_tpu.bin.train`` (CLI parity with the reference
-bin/train.py:187-246); the model names are the port's. Trains on the
-first CUDA device, else on the CPU.
+bin/train.py:187-246); the model names are the port's. Trains on
+``--device``: CUDA by default, and it raises without a CUDA device;
+``--device cpu`` trains on the plain versions of the kernels.
 
 Example:
   python -m hdrnet_torch.bin.train ckpt/ data/train/filelist.txt \\
@@ -17,12 +18,12 @@ from __future__ import annotations
 import argparse
 import logging
 
-from hdrnet_tpu.bin.train import config_from_args
+from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from hdrnet_torch.data import PIPELINES
 from hdrnet_torch.models import MODELS
 
 
 def build_parser():
-  from hdrnet_tpu.data import PIPELINES  # needs PIL
   p = argparse.ArgumentParser(description=__doc__)
   req = p.add_argument_group('required')
   req.add_argument('checkpoint_dir', help='directory to save checkpoints')
@@ -56,6 +57,9 @@ def build_parser():
                  help='(data, spatial) mesh; the port takes only 1 1')
   t.add_argument('--profile_dir', default=None,
                  help='write a torch.profiler trace of steps 10-15 here')
+  t.add_argument('--device', default='cuda',
+                 help="torch device to train on ('cpu' for the plain "
+                      'versions of the kernels)')
 
   d = p.add_argument_group('data pipeline')
   d.add_argument('--batch_size', default=16, type=int)
@@ -93,6 +97,56 @@ def build_parser():
   return p
 
 
+def config_from_args(args):
+  """The Config of the parsed flags (``hdrnet_tpu.bin.train``'s mapping)."""
+  n_in = 6 if args.data_pipeline == 'StyleTransferDataPipeline' else 3
+  return Config(
+      model=ModelConfig(
+          model_name=args.model_name,
+          net_input_size=args.net_input_size,
+          output_resolution=list(args.output_resolution),
+          luma_bins=args.luma_bins,
+          spatial_bin=args.spatial_bin,
+          channel_multiplier=args.channel_multiplier,
+          guide_complexity=args.guide_complexity,
+          batch_norm=args.batch_norm,
+          n_in=n_in,
+          depth=args.depth,
+          width=args.width),
+      data=DataConfig(
+          pipeline=args.data_pipeline,
+          batch_size=args.batch_size,
+          output_resolution=list(args.output_resolution),
+          net_input_size=args.net_input_size,
+          fliplr=args.fliplr,
+          flipud=args.flipud,
+          rotate=args.rotate,
+          random_crop=args.random_crop,
+          cache_images=args.cache_images,
+          device_normalize=args.device_normalize,
+          device_data=args.device_data,
+          data_threads=args.data_threads,
+          blur_sigma=args.blur_sigma,
+          sharpen=args.sharpen),
+      train=TrainConfig(
+          learning_rate=args.learning_rate,
+          lr_schedule=args.lr_schedule,
+          lr_decay_steps=args.lr_decay_steps,
+          lr_end=args.lr_end,
+          lr_warmup_steps=args.lr_warmup_steps,
+          guide_lr_scale=args.guide_lr_scale,
+          guide_reg=args.guide_reg,
+          guide_reg_target=args.guide_reg_target,
+          log_interval=args.log_interval,
+          summary_interval=args.summary_interval,
+          checkpoint_interval=args.checkpoint_interval,
+          eval_interval=args.eval_interval,
+          max_steps=args.max_steps,
+          seed=args.seed,
+          mesh_shape=args.mesh_shape,
+          profile_dir=args.profile_dir))
+
+
 def main(argv=None):
   logging.basicConfig(
       format='%(asctime)s [%(process)d] %(levelname)s %(filename)s:'
@@ -100,7 +154,7 @@ def main(argv=None):
   args = build_parser().parse_args(argv)
   from hdrnet_torch.training.loop import train
   train(config_from_args(args), args.checkpoint_dir, args.data_dir,
-        eval_data_dir=args.eval_data_dir)
+        eval_data_dir=args.eval_data_dir, device=args.device)
 
 
 if __name__ == '__main__':

@@ -1,12 +1,22 @@
 // K1: fused curves guide + trilinear bilateral slice + 3x4 affine apply.
 // K6: the same with the pointwise NN guide.
+// K7: both with a pixel offset and a total extent, for a band of a larger
+// frame.
 //
 // K1 replaces hdrnet_tpu/ops/pallas.py: enhance_fused (pallas_call at
 // pallas.py:1216) -> _fused_fwd_kernel (pallas.py:635) in curves mode,
 // with _curves_guide (489, the literal relu form) and _apply_epilogue
 // (610), float32 -> float32 and uint8 -> uint8. K6 replaces the same
 // pallas_call in NN mode: _nn_guide (pallas.py:529) inside
-// _fused_fwd_kernel (663-668), through pallas.py:1216.
+// _fused_fwd_kernel (663-668), through pallas.py:1216. K7 replaces the
+// offset and true-size arguments of that pallas_call: _make_wy_wx
+// (pallas.py:446-462), which weights the taps of a tile at its global
+// (y, x) offset with the scales gh / h_total and gw / w_total. Here they
+// are four runtime arguments of the launchers: y_off and x_off reach the
+// kernel, and h_total and w_total bound them there and set the scales sy
+// and sx, which the host computes as gh / h_total and gw / w_total (as it
+// computes gh / h for a whole frame), so a band's pixels take the same
+// float operations as the same pixels of the whole frame.
 //
 // What it computes, per pixel of an NHWC frame (B, H, W, 3):
 //   1. load the 3 channels (uint8 is divided by 255, IEEE division);
@@ -19,7 +29,9 @@
 //      sigmoid(b2 + sum_k max(h_k, 0) * w2_k) = 1 / (1 + expf(-x)), with
 //      the IEEE expf (no fast math, so never __expf);
 //   3. taps at floor(g - 0.5) and +1 along x, y and depth, with
-//      gx = (x + .5) * gw / W, gy = (y + .5) * gh / H, gz = guide * gd;
+//      gx = (x + x_off + .5) * gw / w_total, gy = (y + y_off + .5) * gh /
+//      h_total, gz = guide * gd (offsets 0 and totals W, H for a whole
+//      frame);
 //      tent weights at the unclamped tap centres (the depth tent is
 //      smoothed: 1 - sqrt(d^2 + 1e-8)), reads at clamped indices
 //      (ops/bilateral_slice_apply.cc:40-81);
@@ -174,7 +186,8 @@ __global__ void __launch_bounds__(256)
                          const TIn* __restrict__ frame,
                          const float* __restrict__ params, Guide guide_fn,
                          TOut* __restrict__ out, int clip, int b, int h,
-                         int w, int gh, int gw, int gd, float sy, float sx) {
+                         int w, int gh, int gw, int gd, int y_off, int x_off,
+                         float sy, float sx) {
   __shared__ float p[Guide::kMaxParams];
   const int n_params = guide_fn.n_params();
   for (int i = threadIdx.x; i < n_params; i += blockDim.x) p[i] = params[i];
@@ -197,9 +210,11 @@ __global__ void __launch_bounds__(256)
 
     const float guide = guide_fn(p, img);
 
-    // Taps: weights at unclamped centres, clamped reads.
-    const Taps ty = spatial_taps(y, sy, gh);
-    const Taps tx = spatial_taps(x, sx, gw);
+    // Taps of the global pixel (the launcher bounds y + y_off by h_total
+    // and x + x_off by w_total, both ints): weights at unclamped centres,
+    // clamped reads.
+    const Taps ty = spatial_taps(y + y_off, sy, gh);
+    const Taps tx = spatial_taps(x + x_off, sx, gw);
     const Taps tz = depth_taps(guide, gd);
 
     const float* g = grid + bb * grid_stride;
@@ -236,22 +251,29 @@ constexpr long long kMaxBlocks = 132 * 16;
 template <typename Guide, typename TIn, typename TOut>
 void launch(const float* grid, const void* frame, const float* params,
             Guide guide_fn, void* out, int clip, int b, int h, int w, int gh,
-            int gw, int gd, float sy, float sx, cudaStream_t st) {
+            int gw, int gd, int y_off, int x_off, float sy, float sx,
+            cudaStream_t st) {
   const long long npix = static_cast<long long>(b) * h * w;
   long long blocks = (npix + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   enhance_fused_kernel<Guide, TIn, TOut>
       <<<static_cast<int>(blocks), kThreads, 0, st>>>(
           grid, static_cast<const TIn*>(frame), params, guide_fn,
-          static_cast<TOut*>(out), clip, b, h, w, gh, gw, gd, sy, sx);
+          static_cast<TOut*>(out), clip, b, h, w, gh, gw, gd, y_off, x_off,
+          sy, sx);
 }
 
-// Picks the input and output types; returns cudaGetLastError().
+// Checks the band, picks the input and output types; returns
+// cudaGetLastError(), or cudaErrorInvalidValue without a launch for a band
+// outside [0, h_total) x [0, w_total).
 template <typename Guide>
 int dispatch(const void* grid, const void* frame, int u8_in,
              const void* params, Guide guide_fn, void* out, int u8_out,
-             int clip, int b, int h, int w, int gh, int gw, int gd, float sy,
-             float sx, void* stream) {
+             int clip, int b, int h, int w, int gh, int gw, int gd, int y_off,
+             int x_off, int h_total, int w_total, float sy, float sx,
+             void* stream) {
+  if (y_off < 0 || x_off < 0 || h > h_total - y_off || w > w_total - x_off)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(b) * h * w == 0)
     return static_cast<int>(cudaGetLastError());
   const float* g = static_cast<const float*>(grid);
@@ -259,40 +281,47 @@ int dispatch(const void* grid, const void* frame, int u8_in,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (u8_in && u8_out) {
     launch<Guide, uint8_t, uint8_t>(g, frame, p, guide_fn, out, clip, b, h,
-                                    w, gh, gw, gd, sy, sx, st);
+                                    w, gh, gw, gd, y_off, x_off, sy, sx, st);
   } else if (u8_in) {
     launch<Guide, uint8_t, float>(g, frame, p, guide_fn, out, clip, b, h, w,
-                                  gh, gw, gd, sy, sx, st);
+                                  gh, gw, gd, y_off, x_off, sy, sx, st);
   } else if (u8_out) {
     launch<Guide, float, uint8_t>(g, frame, p, guide_fn, out, clip, b, h, w,
-                                  gh, gw, gd, sy, sx, st);
+                                  gh, gw, gd, y_off, x_off, sy, sx, st);
   } else {
     launch<Guide, float, float>(g, frame, p, guide_fn, out, clip, b, h, w,
-                                gh, gw, gd, sy, sx, st);
+                                gh, gw, gd, y_off, x_off, sy, sx, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// K1 (K7 with nonzero offsets or totals above h, w). sy = gh / h_total
+// and sx = gw / w_total, computed by the caller.
 extern "C" int hdrnet_enhance_fused(const void* grid, const void* frame,
                                     int u8_in, const void* params, void* out,
                                     int u8_out, int clip, int b, int h, int w,
-                                    int gh, int gw, int gd, float sy,
-                                    float sx, void* stream) {
+                                    int gh, int gw, int gd, int y_off,
+                                    int x_off, int h_total, int w_total,
+                                    float sy, float sx, void* stream) {
   return dispatch(grid, frame, u8_in, params, CurvesGuide{}, out, u8_out,
-                  clip, b, h, w, gh, gw, gd, sy, sx, stream);
+                  clip, b, h, w, gh, gw, gd, y_off, x_off, h_total, w_total,
+                  sy, sx, stream);
 }
 
-// K6. gc must be in [1, kMaxGC]: the wrapper checks it, and a value
-// outside is refused here as cudaErrorInvalidValue without a launch.
+// K6 (and K7 in NN mode). gc must be in [1, kMaxGC]: the wrapper checks
+// it, and a value outside is refused here as cudaErrorInvalidValue without
+// a launch.
 extern "C" int hdrnet_enhance_fused_nn(const void* grid, const void* frame,
                                        int u8_in, const void* params, int gc,
                                        void* out, int u8_out, int clip,
                                        int b, int h, int w, int gh, int gw,
-                                       int gd, float sy, float sx,
-                                       void* stream) {
+                                       int gd, int y_off, int x_off,
+                                       int h_total, int w_total, float sy,
+                                       float sx, void* stream) {
   if (gc < 1 || gc > kMaxGC) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch(grid, frame, u8_in, params, NNGuide{gc}, out, u8_out, clip,
-                  b, h, w, gh, gw, gd, sy, sx, stream);
+                  b, h, w, gh, gw, gd, y_off, x_off, h_total, w_total, sy, sx,
+                  stream);
 }

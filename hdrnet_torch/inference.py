@@ -8,12 +8,12 @@ resolution in one pass (``ops.fused``): kernel K1 for ``HDRNetCurves``'s
 curves guide, K6 for ``HDRNetPointwiseNNGuide``'s NN guide. For
 ``HDRNetGaussianPyrNN`` the frame's bilinear pyramid is built in torch,
 K6 runs once a level on its 3-output block of the grid, and the levels
-are upsampled and added coarse to fine before one clip. On a CUDA device
-the kernels run; on the CPU the same sequence runs their plain versions.
-The device is given by the caller.
-
-``ModelConfig`` (from the standard-library-only ``hdrnet_tpu.config``) is
-re-exported here, so callers of the port need no ``hdrnet_tpu`` import.
+are upsampled and added coarse to fine before one clip. Frames of any
+size are served at their exact shape (``enhance_any``); a giant frame can
+be cut into H-bands, one a device, each band running K1 or K6 with K7's
+offset arguments (``enhance_sharded``). On a CUDA device the kernels run;
+on the CPU the same sequence runs their plain versions. The device is
+CUDA unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import contextlib
 import numpy as np
 import torch
 
-from hdrnet_tpu.config import Config, ModelConfig
+from hdrnet_torch.config import Config, ModelConfig
 from hdrnet_torch.models import make_model
 from hdrnet_torch.models.hdrnet import (HDRNetGaussianPyrNN, gaussian_pyramid,
                                         upsample_add)
@@ -32,7 +32,8 @@ from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 
-__all__ = ['Enhancer', 'ModelConfig', 'SERVED_MODELS', 'full_float32']
+__all__ = ['Enhancer', 'ModelConfig', 'SERVED_MODELS', 'full_float32',
+           'resolve_device']
 
 SERVED_MODELS = ('HDRNetCurves', 'HDRNetPointwiseNNGuide',
                  'HDRNetGaussianPyrNN')
@@ -57,21 +58,34 @@ def full_float32():
      torch.backends.cuda.matmul.allow_tf32) = saved
 
 
+def resolve_device(device):
+  """``torch.device(device)``; raises if it is a CUDA device and CUDA is
+  not available. The port's entry points run on the card unless the
+  caller asks for the CPU, and never move to the CPU on their own."""
+  device = torch.device(device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError(f'device {device} asked for, but CUDA is not '
+                       "available; pass device='cpu' to run on the CPU")
+  return device
+
+
 class Enhancer:
   """Serves full-resolution enhancement with one of ``SERVED_MODELS``.
 
   config: the ``ModelConfig``. state_dict: converted weights
   (``hdrnet_torch.convert``); without them the model is initialised from
-  ``seed``. device: where the model lives and frames must be.
+  ``seed``. device: where the model lives and frames must be; CUDA by
+  default (raises without it), ``'cpu'`` for the plain versions.
   """
 
-  def __init__(self, config: ModelConfig, state_dict=None, *, device='cpu',
+  def __init__(self, config: ModelConfig, state_dict=None, *, device='cuda',
                seed=0):
     if config.model_name not in SERVED_MODELS:
       raise ValueError(f'the port serves {SERVED_MODELS}, got '
                        f'{config.model_name!r}')
     if (config.n_in, config.n_out) != (3, 3):
       raise ValueError('the fused kernel serves 3-channel in and out')
+    device = resolve_device(device)
     self.model_cfg = config
     model = make_model(config, generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:
@@ -89,7 +103,7 @@ class Enhancer:
       self.guide_params = model.guide.packed_params()
 
   @classmethod
-  def from_checkpoint(cls, checkpoint_dir, device='cpu'):
+  def from_checkpoint(cls, checkpoint_dir, device='cuda'):
     """Serves the newest step that ``hdrnet_torch.training`` saved in
     `checkpoint_dir`, with the architecture of its ``config.json``."""
     path = latest_checkpoint(checkpoint_dir)
@@ -102,11 +116,21 @@ class Enhancer:
     if frame.device != self.device:
       raise ValueError(f'frame on {frame.device}, model on {self.device}')
 
+  def on_device(self, x):
+    """A numpy array copied to the Enhancer's device; a tensor must be on
+    it already."""
+    if isinstance(x, np.ndarray):
+      return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+    self._check_frame(x)
+    return x
+
   @torch.no_grad()
   def _backbone_grid(self, lowres):
-    """NCHW preview (b, n_in, s, s) -> rank-6 grid, in full float32."""
+    """NCHW preview (b, n_in, s, s) -> rank-6 grid, in full float32. The
+    preview is made contiguous, so a permuted NHWC one takes the same
+    convolution algorithms as K2's output."""
     with full_float32():
-      return self.model.coefficients(lowres)
+      return self.model.coefficients(lowres.contiguous())
 
   def _fused_forward(self, lowres, frame, clip, u8_output=False):
     """Backbone on the NCHW preview, then K1 or K6 on the NHWC frame; for
@@ -132,6 +156,70 @@ class Enhancer:
     self._check_frame(lowres)
     self._check_frame(fullres)
     return self._fused_forward(lowres.permute(0, 3, 1, 2), fullres, clip)
+
+  def enhance_any(self, lowres, fullres, clip=True):
+    """Arbitrary-resolution serving (the reference run.py use case,
+    bin/run.py:87-90): (b, s, s, 3) preview, (b, H, W, 3) frame of any H
+    and W, as numpy arrays (copied to the Enhancer's device) or tensors
+    already there. Returns the (b, H, W, 3) result on the device.
+
+    H and W are runtime arguments of the kernels, so the exact shape is
+    served for every model: no padding, no size buckets and nothing
+    compiled per shape (the JAX package pads to a bucket and passes the
+    true size, so that one Mosaic compile serves the bucket).
+    """
+    return self(self.on_device(lowres), self.on_device(fullres),
+                clip=clip)
+
+  def enhance_sharded(self, lowres, fullres, devices, clip=True):
+    """Giant-frame serving, the frame cut into H-bands, one a device
+    (counterpart of the JAX ``enhance_sharded`` over a mesh).
+
+    lowres (b, s, s, 3), fullres (b, H, W, 3): numpy arrays or tensors on
+    the Enhancer's device. devices: a sequence of CUDA devices, or of
+    ``'cpu'`` only, in band order; a device may repeat (``[dev] * 4`` runs
+    four bands on one card, one after the other). H must be divisible by
+    len(devices) * 2**(levels - 1), as the JAX package requires.
+
+    The backbone runs once, on the Enhancer's device; the grid and the
+    guide parameters are copied to each device. Band i of n holds rows
+    [i H/n, (i+1) H/n) and runs K1 or K6 with K7's arguments y_offset =
+    i H/n and h_total = H, so every pixel is sliced as in the whole
+    frame and the result is bit-identical to ``__call__``'s. The bands
+    are gathered on ``devices[0]``, where the result is returned. The
+    pyramid builds its levels and does the upsample-adds on
+    ``devices[0]`` over whole levels (what the JAX package gets from
+    XLA's halo exchanges), and runs each level's K6 band by band with
+    that level's offsets. Copies between distinct cards are plain tensor
+    copies; no test here runs more than one card.
+    """
+    devices = [torch.device(d) for d in devices]
+    kinds = {d.type for d in devices}
+    if not devices or len(kinds) != 1 or not kinds <= {'cpu', 'cuda'}:
+      raise ValueError(f'devices must be all CUDA devices or all cpu, got '
+                       f'{devices}')
+    for d in devices:
+      resolve_device(d)
+    lowres, fullres = self.on_device(lowres), self.on_device(fullres)
+    h = fullres.shape[1]
+    n_levels = len(self.guide_params) if self.pyramid else 1
+    if h % (len(devices) * 2 ** (n_levels - 1)):
+      raise ValueError(f'height {h} is not divisible by {len(devices)} '
+                       f'bands x 2^{n_levels - 1} pyramid halvings')
+    grid = self._backbone_grid(lowres.permute(0, 3, 1, 2))
+    b, gh, gw, gd, _, ni1 = grid.shape
+    home = devices[0]
+    if not self.pyramid:
+      return _banded(grid.reshape(b, gh, gw, gd, -1), fullres.to(home),
+                     self.guide_params, self.guide_mode, devices, clip)
+    levels = gaussian_pyramid(fullres.to(home), n_levels)
+    current = None
+    for il, (lvl, params) in enumerate(zip(levels[::-1],
+                                           self.guide_params[::-1])):
+      sub = grid[..., 3 * il:3 * (il + 1), :].reshape(b, gh, gw, gd, 3 * ni1)
+      out = _banded(sub, lvl, params, 'nn', devices, clip=False)
+      current = out if current is None else upsample_add(current, out)
+    return torch.clamp(current, 0.0, 1.0) if clip else current
 
   def process(self, frame, clip=True):
     """Enhance one (B, H, W, 3) float32 frame end to end: preview
@@ -197,6 +285,27 @@ class Enhancer:
         yield _finish(*pending.popleft())
     while pending:
       yield _finish(*pending.popleft())
+
+
+def _banded(packed, frame, params, mode, devices, clip):
+  """K1 or K6 on the len(devices) H-bands of `frame`, band i on devices[i]
+  with y_offset = i * h_local and h_total = H; the bands concatenated on
+  the frame's device. Each device gets one copy of the grid and the
+  parameters, however often it repeats."""
+  h = frame.shape[1]
+  h_local = h // len(devices)
+  copies = {}
+  outs = []
+  for i, dev in enumerate(devices):
+    if dev not in copies:
+      copies[dev] = (packed.to(dev).contiguous(), params.to(dev))
+    grid_d, params_d = copies[dev]
+    # A band of a batch of frames is not contiguous: copied here.
+    band = frame[:, i * h_local:(i + 1) * h_local].to(dev).contiguous()
+    out = enhance_fused(grid_d, band, params_d, mode, clip_output=clip,
+                        y_offset=i * h_local, h_total=h)
+    outs.append(out.to(frame.device))
+  return torch.cat(outs, dim=1)
 
 
 def _finish(out, done):

@@ -17,7 +17,7 @@ import math
 import torch.nn.functional as F
 from torch import nn
 
-from hdrnet_tpu.config import ModelConfig
+from hdrnet_torch.config import ModelConfig
 from hdrnet_torch.models.guides import CurveGuide, PointwiseNNGuide
 from hdrnet_torch.models.layers import ConvBlock, DenseBlock
 from hdrnet_torch.ops.resize import resize_bilinear
@@ -116,10 +116,19 @@ class HDRNetCurves(nn.Module):
     return CurveGuide(cfg.n_in, generator=generator)
 
   def forward(self, lowres, fullres, return_guide=False):
+    out, inter = self.forward_with_intermediates(lowres, fullres)
+    return (out, inter['guide_map'][0]) if return_guide else out
+
+  def forward_with_intermediates(self, lowres, fullres):
+    """The forward and what the Flax model sows as intermediates: the grid
+    ('bilateral_coefficients'), the guide maps ('guide_map', a list) and
+    the pyramid's levels ('multiscale', empty here); ``bin/run.py
+    --debug`` writes them."""
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     guide = self.guide(fullres)
     out = bilateral_slice_apply(grid, guide, fullres, has_offset=True)
-    return (out, guide) if return_guide else out
+    return out, {'bilateral_coefficients': grid, 'guide_map': [guide],
+                 'multiscale': []}
 
 
 class HDRNetPointwiseNNGuide(HDRNetCurves):
@@ -178,6 +187,12 @@ class HDRNetGaussianPyrNN(nn.Module):
     return [getattr(self, f'guide_level_{il}') for il in range(self.n_scales)]
 
   def forward(self, lowres, fullres, return_guide=False):
+    out, inter = self.forward_with_intermediates(lowres, fullres)
+    return (out, inter['guide_map']) if return_guide else out
+
+  def forward_with_intermediates(self, lowres, fullres):
+    """As ``HDRNetCurves.forward_with_intermediates``: the level guides
+    and the levels finest first."""
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     levels = gaussian_pyramid(fullres, self.n_scales)
     guides = [g(lvl) for g, lvl in zip(self.level_guides(), levels)]
@@ -186,4 +201,5 @@ class HDRNetGaussianPyrNN(nn.Module):
       out = bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
                                   lvl, has_offset=True)
       current = out if current is None else upsample_add(current, out)
-    return (current, guides) if return_guide else current
+    return current, {'bilateral_coefficients': grid, 'guide_map': guides,
+                     'multiscale': levels}

@@ -38,13 +38,13 @@ _SIGNATURES = {
     # frame, u8, iy, ix, out, b, h, w, c, s, stream
     'hdrnet_nearest_lowres': (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # grid, frame, u8_in, params, out, u8_out, clip, b, h, w, gh, gw, gd,
-    # sy, sx, stream
+    # y_off, x_off, h_total, w_total, sy, sx, stream
     'hdrnet_enhance_fused': (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _F, _P),
+                             _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # grid, frame, u8_in, params, gc, out, u8_out, clip, b, h, w, gh, gw,
-    # gd, sy, sx, stream
+    # gd, y_off, x_off, h_total, w_total, sy, sx, stream
     'hdrnet_enhance_fused_nn': (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _I, _F, _F, _P),
+                                _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # grid, guide, image, out, b, h, w, gh, gw, gd, n_in, n_out,
     # has_offset, sy, sx, stream
     'hdrnet_slice_apply_fwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,4 +1,4 @@
-"""Fused guide + bilateral slice + affine apply: kernels K1 and K6.
+"""Fused guide + bilateral slice + affine apply: kernels K1, K6 and K7.
 
 ``enhance_fused`` is the serving op of the HDRNet models: from an NHWC
 frame and the packed bilateral grid it computes the guide per pixel,
@@ -8,7 +8,9 @@ optionally clips and requantizes to uint8. It has the semantics of
 channel-first ones, in its two guide modes: ``'curves'`` (K1, the
 ``HDRNetCurves`` guide) and ``'nn'`` (K6, the pointwise MLP guide of
 ``HDRNetPointwiseNNGuide`` and of each ``HDRNetGaussianPyrNN`` level,
-with its batch norm folded into the first layer).
+with its batch norm folded into the first layer). Both take K7's
+arguments: a pixel offset and a total extent, for a band of a larger
+frame whose pixels must take the taps of the whole frame.
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/fused_slice_apply.cu``; on a CPU tensor it runs
@@ -37,9 +39,12 @@ MAX_GUIDE_COMPLEXITY = 64
 GUIDE_MODES = ('curves', 'nn')
 
 # Kernel launches by enhance_fused (never by the plain version): K1 in
-# curves mode, K6 in NN mode.
+# curves mode, K6 in NN mode; K7 counts the launches of either with a
+# nonzero offset or a total extent beyond the frame's (they also count as
+# K1 or K6).
 launches = 0
 nn_launches = 0
+band_launches = 0
 
 
 def pack_curves_params(ccm_ext, curves, mix):
@@ -153,13 +158,25 @@ def nn_guide(img, w1_ext, w2_ext):
   folded into W1 and b1.
 
   w1_ext (n+1, gc) with the bias last; w2_ext (gc+1,) with the bias
-  last. Two matrix products on the frame's last axis: full float32 on
-  the CPU, and on the card when TF32 matmuls are off (``full_float32``).
+  last. Elementwise, one hidden unit at a time, summed in the kernel's
+  order (a bias first, then the terms), and the sigmoid in float64
+  rounded to float32: each pixel's guide is computed alike whatever the
+  frame's extent, so a band's guide is the same rows of the whole
+  frame's bit for bit. (A matrix product may sum in another order for
+  another number of rows, and a float32 sigmoid may round the last
+  elements of a tensor, outside the vector loop, another way.) No TF32
+  matmul runs on the card.
   """
   n = img.shape[-1]
-  hidden = torch.relu(img @ w1_ext[:n] + w1_ext[n])
   w2_ext = w2_ext.reshape(-1)
-  return torch.sigmoid(hidden @ w2_ext[:-1] + w2_ext[-1])
+  gc = w1_ext.shape[1]
+  acc = w2_ext[gc]
+  for k in range(gc):
+    h = w1_ext[n, k] + img[..., 0] * w1_ext[0, k]
+    for j in range(1, n):
+      h = h + img[..., j] * w1_ext[j, k]
+    acc = acc + torch.relu(h) * w2_ext[k]
+  return torch.sigmoid(acc.double()).float()
 
 
 def _check(grid5, frame, params, clip_output, u8_output, guide_mode):
@@ -191,12 +208,29 @@ def _check(grid5, frame, params, clip_output, u8_output, guide_mode):
     nn_guide_complexity(params)
 
 
+def _band(frame, y_offset, x_offset, h_total, w_total):
+  """(y_offset, x_offset, h_total, w_total) of the frame as a band: the
+  totals default to the frame's extents; raises unless the band lies in
+  [0, h_total) x [0, w_total)."""
+  _, h, w, _ = frame.shape
+  h_total = h if h_total is None else h_total
+  w_total = w if w_total is None else w_total
+  for name, off, local, total in (('y', y_offset, h, h_total),
+                                  ('x', x_offset, w, w_total)):
+    if not 0 <= off <= total - local:
+      raise ValueError(f'{name} band [{off}, {off + local}) outside '
+                       f'[0, {total})')
+  return int(y_offset), int(x_offset), int(h_total), int(w_total)
+
+
 def enhance_fused_plain(grid5, frame, params, guide_mode='curves',
-                        clip_output=False, u8_output=False):
-  """Plain-torch K1 (curves) and K6 (nn): (B, gh, gw, gd, 12) grid,
-  (B, H, W, 3) frame -> (B, H, W, 3) float32, or uint8 with
-  ``u8_output``."""
+                        clip_output=False, u8_output=False, y_offset=0,
+                        x_offset=0, h_total=None, w_total=None):
+  """Plain-torch K1 (curves) and K6 (nn), with K7's band arguments:
+  (B, gh, gw, gd, 12) grid, (B, H, W, 3) frame -> (B, H, W, 3) float32,
+  or uint8 with ``u8_output``."""
   _check(grid5, frame, params, clip_output, u8_output, guide_mode)
+  band = _band(frame, y_offset, x_offset, h_total, w_total)
   img = to_unit(frame)
   if guide_mode == 'curves':
     guide = curves_guide(img, *_unpack(params))
@@ -204,7 +238,8 @@ def enhance_fused_plain(grid5, frame, params, guide_mode='curves',
     guide = nn_guide(img, *_unpack_nn(params))
   b, gh, gw, gd, _ = grid5.shape
   grid6 = grid5.reshape(b, gh, gw, gd, N_OUT, N_IN + 1)
-  out = ref.bilateral_slice_apply(grid6, guide, img, has_offset=True)
+  out = ref.bilateral_slice_apply(grid6, guide, img, has_offset=True,
+                                  band=band)
   if clip_output:
     out = torch.clamp(out, 0.0, 1.0)
   if u8_output:
@@ -213,7 +248,8 @@ def enhance_fused_plain(grid5, frame, params, guide_mode='curves',
 
 
 def enhance_fused(grid5, frame, params, guide_mode='curves',
-                  clip_output=False, u8_output=False):
+                  clip_output=False, u8_output=False, y_offset=0, x_offset=0,
+                  h_total=None, w_total=None):
   """Fused guide + slice + apply.
 
   grid5: (B, gh, gw, gd, 12) float32, the packed grid (channel
@@ -225,19 +261,26 @@ def enhance_fused(grid5, frame, params, guide_mode='curves',
     MAX_GUIDE_COMPLEXITY.
   clip_output: clip to [0, 1]. u8_output: requantize the clipped result
     to uint8 as trunc(v * 255 + 0.5); needs ``clip_output``.
+  y_offset, x_offset, h_total, w_total (K7): the frame is the band of rows
+    [y_offset, y_offset + H) and columns [x_offset, x_offset + W) of an
+    h_total x w_total frame (by default the frame is whole): each pixel is
+    sliced where the same pixel of the whole frame is, at the scales
+    gh / h_total and gw / w_total.
   Returns (B, H, W, 3) float32 or uint8.
 
   CUDA tensors: kernel K1 (curves) or K6 (nn). CPU tensors:
   ``enhance_fused_plain``.
   """
-  global launches, nn_launches
+  global launches, nn_launches, band_launches
   _check(grid5, frame, params, clip_output, u8_output, guide_mode)
+  y_off, x_off, h_total, w_total = _band(frame, y_offset, x_offset, h_total,
+                                         w_total)
   devices = {grid5.device, frame.device, params.device}
   if len(devices) != 1:
     raise ValueError(f'tensors on different devices: {devices}')
   if frame.device.type == 'cpu':
     return enhance_fused_plain(grid5, frame, params, guide_mode, clip_output,
-                               u8_output)
+                               u8_output, y_off, x_off, h_total, w_total)
   if frame.device.type != 'cuda':
     raise ValueError(f'unsupported device {frame.device}')
   for name, t in (('grid', grid5), ('frame', frame), ('params', params)):
@@ -252,6 +295,9 @@ def enhance_fused(grid5, frame, params, guide_mode='curves',
                     device=frame.device)
   lib = _build.library().lib
   u8_in = int(frame.dtype == torch.uint8)
+  # The scales in double, rounded to float32 by ctypes: the same value a
+  # whole frame of h_total x w_total gets, so its bands slice alike.
+  band = (y_off, x_off, h_total, w_total, gh / h_total, gw / w_total)
   with torch.cuda.device(frame.device):
     stream = torch.cuda.current_stream(frame.device).cuda_stream
     if guide_mode == 'curves':
@@ -259,16 +305,18 @@ def enhance_fused(grid5, frame, params, guide_mode='curves',
       err = lib.hdrnet_enhance_fused(
           grid5.data_ptr(), frame.data_ptr(), u8_in, params.data_ptr(),
           out.data_ptr(), int(u8_output), int(clip_output), b, h, w, gh, gw,
-          gd, gh / h, gw / w, stream)
+          gd, *band, stream)
     else:
       name = 'hdrnet_enhance_fused_nn'
       err = lib.hdrnet_enhance_fused_nn(
           grid5.data_ptr(), frame.data_ptr(), u8_in, params.data_ptr(),
           nn_guide_complexity(params), out.data_ptr(), int(u8_output),
-          int(clip_output), b, h, w, gh, gw, gd, gh / h, gw / w, stream)
+          int(clip_output), b, h, w, gh, gw, gd, *band, stream)
   _build.check(err, name)
   if guide_mode == 'curves':
     launches += 1
   else:
     nn_launches += 1
+  if (y_off, x_off, h_total, w_total) != (0, 0, h, w):
+    band_launches += 1
   return out

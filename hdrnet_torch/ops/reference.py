@@ -35,15 +35,21 @@ from hdrnet_torch.numerics import (lerp_weight, mirror_boundary,
                                    smoothed_lerp_weight_grad)
 
 
-def _spatial_taps(extent, grid_extent, device, dtype=torch.float32):
+def _spatial_taps(extent, grid_extent, device, dtype=torch.float32,
+                  offset=0, total=None):
   """Per-pixel 2-tap spatial interpolation along one axis.
 
-  ``gf = (x + 0.5) * grid_extent / extent``; taps at floor(gf - 0.5) and
-  +1, tent weights at the unclamped tap centers.
+  ``gf = (x + offset + 0.5) * grid_extent / total`` for the `extent`
+  pixels x of a band that starts at `offset` in an axis of `total` pixels
+  (by default the whole axis: offset 0, total = extent); taps at
+  floor(gf - 0.5) and +1, tent weights at the unclamped tap centers. The
+  global pixel index is an exact float, so a band's taps are bit for bit
+  those of the same pixels of the whole axis.
   Returns (i0, i1, w0, w1, clamped0, clamped1), each of shape (extent,).
   """
-  scale = grid_extent / extent
-  gf = (torch.arange(extent, dtype=dtype, device=device) + 0.5) * scale
+  scale = grid_extent / (extent if total is None else total)
+  gf = (torch.arange(offset, offset + extent, dtype=dtype, device=device)
+        + 0.5) * scale
   i0 = torch.floor(gf - 0.5).long()
   i1 = i0 + 1
   w0 = lerp_weight(i0.to(dtype) + 0.5, gf)
@@ -67,16 +73,20 @@ def _depth_taps(guide, grid_depth):
   return gzf, w0, w1, c0, c1
 
 
-def _slice_channels(grid, guide, z_w0, z_w1, z_c0, z_c1):
+def _slice_channels(grid, guide, z_w0, z_w1, z_c0, z_c1, band=None):
   """Trilinear slice of every channel at the guide-indexed taps.
 
   grid: (b, gh, gw, gd, C); guide, z_*: (b, h, w). Returns (b, h, w, C).
+  band: None for a whole frame, else (y_offset, x_offset, h_total,
+  w_total): the (h, w) pixels are a band of an h_total x w_total frame
+  starting at that offset (the plain K7).
   """
   b, gh, gw, _, _ = grid.shape
   _, h, w = guide.shape
+  y_off, x_off, h_total, w_total = band or (0, 0, h, w)
   dev, dt = guide.device, guide.dtype
-  _, _, wy0, wy1, yc0, yc1 = _spatial_taps(h, gh, dev, dt)
-  _, _, wx0, wx1, xc0, xc1 = _spatial_taps(w, gw, dev, dt)
+  _, _, wy0, wy1, yc0, yc1 = _spatial_taps(h, gh, dev, dt, y_off, h_total)
+  _, _, wx0, wx1, xc0, xc1 = _spatial_taps(w, gw, dev, dt, x_off, w_total)
 
   bi = torch.arange(b, device=dev)[:, None, None]
   yc0, yc1 = yc0[None, :, None], yc1[None, :, None]
@@ -98,13 +108,14 @@ def _slice_channels(grid, guide, z_w0, z_w1, z_c0, z_c1):
                        zw1 * corner(yc1, xc1, z_c1)))
 
 
-def bilateral_slice(grid, guide):
+def bilateral_slice(grid, guide, band=None):
   """Trilinear slice of a bilateral grid (no affine apply).
 
-  grid: (b, gh, gw, gd, C), guide: (b, h, w) -> (b, h, w, C).
+  grid: (b, gh, gw, gd, C), guide: (b, h, w) -> (b, h, w, C); `band` as
+  in ``_slice_channels``.
   """
   _, z_w0, z_w1, z_c0, z_c1 = _depth_taps(guide, grid.shape[3])
-  return _slice_channels(grid, guide, z_w0, z_w1, z_c0, z_c1)
+  return _slice_channels(grid, guide, z_w0, z_w1, z_c0, z_c1, band)
 
 
 def _extend_image(image, has_offset):
@@ -116,15 +127,18 @@ def _extend_image(image, has_offset):
   return torch.cat([image, ones], dim=-1)
 
 
-def bilateral_slice_apply(grid, guide, image, has_offset=True):
+def bilateral_slice_apply(grid, guide, image, has_offset=True, band=None):
   """Slice + per-pixel affine apply (the HDRNet hot op).
 
   grid (b, gh, gw, gd, no, ni_tot), guide (b, h, w), image (b, h, w, n_in)
   -> (b, h, w, no). Reference: ops/bilateral_slice_apply.cc:24-82.
+  band: None, or (y_offset, x_offset, h_total, w_total) for a band of a
+  larger frame (``_slice_channels``).
   """
   b, gh, gw, gd, no, ni_tot = grid.shape
   _, h, w = guide.shape
-  sliced = bilateral_slice(grid.reshape(b, gh, gw, gd, no * ni_tot), guide)
+  sliced = bilateral_slice(grid.reshape(b, gh, gw, gd, no * ni_tot), guide,
+                           band)
   sliced = sliced.reshape(b, h, w, no, ni_tot)
   image_ext = _extend_image(image, has_offset)
   # An elementwise sum, not einsum: no TF32 matmul path on the card.

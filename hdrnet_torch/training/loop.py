@@ -1,9 +1,10 @@
 """The training loop of the port on one device (counterpart of
 ``hdrnet_tpu.training.loop``; reference: bin/train.py:46-184).
 
-``train(config, checkpoint_dir, data_dir, ...)`` builds the host input
-pipeline of the JAX package (``hdrnet_tpu.data``, which needs PIL and is
-imported inside ``train``), the model and Adam; restores the latest
+``train(config, checkpoint_dir, data_dir, ...)`` builds the port's host
+input pipeline (``hdrnet_torch.data``; reading image files needs PIL),
+the model and Adam on the device (CUDA unless the caller asks for the
+CPU; without CUDA it raises); restores the latest
 checkpoint if there is one; then steps, with time-interval logging,
 ``summaries.jsonl`` records in the JAX package's format, checkpoints and
 evaluation, and a final save on exit or interrupt.
@@ -25,7 +26,9 @@ import time
 import numpy as np
 import torch
 
-from hdrnet_tpu.config import Config
+from hdrnet_torch.config import Config
+from hdrnet_torch.data import make_pipeline
+from hdrnet_torch.inference import resolve_device
 from hdrnet_torch.models import make_model
 from hdrnet_torch.training.checkpoint import Checkpointer
 from hdrnet_torch.training.step import (create_state, make_eval_step,
@@ -105,11 +108,6 @@ def make_optimizer(model, tc):
                           eps=1e-8)
 
 
-def _default_device():
-  return torch.device('cuda', 0) if torch.cuda.is_available() else (
-      torch.device('cpu'))
-
-
 def _eval_config(config):
   cfg = Config.from_json(config.to_json()).data
   cfg.batch_size = 1
@@ -120,11 +118,9 @@ def _eval_config(config):
 
 
 def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
-          max_steps=None, device=None):
-  """Trains on one device (the first CUDA device, else the CPU) and
-  returns the final TrainState."""
-  from hdrnet_tpu.data import make_pipeline  # needs PIL
-
+          max_steps=None, device='cuda'):
+  """Trains on one device and returns the final TrainState. device: CUDA
+  by default (raises without it); ``'cpu'`` runs the plain versions."""
   tc = config.train
   if config.data.device_data:
     raise NotImplementedError(
@@ -134,7 +130,7 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
     raise NotImplementedError(
         f'mesh_shape {tc.mesh_shape}: multi-GPU training is not ported '
         '(ROADMAP item 12); the port trains on one device')
-  device = torch.device(device) if device is not None else _default_device()
+  device = resolve_device(device)
   config.save(checkpoint_dir)
 
   model = make_model(config.model,

@@ -362,3 +362,125 @@ def test_train_step_on_card_matches_cpu(cuda):
   for a, b in zip(g_card, g_cpu):
     torch.testing.assert_close(a, b, rtol=0,
                                atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize('u8', [False, True])
+def test_downsample_kernel_gather_cases(cuda, u8):
+  """K2g, the JAX row-gather variant (``tests/test_downsample.py``'s
+  batched gather case, b=3 135x240 -> 64): K2's kernel, bit-exact."""
+  rng = np.random.RandomState(2)
+  if u8:
+    x = torch.from_numpy(rng.randint(0, 256, (3, 135, 240, 3)).astype(
+        np.uint8))
+  else:
+    x = torch.from_numpy(rng.rand(3, 135, 240, 3).astype(np.float32))
+  x = x.to(cuda)
+  got = downsample.nearest_lowres(x, 64)
+  assert torch.equal(got, downsample.nearest_lowres_plain(x, 64))
+
+
+@pytest.mark.parametrize('mode', ['curves', 'nn'])
+@pytest.mark.parametrize('u8', [False, True])
+def test_fused_kernel_bands(cuda, mode, u8):
+  """K7: H-bands and a column band of an odd-sized frame against the
+  plain version with the same offsets (1e-4; u8 1 code on < 1%), and the
+  bands concatenated equal to the whole-frame kernel bit for bit."""
+  if mode == 'nn':
+    grid, frame, params = _nn_inputs(9, 2, 203, 311, 16, cuda, u8)
+  else:
+    grid, frame, params = _inputs(9, 2, 203, 311, cuda, u8)
+  kw = dict(clip_output=True, u8_output=u8)
+  whole = fused.enhance_fused(grid, frame, params, mode, **kw)
+  counts = fused.band_launches
+  bands = []
+  for y0, y1 in ((0, 51), (51, 102), (102, 150), (150, 203)):
+    band = frame[:, y0:y1].contiguous()
+    got = fused.enhance_fused(grid, band, params, mode, y_offset=y0,
+                              h_total=203, **kw)
+    want = fused.enhance_fused_plain(grid, band, params, mode, y_offset=y0,
+                                     h_total=203, **kw)
+    if u8:
+      diff = (got.int() - want.int()).cpu().numpy()
+      assert np.abs(diff).max() <= 1 and (diff != 0).mean() < 0.01
+    else:
+      torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    bands.append(got)
+  assert torch.equal(torch.cat(bands, 1), whole)
+  assert fused.band_launches == counts + 4
+  tile = frame[:, 40:90, 100:250].contiguous()
+  got = fused.enhance_fused(grid, tile, params, mode, y_offset=40,
+                            x_offset=100, h_total=203, w_total=311, **kw)
+  assert torch.equal(got, whole[:, 40:90, 100:250])
+  with pytest.raises(ValueError, match='outside'):
+    fused.enhance_fused(grid, tile, params, mode, y_offset=160,
+                        h_total=203, **kw)
+
+
+@pytest.mark.parametrize('name', ['HDRNetCurves', 'HDRNetPointwiseNNGuide',
+                                  'HDRNetGaussianPyrNN'])
+def test_enhance_sharded_on_card(cuda, name):
+  """Four bands on one card: bit-identical to the unsharded path, one K1
+  or K6 a band (three levels of four bands for the pyramid), and within
+  1e-4 of the same model on the CPU."""
+  cfg = ModelConfig(model_name=name)
+  on_card = Enhancer(cfg, device=cuda, seed=6)
+  on_cpu = Enhancer(cfg, device='cpu', seed=6)
+  rng = np.random.RandomState(8)
+  frame = rng.rand(1, 544, 600, 3).astype(np.float32)
+  low = downsample.nearest_lowres_plain(torch.from_numpy(frame), 256)
+  low = low.permute(0, 2, 3, 1).numpy()
+  counts = (fused.launches, fused.nn_launches, fused.band_launches)
+  got = on_card.enhance_sharded(low, frame, [cuda] * 4)
+  torch.cuda.synchronize()
+  k = 12 if name == 'HDRNetGaussianPyrNN' else 4
+  curves = name == 'HDRNetCurves'
+  assert (fused.launches, fused.nn_launches, fused.band_launches) == (
+      counts[0] + k * curves, counts[1] + k * (not curves), counts[2] + k)
+  assert torch.equal(got, on_card.enhance_any(low, frame))
+  torch.testing.assert_close(got.cpu(), on_cpu.enhance_any(low, frame),
+                             rtol=0, atol=1e-4)
+
+
+def test_evaluate_cli_on_card(cuda, tmp_path, capsys):
+  """bin/evaluate.py on its default device: a checkpoint of two steps of
+  the port's training on the card, evaluated through the training graph
+  (K3) and through the serving path (K1); the PSNRs agree to 1e-5."""
+  import json
+  from PIL import Image
+  from hdrnet_torch.bin import evaluate
+  from hdrnet_torch.config import Config, DataConfig, TrainConfig
+  from hdrnet_torch.training.loop import train
+  data = tmp_path / 'data'
+  rng = np.random.RandomState(0)
+  names = []
+  for sub in ('input', 'output'):
+    (data / sub).mkdir(parents=True)
+  for i in range(3):
+    im = (rng.rand(80, 96, 3) * 255).astype(np.uint8)
+    out = np.clip(im.astype(np.float32) * 1.3, 0, 255).astype(np.uint8)
+    Image.fromarray(im).save(data / 'input' / f'im{i}.png')
+    Image.fromarray(out).save(data / 'output' / f'im{i}.png')
+    names.append(f'im{i}.png')
+  (data / 'filelist.txt').write_text('\n'.join(names))
+  cfg = Config(
+      model=ModelConfig(model_name='HDRNetCurves', net_input_size=32,
+                        spatial_bin=8, luma_bins=4,
+                        output_resolution=[64, 64]),
+      data=DataConfig(batch_size=2, output_resolution=[64, 64],
+                      net_input_size=32, data_threads=1),
+      train=TrainConfig(learning_rate=3e-3, max_steps=2, log_interval=9999,
+                        summary_interval=9999, checkpoint_interval=9999))
+  ckpt = tmp_path / 'ckpt'
+  train(cfg, str(ckpt), str(data))
+  results = {}
+  for serving in (False, True):
+    counts = (slice_apply.fwd_launches, fused.launches)
+    evaluate.main([str(ckpt), str(data)] + ['--serving'] * serving)
+    results[serving] = json.loads(
+        capsys.readouterr().out.strip().splitlines()[-1])
+    moved = (slice_apply.fwd_launches - counts[0], fused.launches - counts[1])
+    assert moved == ((0, 3) if serving else (3, 0))
+  assert results[False]['n_images'] == results[True]['n_images'] == 3
+  assert np.isfinite(results[False]['mean_psnr_db'])
+  np.testing.assert_allclose(results[True]['mean_psnr_db'],
+                             results[False]['mean_psnr_db'], rtol=1e-5)

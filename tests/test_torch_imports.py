@@ -1,12 +1,11 @@
-"""hdrnet_torch never imports JAX.
+"""hdrnet_torch never imports JAX, nor anything of ``hdrnet_tpu``.
 
 The machine with the card has no JAX, so the port must import, serve
-(all three HDRNet models) and train without it: no module under
-``hdrnet_torch/`` may import jax, flax, optax, or any ``hdrnet_tpu``
-module but the JAX-free ones it reuses: the standard-library-only
-``hdrnet_tpu.config``, the host input pipeline ``hdrnet_tpu.data`` (numpy
-and PIL; imported inside ``train`` only) and the flag-to-config mapping
-of ``hdrnet_tpu.bin.train``.
+(all three HDRNet models), run ``bin/run.py``'s per-image function and
+train without it: no module under ``hdrnet_torch/`` (nor
+``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
+module, even one that does not import JAX: the port keeps its own copy
+of what it needs (config, data pipeline, flag mapping).
 """
 
 import ast
@@ -16,9 +15,8 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / 'hdrnet_torch'
-FORBIDDEN_ROOTS = ('jax', 'jaxlib', 'flax', 'optax')
-ALLOWED_HDRNET_TPU = ('hdrnet_tpu.config', 'hdrnet_tpu.data',
-                      'hdrnet_tpu.bin.train')
+FORBIDDEN_ROOTS = ('jax', 'jaxlib', 'flax', 'optax', 'hdrnet_tpu')
+ALLOWED_HDRNET_TPU = ()
 
 
 def _imported_modules(path):
@@ -41,9 +39,8 @@ def test_no_jax_imports_in_package():
   bad = []
   for path in files:
     for mod in _imported_modules(path):
-      root = mod.split('.')[0]
-      if root in FORBIDDEN_ROOTS or (root == 'hdrnet_tpu'
-                                     and mod not in ALLOWED_HDRNET_TPU):
+      if (mod.split('.')[0] in FORBIDDEN_ROOTS
+          and mod not in ALLOWED_HDRNET_TPU):
         bad.append(f'{path.relative_to(REPO)}: {mod}')
   assert not bad, bad
 
@@ -64,8 +61,10 @@ import hdrnet_torch
 for mod in pkgutil.walk_packages(hdrnet_torch.__path__, 'hdrnet_torch.'):
   importlib.import_module(mod.name)
 
+import numpy as np
 import torch
-from hdrnet_tpu.config import ModelConfig
+from hdrnet_torch.bin.run import enhance_image
+from hdrnet_torch.config import ModelConfig
 from hdrnet_torch.inference import Enhancer
 
 cfg = ModelConfig(net_input_size=64, spatial_bin=8, luma_bins=4)
@@ -77,6 +76,8 @@ for name in ('HDRNetPointwiseNNGuide', 'HDRNetGaussianPyrNN'):
                        luma_bins=4, guide_complexity=4)
   out = Enhancer(nn_cfg, device='cpu').process(torch.rand(1, 41, 47, 3))
   assert out.shape == (1, 41, 47, 3), (name, out.shape)
+out, _ = enhance_image(enh, np.random.rand(37, 53, 3).astype(np.float32))
+assert out.shape == (1, 37, 53, 3), out.shape
 print('served without jax')
 
 from hdrnet_torch.config import TrainConfig
@@ -106,3 +107,23 @@ def test_package_serves_with_jax_refused():
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert 'served without jax' in proc.stdout
   assert 'trained without jax' in proc.stdout
+
+
+def test_entry_points_refuse_a_missing_card():
+  """Without CUDA, the entry points raise unless the CPU is asked for;
+  they never move to the CPU on their own."""
+  import pytest
+  import torch
+  from hdrnet_torch.config import Config, ModelConfig
+  from hdrnet_torch.inference import Enhancer
+  from hdrnet_torch.training.loop import train
+  if torch.cuda.is_available():
+    pytest.skip('CUDA is available here: the refusal cannot show')
+  cfg = ModelConfig(net_input_size=64, spatial_bin=8, luma_bins=4)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    Enhancer(cfg)
+  with pytest.raises(RuntimeError, match='CUDA is not available'):
+    Enhancer(cfg, device='cuda:0')
+  with pytest.raises(RuntimeError, match='CUDA is not available'):
+    train(Config(model=cfg), 'unused_ckpt', 'unused_data')
+  assert Enhancer(cfg, device='cpu').device.type == 'cpu'

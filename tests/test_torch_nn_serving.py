@@ -146,7 +146,7 @@ def test_from_checkpoint_serves_every_model(name, tmp_path):
   """A trained step of each model, saved by the port's Checkpointer and
   served by ``Enhancer.from_checkpoint`` as the model itself serves."""
   cfg = Config(model=_cfg(name), train=TrainConfig(learning_rate=1e-3))
-  port = Enhancer(cfg.model, seed=5).model
+  port = Enhancer(cfg.model, device='cpu', seed=5).model
   state = step.create_state(port, loop.make_optimizer(port, cfg.train))
   rng = np.random.RandomState(6)
   batch = {'lowres_input': rng.randint(0, 256, (2, 64, 64, 3)),
@@ -157,7 +157,7 @@ def test_from_checkpoint_serves_every_model(name, tmp_path):
   cfg.save(str(tmp_path))
   Checkpointer(str(tmp_path)).save(state.step, state)
 
-  enh = Enhancer.from_checkpoint(str(tmp_path))
+  enh = Enhancer.from_checkpoint(str(tmp_path), device='cpu')
   assert type(enh.model) is type(port)
   frame = torch.rand(1, 70, 90, 3)
   low = downsample.nearest_lowres_plain(frame, 64).permute(0, 2, 3, 1)

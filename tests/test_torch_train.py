@@ -241,12 +241,13 @@ def test_train_converges_resumes_and_serves(dataset, tmp_path):
             slice_apply.grid_bwd_launches)
   cfg = _config(30, eval_interval=0)
   cfg.train.profile_dir = str(tmp_path / 'trace')
-  state = loop.train(cfg, ckpt, str(dataset), eval_data_dir=str(dataset))
+  state = loop.train(cfg, ckpt, str(dataset), eval_data_dir=str(dataset),
+                     device='cpu')
   assert state.step == 30
   loss_30 = float(state.ema_loss)
   assert np.isfinite(loss_30)
 
-  state2 = loop.train(_config(45), ckpt, str(dataset))
+  state2 = loop.train(_config(45), ckpt, str(dataset), device='cpu')
   assert state2.step == 45
   assert float(state2.ema_loss) < loss_30
 
@@ -258,7 +259,7 @@ def test_train_converges_resumes_and_serves(dataset, tmp_path):
                                       'config.json', 'summaries.jsonl']
   assert os.listdir(tmp_path / 'trace') == ['train_steps_10_15.json']
 
-  enh = Enhancer.from_checkpoint(ckpt)
+  enh = Enhancer.from_checkpoint(ckpt, device='cpu')
   frame = torch.rand(1, 70, 90, 3)
   out = enh.process(frame)
   assert out.shape == frame.shape and torch.isfinite(out).all()
@@ -290,11 +291,11 @@ def test_train_refuses_what_is_not_ported(dataset, tmp_path):
   cfg = _config(1)
   cfg.data.device_data = True
   with pytest.raises(NotImplementedError, match='item 8'):
-    loop.train(cfg, str(tmp_path / 'a'), str(dataset))
+    loop.train(cfg, str(tmp_path / 'a'), str(dataset), device='cpu')
   cfg = _config(1)
   cfg.train.mesh_shape = [2, 1]
   with pytest.raises(NotImplementedError, match='item 12'):
-    loop.train(cfg, str(tmp_path / 'b'), str(dataset))
+    loop.train(cfg, str(tmp_path / 'b'), str(dataset), device='cpu')
 
 
 def test_checkpoint_keeps_three_and_restores(tmp_path):
@@ -338,7 +339,7 @@ def test_cli_builds_the_jax_config():
                 '--lr_schedule', 'cosine', '--lr_decay_steps', '1000',
                 '--guide_reg', '0.01', '--guide_lr_scale', '0.1']):
     want = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
-    got = jax_cli.config_from_args(cli.build_parser().parse_args(argv))
+    got = cli.config_from_args(cli.build_parser().parse_args(argv))
     assert got.to_json() == want.to_json()
   with pytest.raises(SystemExit):
     cli.build_parser().parse_args(['ckpt', 'data', '--model_name', 'UNet'])

@@ -32,12 +32,27 @@ sizes through ``bin/run.py``'s per-image function
 and holds K2 to its plain version at the JAX row-gather variant's cases
 (K2g).
 
+The last TPU kernel and the tools: K2x, the one-hot preview downsample
+on the tensor cores, through its main path, the port's experiment script
+``hdrnet_torch/scripts/exp_downsample_v2.py``, then both row modes bit
+for bit against their plain versions and K2 at 4K b=1 and b=4, timed in
+turns with K2; ``bin/export.py``'s ``main`` on a seeded ``HDRNetCurves``
+and a seeded ``HDRNetGaussianPyrNN`` checkpoint (every ``.pt2`` reloaded
+and bit-identical to the eager Enhancer, ``serve_any_fn`` at two more
+sizes, the kernels' launches counted), and the host cost of a registered
+``hdrnet::`` op call against a direct one; ``bin/fit_grid.py``'s
+``fit_pair`` at 1024^2 on the card, and at 256^2 on the card against the
+CPU.
+
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
 object describing each kernel (its launches on the path that runs it,
 its error, its time, its plain version's, and the least time the card
 could take for its work, from its bytes at 3.35 TB/s and its float32
-operations at 67 TFLOP/s), and ``{"ok": true, "device": ...}``. Without
+operations at 67 TFLOP/s; K2x computes K2's function and takes its
+bound, with the floors of its two formulations, their bf16 tensor-core
+operations at 989 TFLOP/s, beside it), and ``{"ok": true, "device":
+...}``. Without
 a CUDA device, or outside a checkout, it fails before printing any
 result. It imports nothing of JAX.
 """
@@ -100,10 +115,10 @@ def _nn_guide_ops(gc):
   return 9 * gc + 4
 
 
-def _bound(n_bytes, n_ops):
+def _bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
   """(ms, 'bytes' or 'operations'): the least time for the work."""
   t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-  t_ops = n_ops / F32_OPS_PER_S * 1e3
+  t_ops = n_ops / ops_per_s * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
@@ -138,6 +153,12 @@ def _kernel_label(mangled):
     if rest[i] in 'fh':
       args.append({'f': 'f32', 'h': 'u8'}[rest[i]])
       i += 1
+    elif rest.startswith('Li', i):  # an int argument: Li<value>E
+      n = re.match(r'Li(-?\d+)E', rest[i:])
+      if not n:
+        return mangled
+      args.append(n.group(1))
+      i += len(n.group())
     elif rest[i] == 'N':  # nested name: S_ (substitution) and <len><id>
       i += 1
       while i < len(rest) and rest[i] != 'E':
@@ -618,6 +639,292 @@ def _check_k7(cases, x, x8, full_float32):
         f'differing) {u8_stats}, bit for bit against the whole frame',
         flush=True)
   return err
+
+# bf16 tensor-core rate (H100 SXM data sheet at 700 W), for K2x's
+# one-hot products; an m16n8k16 product is 2 * 16 * 8 * 16 operations.
+BF16_OPS_PER_S = 989e12
+MMA_OPS = 2 * 16 * 8 * 16
+
+
+def _k2x_work(b, h, w, s, rows):
+  """(bytes, bf16 operations) of K2x as csrc/downsample_onehot.cu runs
+  it: one warp a 16x16 output tile, its column steps over the 16-column
+  blocks that hold its source columns; v1 reads the sampled rows, v2 the
+  slab iy[first] .. iy[last] of each row tile and multiplies it by Py
+  (row steps of 16), before the column product."""
+  from hdrnet_torch.ops.resize import _nearest_indices
+  iy, ix = _nearest_indices(h, s), _nearest_indices(w, s)
+  tiles = [(t, min(t + 16, s) - 1) for t in range(0, s, 16)]
+  col_steps = [(int(ix[last]) - (int(ix[first]) & ~15)) // 16 + 1
+               for first, last in tiles]
+  slab = [int(iy[last]) - int(iy[first]) + 1 for first, last in tiles]
+  planes = 3 * b
+  out_bytes = planes * s * s * 4
+  if rows == 'gather':
+    mma = planes * len(tiles) * sum(col_steps) * 6
+    return planes * s * w * 4 + out_bytes, mma * MMA_OPS
+  mma = planes * sum(c * (-(-r // 16) * 6 + 6) for r in slab
+                     for c in col_steps)
+  return planes * sum(slab) * w * 4 + out_bytes, mma * MMA_OPS
+
+
+def _check_k2x(dev, tag):
+  """K2x's main path, the port's downsample experiment (counts reset just
+  before, read just after); both row modes at 4K b=1 and b=4 f32 bit for
+  bit against their plain versions and K2; then each timed in turns with
+  K2. Returns (launches, max error, timings, the function's bound by
+  batch, the formulations' floors by (batch, rows))."""
+  from hdrnet_torch.ops import downsample
+  from hdrnet_torch.scripts import exp_downsample_v2
+  torch.cuda.synchronize()
+  downsample.onehot_launches = 0
+  results = exp_downsample_v2.main([])
+  torch.cuda.synchronize()
+  launches = downsample.onehot_launches
+  if launches < 2 or any(r['max_diff'] != 0.0 for r in results):
+    raise AssertionError(f'K2x experiment: {launches} launches, {results}')
+  gen = torch.Generator(device=dev).manual_seed(77)
+  times, err = {}, 0.0
+  for b in (1, 4):
+    cf = torch.rand((b, 3, *UHD), generator=gen, device=dev)
+    nhwc = cf.permute(0, 2, 3, 1).contiguous()
+    k2 = downsample.nearest_lowres(nhwc, 256)
+    for rows in ('gather', 'mma'):
+      got = downsample.nearest_lowres_onehot(cf, 256, rows)
+      want = downsample.nearest_lowres_onehot_plain(cf, 256, rows)
+      diffs = (float((got - want).abs().max()), float((got - k2).abs().max()))
+      err = max(err, *diffs)
+      if not (torch.equal(got, want) and torch.equal(got, k2)):
+        raise AssertionError(f'K2x {rows} b={b}: max diff plain {diffs[0]}, '
+                             f'K2 {diffs[1]}')
+    v1 = lambda: downsample.nearest_lowres_onehot(cf, 256, 'gather')
+    v2 = lambda: downsample.nearest_lowres_onehot(cf, 256, 'mma')
+    k2_fn = lambda: downsample.nearest_lowres(nhwc, 256)
+    turns = [_time_ms(f, 100) for f in (k2_fn, v1, v2, v2, v1, k2_fn)]
+    plain = [_time_ms(lambda r=r: downsample.nearest_lowres_onehot_plain(
+        cf, 256, r), 5, warmup=1) for r in ('gather', 'mma')]
+    times[b] = {'K2': (turns[0] + turns[5]) / 2,
+                'gather': (turns[1] + turns[4]) / 2,
+                'mma': (turns[2] + turns[3]) / 2,
+                'plain_gather': plain[0], 'plain_mma': plain[1],
+                'turns': turns}
+    del cf, nhwc
+  torch.cuda.synchronize()
+  fn_bound = {b: _bound(b * 3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0)[0]
+              for b in (1, 4)}
+  floors = {(b, r): _bound(*_k2x_work(b, *UHD, 256, r), BF16_OPS_PER_S)
+            for b in (1, 4) for r in ('gather', 'mma')}
+  print(f'K2x nearest_lowres_onehot (tensor-core one-hot products): the '
+        f'experiment script ran {launches} K2x launches, max|diff| 0 for '
+        f'v0/v1/v2; rows gather and mma bit-identical to their plain '
+        f'versions and to K2 at 4K b=1 and b=4 f32 (max|diff| {err}); '
+        f'timing {tag} ms a call, '
+        f'in turns K2 / v1 / v2 / v2 / v1 / K2: '
+        + '; '.join(f'b={b} ' + ' / '.join(f'{t:.4f}' for t in
+                                           times[b]['turns'])
+                    for b in (1, 4))
+        + '; plain v1 / v2 '
+        + '; '.join(f'b={b} {times[b]["plain_gather"]:.4f} / '
+                    f'{times[b]["plain_mma"]:.4f}' for b in (1, 4))
+        + '; bound of the function (K2\'s work) '
+        + ', '.join(f'b={b} {fn_bound[b]:.5f}' for b in (1, 4))
+        + ' ms; floors of the formulations '
+        + ', '.join(f'{r} b={b} {floors[b, r][0]:.5f} ({floors[b, r][1]})'
+                    for b in (1, 4) for r in ('gather', 'mma')) + ' ms',
+        flush=True)
+  return launches, err, times, fn_bound, floors
+
+
+def _seeded_checkpoint(directory, model_name, seed):
+  """A seeded model at the default widths saved as training saves it."""
+  import shutil
+  from hdrnet_torch.config import Config, ModelConfig, TrainConfig
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.training import loop, step
+  from hdrnet_torch.training.checkpoint import Checkpointer
+  shutil.rmtree(directory, ignore_errors=True)
+  cfg = Config(model=ModelConfig(model_name=model_name), train=TrainConfig())
+  model = make_model(cfg.model, generator=torch.Generator().manual_seed(seed))
+  cfg.save(directory)
+  Checkpointer(directory).save(0, step.create_state(
+      model, loop.make_optimizer(model, cfg.train)))
+
+
+def _check_export(dev, tag, gen):
+  """bin/export.py's main on a seeded HDRNetCurves and a seeded
+  HDRNetGaussianPyrNN checkpoint at --fullres 1080 1920: every .pt2
+  reloads and equals the eager Enhancer bit for bit, serve_any_fn at two
+  other sizes too; the kernels' counters rise in the reloaded runs. Then
+  one registered-op call against one direct call, host time."""
+  import shutil
+  from hdrnet_torch.bin import export
+  from hdrnet_torch.inference import Enhancer, full_float32
+  from hdrnet_torch.ops import downsample, fused
+  from hdrnet_torch.ops import slice_apply as sa
+  lines = []
+  for seed, name in enumerate(('HDRNetCurves', PYR)):
+    ckpt = f'build/chip_smoke_export_{name}'
+    _seeded_checkpoint(ckpt, name, seed + 21)
+    t0 = time.perf_counter()
+    programs = export.main([ckpt, '--fullres', *map(str, FHD)])
+    export_s = time.perf_counter() - t0
+    enh = Enhancer.from_checkpoint(ckpt, device=dev)
+    low = torch.rand((1, 256, 256, 3), generator=gen, device=dev)
+    full = torch.rand((1, *FHD, 3), generator=gen, device=dev)
+    full8 = (full * 255).to(torch.uint8)
+    others = [torch.rand((1, *hw, 3), generator=gen, device=dev)
+              for hw in ((723, 1085), UHD)]
+    with torch.no_grad(), full_float32():
+      grid = enh._backbone_grid(low.permute(0, 3, 1, 2))
+      b, gh, gw, gd, no, ni = grid.shape
+      calls = [
+          ('coefficients_fn', (low,),
+           grid.reshape(b, gh, gw, gd, no * ni)[0].permute(3, 2, 0, 1)),
+          ('enhance_fn', (low, full), torch.clamp(enh.model(low, full), 0,
+                                                  1)),
+          ('serve_fn', (low, full), enh(low, full)),
+          ('stream_fn', (full8,), enh.make_stream_fn(full8.shape)(full8)),
+          ('serve_any_fn', (low, full), enh(low, full))]
+      calls += [('serve_any_fn', (low, x), enh(low, x)) for x in others]
+    torch.cuda.synchronize()
+    downsample.launches = fused.launches = fused.nn_launches = 0
+    sa.fwd_launches = 0
+    for fn_name, args, want in calls:
+      got = export.load_artifact(f'{ckpt}/{fn_name}.pt2')(*args)
+      if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f'{name} {fn_name} {tuple(args[-1].shape)}: '
+                             f'not bit-identical to the eager Enhancer')
+    torch.cuda.synchronize()
+    counts = {'K2': downsample.launches, 'K1': fused.launches,
+              'K6': fused.nn_launches, 'K3': sa.fwd_launches}
+    fused_per = 3 if name == PYR else 1
+    expect = {'K2': 1, 'K1': 0 if name == PYR else 5,
+              'K6': 5 * fused_per if name == PYR else 0,
+              'K3': fused_per}
+    if counts != expect:
+      raise AssertionError(f'{name} reloaded graphs launched {counts}; '
+                           f'expected {expect}')
+    ops = {k: export.hdrnet_ops(p) for k, p in programs.items()}
+    lines.append(f'{name}: 5 artifacts in {export_s:.1f} s, graphs call '
+                 f'{json.dumps(ops)}; reloaded runs bit-identical (serve_any '
+                 f'also at 723x1085 and 2160x3840), launches {counts}')
+    del enh, calls, others
+    shutil.rmtree(ckpt, ignore_errors=True)
+  # One registered call against one direct call, host time a call, on a
+  # launch-bound K2 (1080p -> 256 preview), in turns.
+  x = torch.rand((1, *FHD, 3), generator=gen, device=dev)
+
+  def host_us(fn, n=2000):
+    for _ in range(20):
+      fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+      fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+  direct = lambda: downsample.nearest_lowres(x, 256)
+  registered = lambda: torch.ops.hdrnet.nearest_lowres(x, 256)
+  turns = [host_us(f) for f in (direct, registered, registered, direct)]
+  print(f'export (bin/export.py main, --fullres 1080 1920, seeded default '
+        f'widths): ' + '; '.join(lines) + f'; timing {tag}: K2 through '
+        f'hdrnet::nearest_lowres vs the direct call, host us a call in '
+        f'turns direct / op / op / direct '
+        f'{" / ".join(f"{t:.2f}" for t in turns)}', flush=True)
+  return turns
+
+
+def _fit_grads(fit_grid, pair, where):
+  """The first step's gradients of the curves-guide fit computed on
+  `where`, by leaf ('grid', then the guide's parameters), copied to the
+  CPU."""
+  from hdrnet_torch.inference import full_float32
+  grid, gmod, loss_fn = fit_grid.fit_problem(*pair, guide='curves',
+                                             device=where)
+  with full_float32():
+    loss_fn().backward()
+  leaves = [('grid', grid)] + list(gmod.named_parameters())
+  return {k: p.grad.detach().cpu() for k, p in leaves}
+
+
+def _check_fit_grid(dev, tag):
+  """bin/fit_grid.py's fit_pair on the card: 50 steps with the curves
+  guide on a seeded 1024^2 pair (PSNR above identity, K3/K4/K5 launched,
+  ms a step). At 256^2, the card against the CPU: the first step's
+  gradients with the curves guide (the grid's through K3 and K5, the
+  guide's through K4) within 1e-4 of each leaf's max |g|, and the entries
+  of another sign counted; 20 steps with the luma guide, PSNRs within
+  1e-3 dB. The curves fits drift apart over the steps; beside that drift
+  the phase prints how far the CPU's own fit moves when the guide's
+  initial parameters move by one float32 ulp."""
+  from hdrnet_torch.bin import fit_grid
+  from hdrnet_torch.models.guides import CurveGuide
+  from hdrnet_torch.ops import slice_apply as sa
+  rng = np.random.RandomState(31)
+
+  def pair(n):
+    inp = rng.rand(n, n, 3).astype(np.float32)
+    return inp, np.clip(1.1 * inp ** 0.7, 0.0, 1.0).astype(np.float32)
+
+  inp, tgt = pair(1024)
+  identity = fit_grid.psnr_of(((inp - tgt) ** 2).mean())
+  fit_grid.fit_pair(inp, tgt, steps=2, guide='curves', device=dev)  # warm
+  torch.cuda.synchronize()
+  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
+  t0 = time.perf_counter()
+  psnr, _ = fit_grid.fit_pair(inp, tgt, steps=50, guide='curves', device=dev)
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - t0) * 1e3 / 50
+  counts = (sa.fwd_launches, sa.pix_bwd_launches, sa.grid_bwd_launches)
+  if counts != (51, 50, 50) or not psnr > identity:
+    raise AssertionError(f'fit_grid 1024^2: launches (K3, K4, K5) {counts}, '
+                         f'PSNR {psnr} vs identity {identity}')
+  small = pair(256)
+  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
+  card, cpu = (_fit_grads(fit_grid, small, w) for w in (dev, 'cpu'))
+  counts_256 = (sa.fwd_launches, sa.pix_bwd_launches, sa.grid_bwd_launches)
+  if counts_256 != (1, 1, 1):
+    raise AssertionError(f'fit_grid gradients: launches (K3, K4, K5) '
+                         f'{counts_256} on the card')
+  grad_err, flips = {}, {}
+  for k in card:
+    want, got = cpu[k], card[k]
+    grad_err[k] = float((got - want).abs().max() / want.abs().max())
+    flips[k] = int((torch.sign(got) != torch.sign(want)).sum())
+  init = {k: v.numpy() for k, v in CurveGuide(
+      generator=torch.Generator().manual_seed(0)).state_dict().items()}
+  ulp = {k: np.nextafter(v, np.float32(np.inf)) for k, v in init.items()}
+  runs = {('luma', 20, 'card'): (dev, None),
+          ('luma', 20, 'cpu'): ('cpu', None)}
+  for n in (1, 5, 20):
+    runs.update({('curves', n, 'card'): (dev, None),
+                 ('curves', n, 'cpu'): ('cpu', None),
+                 ('curves', n, 'ulp'): ('cpu', ulp)})
+  psnrs = {k: fit_grid.fit_pair(*small, steps=k[1], guide=k[0],
+                                guide_params=p, device=w)[0]
+           for k, (w, p) in runs.items()}
+  luma_diff = abs(psnrs['luma', 20, 'card'] - psnrs['luma', 20, 'cpu'])
+  drift = {n: [abs(psnrs['curves', n, w] - psnrs['curves', n, 'cpu'])
+               for w in ('card', 'ulp')] for n in (1, 5, 20)}
+  if not (max(grad_err.values()) <= 1e-4 and luma_diff <= 1e-3):
+    raise AssertionError(f'fit_grid 256^2 card vs cpu: gradients {grad_err}, '
+                         f'luma PSNR |diff| {luma_diff}')
+  print(f'fit_grid (curves guide, 16x16x8 grid, Adam 3e-3): 1024^2 50 steps '
+        f'PSNR {identity:.4f} dB (identity) -> {psnr:.4f} dB, launches (K3, '
+        f'K4, K5) {counts}; timing {tag} {step_ms:.4f} ms a step (host clock, '
+        f'synchronized); 256^2 card vs cpu: first-step gradients with the '
+        f'curves guide, max|diff| over the leaf\'s max |g| '
+        f'{json.dumps(grad_err)} (<= 1e-4), entries of another sign '
+        f'{json.dumps(flips)}; luma guide 20 steps card '
+        f'{psnrs["luma", 20, "card"]:.6f} dB vs cpu '
+        f'{psnrs["luma", 20, "cpu"]:.6f} dB (|diff| {luma_diff:.2e} <= '
+        f'1e-3); curves guide PSNR |diff| after 1 / 5 / 20 steps, card vs '
+        f'cpu ' + ' / '.join(f'{a:.2e}' for a, _ in drift.values())
+        + ' dB, cpu vs cpu from a guide init one ulp up '
+        + ' / '.join(f'{b:.2e}' for _, b in drift.values()) + ' dB',
+        flush=True)
+  return step_ms
 
 
 def main():
@@ -1100,6 +1407,13 @@ def main():
         f'{share:.1%} of a step; peak memory allocated during those steps '
         f'{steady_peak:.1f} MiB', flush=True)
 
+  # 18. K2x, the export tool and fit_grid.
+  k2x_launches, k2x_err, k2x_times, k2x_bound, k2x_floors = _check_k2x(
+      dev, tag)
+  times['K2x'] = (k2x_times[1]['gather'], k2x_times[1]['plain_gather'])
+  _check_export(dev, tag, gen)
+  _check_fit_grid(dev, tag)
+
   # The least time each kernel could take at the shapes it was timed at.
   k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)
   gc = fused.nn_guide_complexity(nn_params)
@@ -1112,6 +1426,10 @@ def main():
       'K1': k1_bound, 'K6': k6_bound, 'K7': k7_bound,
       # K2 reads only the sampled pixels and writes the preview.
       'K2': _bound(3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0),
+      # K2x computes K2's function: its bound is K2's work at 4K b=1. The
+      # floor of its own formulation (rows='gather': the sampled rows read
+      # whole, the one-hot products) goes beside it.
+      'K2x': (k2x_bound[1], 'bytes'),
       'K2g': _bound(4 * 3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0),
       # K3: grid, guide, image in; output out.
       'K3': _bound(grid_bytes + pixels * (1 + 3 + 3) * 4,
@@ -1143,6 +1461,10 @@ def main():
        'hdrnet_torch/csrc/downsample.cu',
        'hdrnet_tpu/ops/downsample.py:177', any_launches['K2'], k2g_err,
        'K2g'),
+      ('K2x', 'K2x nearest_lowres_onehot (one-hot bf16 products on the '
+       'tensor cores; timed rows=\'gather\' at 4K b=1, rows=\'mma\' and b=4 '
+       'in its phase line)', 'hdrnet_torch/csrc/downsample_onehot.cu',
+       'scripts/exp_downsample_v2.py:102', k2x_launches, k2x_err, 'K2x'),
       ('K3', 'K3 slice_apply_fwd (slice + apply, external guide)',
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:570',
        train_launches['K3'], train_errs['K3'], 'K3'),
@@ -1161,6 +1483,9 @@ def main():
               'bound_ms': bounds[kid][0], 'bound_by': bounds[kid][1],
               'library_ms': None}
              for kid, name, source, replaces, n, err, key in rows]
+  kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
+      f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
+      for r in ('gather', 'mma')}
   print(smi)
   print(json.dumps({'kernels': kernels}))
   print(json.dumps({'ok': True, 'device': {

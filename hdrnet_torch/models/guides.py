@@ -80,13 +80,25 @@ class PointwiseNNGuide(nn.Module):
                            generator=generator)
 
   def forward(self, x):
+    return self.forward_with_intermediates(x)[0]
+
+  def forward_with_intermediates(self, x):
+    """The guide map and its layers' outputs, (b, h, w, c) each, under the
+    Flax module names (``conv2`` ends in the sigmoid, as the Flax block
+    does); ``bin/viz_activations.py`` reads them."""
     n = x.shape[-1]
     w1 = self.conv1.conv.weight.reshape(-1, n)   # (gc, n)
     h = x.reshape(-1, n) @ w1.t()                # (pixels, gc)
-    h = torch.relu(self.conv1.bn(h))  # BN over the feature axis 1
+    bn = self.conv1.bn(h)  # BN over the feature axis 1
+    act = torch.relu(bn)
     w2 = self.conv2.conv.weight.reshape(1, -1)   # (1, gc)
-    g = h @ w2.t() + self.conv2.conv.bias
-    return torch.sigmoid(g).reshape(x.shape[:-1])
+    g = act @ w2.t() + self.conv2.conv.bias
+    out = torch.sigmoid(g)
+    shape = x.shape[:-1] + (-1,)
+    return out.reshape(x.shape[:-1]), {
+        'conv1.conv': h.reshape(shape), 'conv1.bn': bn.reshape(shape),
+        'conv1': act.reshape(shape), 'conv2.conv': g.reshape(shape),
+        'conv2': out.reshape(shape)}
 
   @torch.no_grad()
   def packed_params(self):

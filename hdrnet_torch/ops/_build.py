@@ -37,6 +37,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # frame, u8, iy, ix, out, b, h, w, c, s, stream
     'hdrnet_nearest_lowres': (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # frame_cf, iy, ix, out, planes, h, w, s, rows (0 gather, 1 mma), stream
+    'hdrnet_downsample_onehot': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # grid, frame, u8_in, params, out, u8_out, clip, b, h, w, gh, gw, gd,
     # y_off, x_off, h_total, w_total, sy, sx, stream
     'hdrnet_enhance_fused': (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,

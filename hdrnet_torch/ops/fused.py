@@ -16,9 +16,14 @@ On a CUDA tensor it launches the hand-written kernel in
 ``csrc/fused_slice_apply.cu``; on a CPU tensor it runs
 ``enhance_fused_plain``: the guide in torch, the forward of
 :mod:`hdrnet_torch.ops.reference`, then the affine, clip and quantize.
+The op is also registered as ``hdrnet::enhance_fused``, which
+``torch.export`` records in a graph: its implementation is the same
+device-picked route.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -269,8 +274,38 @@ def enhance_fused(grid5, frame, params, guide_mode='curves',
   Returns (B, H, W, 3) float32 or uint8.
 
   CUDA tensors: kernel K1 (curves) or K6 (nn). CPU tensors:
-  ``enhance_fused_plain``.
+  ``enhance_fused_plain``. Under ``torch.export`` the call is recorded as
+  ``hdrnet::enhance_fused``.
   """
+  if torch.compiler.is_compiling():
+    return torch.ops.hdrnet.enhance_fused(
+        grid5, frame, params, guide_mode, clip_output, u8_output, y_offset,
+        x_offset, h_total, w_total)
+  return _enhance_fused(grid5, frame, params, guide_mode, clip_output,
+                        u8_output, y_offset, x_offset, h_total, w_total)
+
+
+@torch.library.custom_op('hdrnet::enhance_fused', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _enhance_fused_op(grid5: torch.Tensor, frame: torch.Tensor,
+                      params: torch.Tensor, guide_mode: str,
+                      clip_output: bool, u8_output: bool, y_offset: int,
+                      x_offset: int, h_total: Optional[int],
+                      w_total: Optional[int]) -> torch.Tensor:
+  return _enhance_fused(grid5, frame, params, guide_mode, clip_output,
+                        u8_output, y_offset, x_offset, h_total, w_total)
+
+
+@_enhance_fused_op.register_fake
+def _(grid5, frame, params, guide_mode, clip_output, u8_output, *band):
+  del band
+  _check(grid5, frame, params, clip_output, u8_output, guide_mode)
+  return frame.new_empty((*frame.shape[:3], N_OUT),
+                         dtype=torch.uint8 if u8_output else torch.float32)
+
+
+def _enhance_fused(grid5, frame, params, guide_mode, clip_output, u8_output,
+                   y_offset, x_offset, h_total, w_total):
   global launches, nn_launches, band_launches
   _check(grid5, frame, params, clip_output, u8_output, guide_mode)
   y_off, x_off, h_total, w_total = _band(frame, y_offset, x_offset, h_total,

@@ -114,7 +114,31 @@ class _Lerp(torch.autograd.Function):
 
 def resize_bilinear(x, size, align_corners=False):
   """Separable bilinear resize on the (-3, -2) axes; its gradient sums in
-  a fixed order."""
+  a fixed order. Under ``torch.export`` the call is recorded as
+  ``hdrnet::resize_bilinear`` (forward only), so that an exported graph
+  can take a frame of any size: the tap tables are computed when it runs.
+  """
+  if torch.compiler.is_compiling():
+    return torch.ops.hdrnet.resize_bilinear(x, size[0], size[1],
+                                            align_corners)
+  return _resize_bilinear(x, size, align_corners)
+
+
+@torch.library.custom_op('hdrnet::resize_bilinear', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _resize_bilinear_op(x: torch.Tensor, h: int, w: int,
+                        align_corners: bool) -> torch.Tensor:
+  out = _resize_bilinear(x, (h, w), align_corners)
+  return out.clone() if out is x else out  # an op's output is its own
+
+
+@_resize_bilinear_op.register_fake
+def _(x, h, w, align_corners):
+  del align_corners
+  return x.new_empty((*x.shape[:-3], h, w, x.shape[-1]))
+
+
+def _resize_bilinear(x, size, align_corners):
   h, w = size
   if x.shape[-3] == h and x.shape[-2] == w:
     return x

@@ -16,7 +16,10 @@ bilateral slice.
 On CUDA tensors (float32, contiguous) each launches its hand-written
 kernel in ``csrc/slice_apply.cu``; on CPU tensors it runs its plain
 version below, built on :mod:`hdrnet_torch.ops.reference`, which also
-takes float64 (the finite-difference tests use it).
+takes float64 (the finite-difference tests use it). The forward is also
+registered as ``hdrnet::slice_apply_fwd``, which ``torch.export`` records
+in a graph (a model's forward, exported for inference): its
+implementation is the same device-picked route.
 """
 
 from __future__ import annotations
@@ -147,7 +150,27 @@ def slice_apply_fwd(grid5, guide, image, has_offset=True):
   """Slice + affine apply with an external guide (no clip).
 
   CUDA tensors: kernel K3. CPU tensors: ``slice_apply_fwd_plain``.
+  Under ``torch.export`` the call is recorded as ``hdrnet::slice_apply_fwd``.
   """
+  if torch.compiler.is_compiling():
+    return torch.ops.hdrnet.slice_apply_fwd(grid5, guide, image, has_offset)
+  return _slice_apply_fwd(grid5, guide, image, has_offset)
+
+
+@torch.library.custom_op('hdrnet::slice_apply_fwd', mutates_args=(),
+                         device_types=('cpu', 'cuda'))
+def _slice_apply_fwd_op(grid5: torch.Tensor, guide: torch.Tensor,
+                        image: torch.Tensor, has_offset: bool) -> torch.Tensor:
+  return _slice_apply_fwd(grid5, guide, image, has_offset)
+
+
+@_slice_apply_fwd_op.register_fake
+def _(grid5, guide, image, has_offset):
+  _, n_out = _check(tuple(grid5.shape), guide, image, None, has_offset)
+  return guide.new_empty((*guide.shape, n_out), dtype=torch.float32)
+
+
+def _slice_apply_fwd(grid5, guide, image, has_offset):
   global fwd_launches
   n_in, n_out = _check(tuple(grid5.shape), guide, image, None, has_offset)
   if not _on_card('slice_apply_fwd', grid5, guide, image):

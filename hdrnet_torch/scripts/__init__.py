@@ -1,0 +1,2 @@
+"""Experiment scripts of the port (counterparts of the JAX package's
+``scripts/``)."""

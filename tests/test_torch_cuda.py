@@ -484,3 +484,89 @@ def test_evaluate_cli_on_card(cuda, tmp_path, capsys):
   assert np.isfinite(results[False]['mean_psnr_db'])
   np.testing.assert_allclose(results[True]['mean_psnr_db'],
                              results[False]['mean_psnr_db'], rtol=1e-5)
+
+
+@pytest.mark.parametrize('rows', ['gather', 'mma'])
+@pytest.mark.parametrize('shape', [(1, 2160, 3840, 256), (4, 2160, 3840, 256),
+                                   (3, 135, 240, 64), (2, 101, 60, 32),
+                                   (1, 10, 7, 32), (2, 77, 300, 40)])
+def test_onehot_downsample_kernel_bit_exact(cuda, shape, rows):
+  """K2x in both row modes: bit for bit its plain version and K2."""
+  b, h, w, s = shape
+  x = torch.from_numpy(np.random.RandomState(1).rand(b, 3, h, w).astype(
+      np.float32)).to(cuda)
+  before = downsample.onehot_launches
+  got = downsample.nearest_lowres_onehot(x, s, rows)
+  assert downsample.onehot_launches == before + 1
+  want = downsample.nearest_lowres_onehot_plain(x, s, rows)
+  k2 = downsample.nearest_lowres(x.permute(0, 2, 3, 1).contiguous(), s)
+  torch.cuda.synchronize()
+  assert got.shape == (b, 3, s, s) and got.dtype == torch.float32
+  assert torch.equal(got, want)
+  assert torch.equal(got, k2)
+
+
+def test_onehot_downsample_kernel_checks_its_arguments(cuda):
+  x = torch.rand(1, 3, 64, 64, device=cuda)
+  with pytest.raises(TypeError):
+    downsample.nearest_lowres_onehot(x.to(torch.uint8), 16)
+  with pytest.raises(ValueError):
+    downsample.nearest_lowres_onehot(x, 16, rows='vpu')
+  with pytest.raises(ValueError):
+    downsample.nearest_lowres_onehot(x.transpose(2, 3), 16)
+
+
+def test_registered_ops_run_the_kernels(cuda):
+  """The hdrnet:: ops that exported graphs call launch the same kernels
+  as the direct wrappers, with the same bits."""
+  grid, frame, params = _inputs(2, 1, 101, 61, cuda, False)
+  counts = (downsample.launches, fused.launches, slice_apply.fwd_launches)
+  want = (downsample.nearest_lowres(frame, 32),
+          fused.enhance_fused(grid, frame, params, clip_output=True),
+          slice_apply.slice_apply_fwd(grid, frame[..., 0].contiguous(),
+                                      frame))
+  got = (torch.ops.hdrnet.nearest_lowres(frame, 32),
+         torch.ops.hdrnet.enhance_fused(grid, frame, params, 'curves', True,
+                                        False, 0, 0, None, None),
+         torch.ops.hdrnet.slice_apply_fwd(grid, frame[..., 0].contiguous(),
+                                          frame, True))
+  torch.cuda.synchronize()
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
+  assert (downsample.launches, fused.launches,
+          slice_apply.fwd_launches) == tuple(c + 2 for c in counts)
+
+
+@pytest.mark.parametrize('name', ['HDRNetCurves', 'HDRNetGaussianPyrNN'])
+def test_export_round_trip_on_card(cuda, name, tmp_path):
+  """bin/export.py on the card: each .pt2 reloads, is bit-identical to the
+  eager Enhancer and launches the kernels."""
+  from hdrnet_torch.bin import export
+  from hdrnet_torch.config import Config, TrainConfig
+  from hdrnet_torch.training import loop, step
+  from hdrnet_torch.training.checkpoint import Checkpointer
+  cfg = Config(model=ModelConfig(model_name=name, net_input_size=64,
+                                 spatial_bin=8, luma_bins=4,
+                                 guide_complexity=4), train=TrainConfig())
+  model = Enhancer(cfg.model, device='cpu', seed=3).model
+  cfg.save(str(tmp_path))
+  Checkpointer(str(tmp_path)).save(0, step.create_state(
+      model, loop.make_optimizer(model, cfg.train)))
+  export.main([str(tmp_path), '--fullres', '96', '128'])
+  enh = Enhancer.from_checkpoint(str(tmp_path), device=cuda)
+  rng = np.random.RandomState(4)
+  low = torch.from_numpy(rng.rand(1, 64, 64, 3).astype(np.float32)).to(cuda)
+  full = torch.from_numpy(rng.rand(1, 96, 128, 3).astype(np.float32)).to(
+      cuda)
+  full8 = (full * 255).to(torch.uint8)
+  for fn_name, args, want in [
+      ('serve_fn', (low, full), enh(low, full)),
+      ('stream_fn', (full8,), enh.make_stream_fn(full8.shape)(full8)),
+      ('serve_any_fn', (low, full[:, :77, :101].contiguous()),
+       enh(low, full[:, :77, :101].contiguous()))]:
+    fn = export.load_artifact(str(tmp_path / f'{fn_name}.pt2'))
+    before = fused.launches + fused.nn_launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fused.launches + fused.nn_launches > before, fn_name
+    assert torch.equal(got, want), fn_name

@@ -1,8 +1,9 @@
 """hdrnet_torch never imports JAX, nor anything of ``hdrnet_tpu``.
 
 The machine with the card has no JAX, so the port must import, serve
-(all three HDRNet models), run ``bin/run.py``'s per-image function and
-train without it: no module under ``hdrnet_torch/`` (nor
+(all three HDRNet models), run ``bin/run.py``'s per-image function,
+train, and run the tools (``bin/export.py``, ``bin/fit_grid.py``,
+``bin/viz_activations.py``) without it: no module under ``hdrnet_torch/`` (nor
 ``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
 module, even one that does not import JAX: the port keeps its own copy
 of what it needs (config, data pipeline, flag mapping).
@@ -97,6 +98,37 @@ loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
 assert not loaded, loaded
 print('trained without jax')
+
+import os, shutil, tempfile
+from hdrnet_torch.bin import export, fit_grid, viz_activations
+from hdrnet_torch.config import Config
+from hdrnet_torch.data import images
+from hdrnet_torch.training.checkpoint import Checkpointer
+work = tempfile.mkdtemp()
+try:
+  Config(model=cfg).save(work)
+  Checkpointer(work).save(state.step, state)
+  programs = export.main([work, '--fullres', '40', '48', '--device', 'cpu'])
+  assert len(programs) == 5 and os.path.isfile(
+      os.path.join(work, 'guide_ccm_f32_3x4.bin')), sorted(programs)
+  out = export.load_artifact(os.path.join(work, 'serve_any_fn.pt2'))(
+      torch.rand(1, 64, 64, 3), torch.rand(1, 30, 50, 3))
+  assert out.shape == (1, 30, 50, 3), out.shape
+  rng = np.random.RandomState(0)
+  psnr, fitted = fit_grid.fit_pair(rng.rand(24, 32, 3), rng.rand(24, 32, 3),
+                                   gh=4, gw=4, gd=4, steps=2, guide='curves',
+                                   device='cpu')
+  assert np.isfinite(psnr) and fitted['grid'].shape == (1, 4, 4, 4, 3, 4)
+  images.imwrite(os.path.join(work, 'im.png'), rng.rand(40, 48, 3))
+  acts = viz_activations.main([work, os.path.join(work, 'im.png'),
+                               os.path.join(work, 'viz'), '--device', 'cpu'])
+  assert acts and os.path.isfile(os.path.join(work, 'viz', 'splat_conv1.png'))
+finally:
+  shutil.rmtree(work, ignore_errors=True)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
+assert not loaded, loaded
+print('tools without jax')
 '''
 
 
@@ -107,6 +139,7 @@ def test_package_serves_with_jax_refused():
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert 'served without jax' in proc.stdout
   assert 'trained without jax' in proc.stdout
+  assert 'tools without jax' in proc.stdout
 
 
 def test_entry_points_refuse_a_missing_card():

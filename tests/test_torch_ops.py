@@ -274,5 +274,6 @@ def test_build_finds_nvcc_from_cuda_home_first(tmp_path, monkeypatch):
   assert _build.find_nvcc() == str(nvcc)
   assert len(_build._source_hash()) == 16
   assert {p.name for p in _build._sources()} == {'downsample.cu',
+                                                 'downsample_onehot.cu',
                                                  'fused_slice_apply.cu',
                                                  'slice_apply.cu'}

@@ -5,9 +5,11 @@ VJPs under ``jax.vmap``, its Pallas kernels in interpret mode, ``jax.grad``
 through its custom VJP) and through the port's plain versions, which are
 what the port's wrappers run on CPU tensors.
 
-Tolerances: 1e-5 for the grid and input cotangents (the JAX package's
-VJP gate). The guide cotangent carries a factor gd and reaches a few
-hundred on these inputs, so it is held to 1e-5 of its largest value. The
+Tolerances: 1e-5 of max(1, the largest value) for the grid, guide and
+input cotangents (the JAX package's VJP gate, scaled): the grid
+cotangent sums hundreds of splats to values near 17, in an order that
+depends on the host's vector width, and the guide cotangent carries a
+factor gd and reaches a few hundred on these inputs. The
 plain kernels are held to JAX's interpret-mode kernels at the JAX
 package's own kernel gates (2e-4 of the largest value for the grid
 cotangent, 1e-4 otherwise). The finite-difference checks are float64 with
@@ -84,14 +86,13 @@ def test_apply_vjps_match_jax_reference(case):
       _t(guide), _t(image), _t(ct), grid.shape[1:])
   got_guide = tref.bilateral_slice_apply_guide_vjp(
       _t(grid), _t(guide), _t(image), _t(ct))
-  np.testing.assert_allclose(got_grid.numpy(), np.asarray(want_grid),
-                             atol=ATOL)
+  # float32 sums of ~500 splats at magnitude ~17, in a host-dependent order.
+  _close_scaled(got_grid.numpy(), want_grid, ATOL)
   _close_scaled(got_guide.numpy(), want_guide, ATOL)
   if ni:
     want_in = jax.vmap(jref.bilateral_slice_apply_input_vjp)(grid, guide, ct)
     got_in = tref.bilateral_slice_apply_input_vjp(_t(grid), _t(guide), _t(ct))
-    np.testing.assert_allclose(got_in.numpy(), np.asarray(want_in),
-                               atol=ATOL)
+    _close_scaled(got_in.numpy(), want_in, ATOL)
 
 
 def test_slice_vjps_match_jax_reference():
@@ -106,8 +107,8 @@ def test_slice_vjps_match_jax_reference():
   want_guide = jax.vmap(jref.bilateral_slice_guide_vjp)(grid, guide, ct)
   got_grid = tref.bilateral_slice_grid_vjp(_t(guide), _t(ct), (gh, gw, gd, c))
   got_guide = tref.bilateral_slice_guide_vjp(_t(grid), _t(guide), _t(ct))
-  np.testing.assert_allclose(got_grid.numpy(), np.asarray(want_grid),
-                             atol=ATOL)
+  # float32 sums of many splats, in an order that depends on the host.
+  _close_scaled(got_grid.numpy(), want_grid, ATOL)
   _close_scaled(got_guide.numpy(), want_guide, ATOL)
 
 

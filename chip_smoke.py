@@ -44,6 +44,12 @@ sizes, the kernels' launches counted), and the host cost of a registered
 ``fit_pair`` at 1024^2 on the card, and at 256^2 on the card against the
 CPU.
 
+The redesigned kernels (K5 as regions of row strips with a fixed-order
+sum of partials; K1/K6/K7 on 2D tiles with the tile's cells staged in
+shared memory): K3, K4 and K5 also at n_in = 8 against their plain
+versions, and K5 timed at the pyramid's three level sizes (2048^2,
+1024^2, 512^2) with its scratch memory.
+
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
 object describing each kernel (its launches on the path that runs it,
@@ -261,13 +267,61 @@ def _train_inputs(gen, b, hw, n_in, dev, n_out=3, grid=(16, 16, 8)):
   return g5, guide, image, ct
 
 
+def _k5_bound(n, grid_shape=(1, 16, 16, 8, 12), n_in=3, n_out=3):
+  """K5's bound at n x n, b=1: guide, image and ct read once, the grid
+  cotangent written once; every padded pixel's splat."""
+  _, gh, gw, _, _ = grid_shape
+  grid_bytes = 4 * int(np.prod(grid_shape))
+  pad_y, pad_x = -(-n // (2 * gh)), -(-n // (2 * gw))
+  padded = (n + 2 * pad_y) * (n + 2 * pad_x)
+  return _bound(grid_bytes + n * n * (1 + n_in + n_out) * 4, padded * K5_OPS)
+
+
+def _k5_levels(gen, dev, tag):
+  """K5 at the pyramid's three level sizes, b=1, n_in = n_out = 3: CUDA
+  events around 50 wrapper calls, and the device time of a call in a CUDA
+  graph of 20 (no host gaps: at the small levels a launch is shorter
+  than a wrapper call); its blocks, its scratch and the memory one call
+  allocates (scratch and output), and its bound."""
+  from hdrnet_torch.ops import slice_apply as sa
+  from hdrnet_torch.utils.timing import graph_ms
+  levels = {}
+  for n in TRAIN_HW[0], TRAIN_HW[0] // 2, TRAIN_HW[0] // 4:
+    g5, guide, image, ct = _train_inputs(gen, 1, (n, n), 3, dev)
+    call = lambda: sa.slice_apply_grid_bwd(g5.shape, guide, image, ct)
+    strips, floats, smem = sa.grid_bwd_plan(g5.shape, guide)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    bound = _k5_bound(n, tuple(g5.shape))
+    levels[f'{n}^2'] = {
+        'ms': _time_ms(call, 50), 'graph_ms': graph_ms(call),
+        'bound_ms': bound[0], 'bound_by': bound[1], 'strips': strips,
+        'blocks': (g5.shape[1] + 1) * (g5.shape[2] + 1) * strips,
+        'shared_bytes': smem,
+        'scratch_bytes': floats * 4, 'peak_bytes_a_call': peak}
+    del g5, guide, image, ct
+  print(f'timing {tag}: K5 at the pyramid\'s levels, b=1: '
+        + '; '.join(f'{k} {v["ms"]:.4f} ms (graph {v["graph_ms"]:.4f}, '
+                    f'bound {v["bound_ms"]:.4f}, {v["blocks"]} blocks, '
+                    f'scratch {v["scratch_bytes"]} B, a call allocates '
+                    f'{v["peak_bytes_a_call"]} B)' for k, v in levels.items()),
+        flush=True)
+  return levels
+
+
 def _check_train_kernels(gen, dev, full_float32):
   """K3, K4 and K5 against their plain versions (under full float32) at
-  the training shape and an odd one; K5 twice must give the same bits."""
+  the training shape and an odd one, with 3 input channels, none (the
+  plain slice) and 8 (the zoo's feature models: K3 and K4's looped path,
+  K5's C = 27); K5 twice must give the same bits."""
   from hdrnet_torch.ops import slice_apply as sa
   errs = {'K3': 0.0, 'K4': 0.0, 'K5': 0.0}
   for b, hw in [(1, TRAIN_HW), (2, (101, 60))]:
-    for n_in in (3, 0):
+    for n_in in (3, 0, 8):
       g5, guide, image, ct = _train_inputs(gen, b, hw, n_in, dev,
                                            n_out=3 if n_in else 12)
       what = f'b={b} {hw} n_in={n_in}'
@@ -295,8 +349,8 @@ def _check_train_kernels(gen, dev, full_float32):
   print(f'K3/K4/K5 vs plain: max abs err K3 {errs["K3"]:.3e} (<= '
         f'{K3_TOL:.0e}), K4 {errs["K4"]:.3e} (guide <= {K4_GUIDE_REL:.0e} '
         f'of its max, input <= {K3_TOL:.0e}), K5 {errs["K5"]:.3e} (<= '
-        f'{K5_REL:.0e} of its max), at 2048^2 b=1 and 101x60 b=2, n_in 3 '
-        f'and 0; K5 bit-identical across runs', flush=True)
+        f'{K5_REL:.0e} of its max), at 2048^2 b=1 and 101x60 b=2, n_in 3, '
+        f'0 and 8; K5 bit-identical across runs', flush=True)
   return errs
 
 
@@ -1401,6 +1455,7 @@ def main():
     times[name] = (kernel_ms, plain_ms)
     print(f'timing {tag}: {name} 2048^2 b=1 kernel {kernel_ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms', flush=True)
+  k5_levels = _k5_levels(gen, dev, tag)
   share = sum(times[k][0] for k in ('K3', 'K4', 'K5')) / step_ms
   print(f'timing {tag}: train step at full width {step_ms:.4f} ms '
         f'({1e3 / step_ms:.2f} steps/s, host clock over 20 steps); K3+K4+K5 '
@@ -1483,6 +1538,7 @@ def main():
               'bound_ms': bounds[kid][0], 'bound_by': bounds[kid][1],
               'library_ms': None}
              for kid, name, source, replaces, n, err, key in rows]
+  kernels[[r[0] for r in rows].index('K5')]['levels'] = k5_levels
   kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
       f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
       for r in ('gather', 'mma')}

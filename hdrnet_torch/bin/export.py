@@ -29,13 +29,17 @@ eager ``Enhancer``. Produces in the output directory:
 
 The JAX export also writes ``.mlir`` StableHLO and ``compile_options.pb``
 for its native PJRT driver; the port's native driver is not written yet
-(ROADMAP section 1, item 14), so neither is produced here.
+(ROADMAP, M8), so neither is produced here.
 
-To run an artifact: ``import hdrnet_torch.ops`` (which registers the
-ops), ``torch.export.load(path).module()``, and call it under
-``hdrnet_torch.inference.full_float32()`` with gradients off, as the
-Enhancer runs: a graph does not carry the TF32 switches. ``load_artifact``
-does all three.
+A graph does not carry torch's TF32 switches, and torch's default runs
+float32 cuDNN convolutions in TF32 (``cudnn.allow_tf32 = True``), which
+moves the grid by ~1e-3 and the output about gd-fold more. So each
+manifest records the precision the graph must run at, under
+``"precision"``: ``{"cudnn_allow_tf32": false, "matmul_allow_tf32":
+false}``, the switches the Enhancer runs under (``full_float32``). To run
+an artifact: ``import hdrnet_torch.ops`` (which registers the ops),
+``torch.export.load(path).module()``, and call it with gradients off and
+the manifest's switches set. ``load_artifact`` does all three.
 
   python -m hdrnet_torch.bin.export ckpt/ [--output_dir out/]
       [--fullres 1080 1920] [--device cuda]
@@ -44,6 +48,7 @@ does all three.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -60,6 +65,9 @@ log = logging.getLogger('hdrnet_torch.export')
 # The frame heights and widths serve_any_fn takes (the pyramid halves
 # the frame twice).
 MIN_SIDE, MAX_SIDE = 8, 16384
+# The TF32 switches every graph must run with: full float32, as
+# inference.full_float32 sets them.
+PRECISION = {'cudnn_allow_tf32': False, 'matmul_allow_tf32': False}
 
 
 def _save_bin(arr, path):
@@ -195,7 +203,8 @@ def export_function(enh, name, fn, example, dynamic, out_dir):
     for axis, dim in (spec or {}).items():
       names[str(node.meta['val'].shape[axis])] = dim.__name__
   manifest = {'name': name, 'inputs': _avals(inputs, names),
-              'outputs': _avals(graph.output_node().args[0], names)}
+              'outputs': _avals(graph.output_node().args[0], names),
+              'precision': PRECISION}
   with open(os.path.join(out_dir, f'{name}.manifest.json'), 'w') as f:
     json.dump(manifest, f, indent=2)
   log.info('wrote %s{.pt2,.manifest.json} (out %s)',
@@ -210,13 +219,35 @@ def hdrnet_ops(program):
                  and str(n.target).startswith('hdrnet.')})
 
 
+@contextlib.contextmanager
+def _precision(switches):
+  """torch's TF32 switches set to a manifest's ``precision`` inside the
+  block, restored after it."""
+  saved = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = switches['cudnn_allow_tf32']
+  torch.backends.cuda.matmul.allow_tf32 = switches['matmul_allow_tf32']
+  try:
+    yield
+  finally:
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def load_artifact(path):
   """A saved artifact as a function: the graph's module, called with
-  gradients off under ``full_float32`` (as the Enhancer runs)."""
+  gradients off and the TF32 switches its manifest records (beside it, as
+  ``<name>.manifest.json``)."""
+  manifest_path = os.path.splitext(path)[0] + '.manifest.json'
+  with open(manifest_path) as f:
+    manifest = json.load(f)
+  if 'precision' not in manifest:
+    raise ValueError(f'{manifest_path} records no precision')
+  switches = manifest['precision']
   module = torch.export.load(path).module()
 
   def run(*args):
-    with torch.no_grad(), full_float32():
+    with torch.no_grad(), _precision(switches):
       return module(*args)
   return run
 

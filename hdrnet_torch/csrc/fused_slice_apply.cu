@@ -46,32 +46,54 @@
 // 99.5 MB, about 199 MB, or 59 us at 3.35 TB/s; at uint8 about 50 MB, or
 // 15 us. The arithmetic is about 4e2 float32 operations a pixel (guide
 // about 150, slice and apply about 250), about 3.3 GFLOP a frame, or
-// about 50 us at 67 TFLOP/s of non-tensor float32. So float32 sits near
-// the memory/compute balance point and uint8 is bound by arithmetic.
-// K6 at gc = 16 moves the same bytes; its guide is 16 x (3 FMA + max +
-// FMA) plus the sigmoid, about 100 operations (the curves guide about
-// 150), so about 3.0 GFLOP a frame, or about 45 us at 67 TFLOP/s: the
-// same balance as K1, a little lighter in arithmetic. Its 5 * gc + 1
-// parameters are read by every pixel once per use: 81 floats at gc = 16,
-// 6.7e8 shared-memory reads a frame.
+// about 50 us at 67 TFLOP/s of non-tensor float32. K6 at gc = 16 moves
+// the same bytes with about 100 guide operations. But the operations are
+// not all FMAs: counted as issued instructions (the curves guide's 16
+// knots are a subtract, a max and an FMA each; the slice 96 FMAs and the
+// tap arithmetic), a pixel needs about 350, which at 4 schedulers x 132
+// SMs x 1.755 GHz x 32 lanes is about 0.1 ms a 4K frame. So the kernel is
+// bound by the instructions it issues, and every instruction that is not
+// the pixel's own arithmetic (a parameter load, a global corner load, an
+// index division) costs time one for one. PR 1's kernel issued about 112
+// shared loads of guide parameters, 24 global corner loads and 64-bit
+// index arithmetic a pixel besides its own.
 //
 // What the design does about it:
-//   * One pass, one thread per pixel: the guide never leaves registers
-//     and the frame is read and written once, in NHWC, so the two
-//     full-frame transposes of the TPU layout are gone.
-//   * The guide parameters (112 for curves, up to 5 * 64 + 1 for NN) are
-//     staged in shared memory once per block and read with uniform
-//     (broadcast) addresses, so the NN guide's runtime-gc loop costs no
-//     bank conflicts and no global loads.
-//   * The grid is 16*16*8*12*4 B = 98,304 B per image, above the 48 KB of
-//     static shared memory; it is read through L1/L2 with __ldg as three
-//     16-byte loads per corner. Neighbouring pixels of a warp share their
-//     x and y cells and mostly their depth bins, so the loads are nearly
-//     warp-uniform. Staging the grid in dynamic shared memory is left to
-//     a later change.
+//   * A block owns a 2D tile of 16 rows x 64 columns of one image, and a
+//     thread 4 consecutive pixels of one row. The pixel's float
+//     operations are those of the plain version, in its order.
+//   * Guide parameters: each is read from shared memory once for the
+//     thread's 4 pixels (the curves guide's knots as 16-byte vectors; the
+//     NN guide's weights re-laid per hidden unit as one 16-byte vector
+//     and one float), so a parameter read costs a quarter of an
+//     instruction a pixel.
+//   * Corners: the tile's cells (the taps of its first and last rows and
+//     columns, about 3 x 3 cells x gd x 12 floats, 3.4 KB at 4K and gd 8)
+//     are staged in shared memory once with 16-byte copies, and the 8
+//     corners of a pixel are read from there as 3 x 16-byte loads each.
+//     The host sizes this window from the scales; where it would exceed
+//     a block's shared memory (a large grid over a small frame) the
+//     corners are read from the grid in device memory instead, with the
+//     same arithmetic.
+//   * Frame loads and stores: 48 bytes (f32) or 12 bytes (u8) of a
+//     thread's 4 pixels as 16- or 4-byte vectors when the row is a
+//     multiple of 4 pixels and the pointers aligned; scalars at the
+//     ragged end of a row or band and otherwise. A uint8 channel's IEEE
+//     v / 255 is looked up in a table of the 256 quotients, filled by
+//     the block with the same division.
+//   * 32-bit indices inside an image, from the block's and thread's
+//     coordinates: no division or grid-stride loop a pixel. The y taps
+//     are computed once a thread (its pixels share a row). An image of
+//     2^31 values or more (about 716 MP) is launched in H-bands that
+//     stay below it, each at its row offset, with the same result.
+//   * Four blocks an SM: the launch bounds hold a thread to 64
+//     registers, so that 32 warps an SM hide the latencies of a kernel
+//     that is bound by the instructions it issues.
 //   * None of the TPU tile planner (cell windows, strips, one-hot
-//     contractions) is carried over: a per-pixel gather has no window cap.
+//     contractions) is carried over: the tile is fixed, and its window
+//     follows from the scales.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -98,71 +120,181 @@ constexpr int kNParams = kMix + kNIn + 1;  // 112
 // NN guide: w1_ext (kNIn + 1, gc) row-major | w2_ext (gc + 1,); gc is a
 // runtime value up to kMaxGC (the wrapper's MAX_GUIDE_COMPLEXITY).
 constexpr int kMaxGC = 64;
-constexpr int kMaxNNParams = (kNIn + 2) * kMaxGC + 1;  // 321
 
-__device__ __forceinline__ float load_unit(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_unit(const uint8_t* p) {
-  return __fdiv_rn(static_cast<float>(__ldg(p)), 255.0f);
+constexpr int kThreads = 256;
+constexpr int kPix = 4;                        // pixels a thread, along x
+constexpr int kTileW = 64;                     // pixels a tile row
+constexpr int kTileH = kThreads * kPix / kTileW;  // 16 rows
+
+// A channel in [0, 1]: float as is; uint8 v as v / 255 (IEEE division),
+// looked up in a 256-entry table of those quotients that the block fills.
+__device__ __forceinline__ float unit(float v, const float*) { return v; }
+__device__ __forceinline__ float unit(uint8_t v, const float* u8_unit) {
+  return u8_unit[v];
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(uint8_t* p, float v) {
-  // Clip is enforced by the wrapper, so v * 255 + 0.5 is in [0.5, 255.5].
-  *p = static_cast<uint8_t>(
+// Clip is enforced by the wrapper, so v * 255 + 0.5 is in [0.5, 255.5].
+__device__ __forceinline__ uint8_t quant(float v) {
+  return static_cast<uint8_t>(
       static_cast<int>(__fadd_rn(__fmul_rn(v, 255.0f), 0.5f)));
 }
 
-// Literal relu form of the curves guide (pallas.py:514-526).
-__device__ __forceinline__ float curves_guide(const float* p,
-                                              const float img[kNIn]) {
-  float acc = 0.0f;
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(uint8_t* p, float v) { *p = quant(v); }
+
+// The 4 pixels' channels: 3 x 16-byte (f32) or 3 x 4-byte (u8) loads.
+__device__ __forceinline__ void load4(const float* src, float img[kPix][kNIn],
+                                      const float*) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float v[12];
 #pragma unroll
-  for (int c = 0; c < kNIn; ++c) {
-    float g = p[kCcm + kNIn * kNIn + c];
-#pragma unroll
-    for (int j = 0; j < kNIn; ++j) g += img[j] * p[kCcm + j * kNIn + c];
-    float cur = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kNPts; ++k) {
-      cur += p[kSlopes + c * kNPts + k] *
-             fmaxf(g - p[kShifts + c * kNPts + k], 0.0f);
-    }
-    acc += cur * p[kMix + c];
+  for (int q = 0; q < 3; ++q) {
+    const float4 f = __ldg(s4 + q);
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
   }
-  return clamp01(acc + p[kMix + kNIn]);
+#pragma unroll
+  for (int k = 0; k < 12; ++k) img[k / 3][k % 3] = v[k];
+}
+__device__ __forceinline__ void load4(const uint8_t* src,
+                                      float img[kPix][kNIn],
+                                      const float* u8_unit) {
+  const unsigned* s4 = reinterpret_cast<const unsigned*>(src);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const unsigned u = __ldg(s4 + q);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      img[k / 3][k % 3] = unit(static_cast<uint8_t>(u >> (8 * e)), u8_unit);
+    }
+  }
 }
 
-// The guide functors: Guide::kMaxParams bounds the shared staging,
-// n_params() is the packed count, operator() the guide of one pixel.
+__device__ __forceinline__ void store4(float* dst, const float o[kPix][kNOut]) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int k = 4 * q;
+    d4[q] = make_float4(o[k / 3][k % 3], o[(k + 1) / 3][(k + 1) % 3],
+                        o[(k + 2) / 3][(k + 2) % 3],
+                        o[(k + 3) / 3][(k + 3) % 3]);
+  }
+}
+__device__ __forceinline__ void store4(uint8_t* dst,
+                                       const float o[kPix][kNOut]) {
+  unsigned* d4 = reinterpret_cast<unsigned*>(dst);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    unsigned u = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = 4 * q + e;
+      u |= static_cast<unsigned>(quant(o[k / 3][k % 3])) << (8 * e);
+    }
+    d4[q] = u;
+  }
+}
+
+// The guide functors: kSmem floats of staged parameters; stage() copies
+// (and may re-lay) the packed vector into them; eval() is the guide of
+// a thread's 4 pixels, with each pixel's operations in the plain
+// version's order and each parameter read once for the 4.
+
+// Literal relu form of the curves guide (pallas.py:514-526).
 struct CurvesGuide {
-  static constexpr int kMaxParams = kNParams;
-  __device__ __forceinline__ int n_params() const { return kNParams; }
-  __device__ __forceinline__ float operator()(const float* p,
-                                              const float img[kNIn]) const {
-    return curves_guide(p, img);
+  static constexpr int kSmem = kNParams;
+  __device__ __forceinline__ void stage(const float* __restrict__ params,
+                                        float* p) const {
+    for (int i = threadIdx.x; i < kNParams; i += blockDim.x) p[i] = params[i];
+  }
+  __device__ __forceinline__ void eval(const float* p,
+                                       const float img[kPix][kNIn],
+                                       float out[kPix]) const {
+    float acc[kPix];
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) acc[k] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kNIn; ++c) {
+      float g[kPix], cur[kPix];
+      const float bias = p[kCcm + kNIn * kNIn + c];
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        g[k] = bias;
+        cur[k] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kNIn; ++j) {
+        const float m = p[kCcm + j * kNIn + c];
+#pragma unroll
+        for (int k = 0; k < kPix; ++k) g[k] += img[k][j] * m;
+      }
+      const float4* sh4 = reinterpret_cast<const float4*>(p + kShifts) + c * 4;
+      const float4* sl4 = reinterpret_cast<const float4*>(p + kSlopes) + c * 4;
+#pragma unroll
+      for (int q = 0; q < kNPts / 4; ++q) {
+        const float4 sh = sh4[q], sl = sl4[q];
+        const float shv[4] = {sh.x, sh.y, sh.z, sh.w};
+        const float slv[4] = {sl.x, sl.y, sl.z, sl.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int k = 0; k < kPix; ++k) {
+            cur[k] += slv[e] * fmaxf(g[k] - shv[e], 0.0f);
+          }
+        }
+      }
+      const float mix = p[kMix + c];
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) acc[k] += cur[k] * mix;
+    }
+    const float mix_bias = p[kMix + kNIn];
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) out[k] = clamp01(acc[k] + mix_bias);
   }
 };
 
 // Pointwise MLP guide with the batch norm folded in (pallas.py:529-544):
-// the same sums in the same order as the TPU kernel.
+// the same sums in the same order as the TPU kernel. Staged per hidden
+// unit k: (W1[0][k], W1[1][k], W1[2][k], b1[k]) as one float4, then w2.
 struct NNGuide {
-  static constexpr int kMaxParams = kMaxNNParams;
+  static constexpr int kSmem = 4 * kMaxGC + kMaxGC + 1;
   int gc;
-  __device__ __forceinline__ int n_params() const {
-    return (kNIn + 2) * gc + 1;
-  }
-  __device__ __forceinline__ float operator()(const float* p,
-                                              const float img[kNIn]) const {
-    const float* w1 = p;                     // (kNIn + 1, gc)
-    const float* w2 = p + (kNIn + 1) * gc;   // (gc + 1,)
-    float acc = w2[gc];
-    for (int k = 0; k < gc; ++k) {
-      float h = w1[kNIn * gc + k];
-#pragma unroll
-      for (int j = 0; j < kNIn; ++j) h += img[j] * w1[j * gc + k];
-      acc += fmaxf(h, 0.0f) * w2[k];
+  __device__ __forceinline__ void stage(const float* __restrict__ params,
+                                        float* p) const {
+    for (int i = threadIdx.x; i < 5 * gc + 1; i += blockDim.x) {
+      if (i < 4 * gc) {
+        const int k = i / 4, j = i % 4;
+        p[i] = params[j * gc + k];  // j = 3: the bias row
+      } else {
+        p[4 * kMaxGC + i - 4 * gc] = params[i];
+      }
     }
-    return 1.0f / (1.0f + expf(-acc));
+  }
+  __device__ __forceinline__ void eval(const float* p,
+                                       const float img[kPix][kNIn],
+                                       float out[kPix]) const {
+    const float4* w1 = reinterpret_cast<const float4*>(p);
+    const float* w2 = p + 4 * kMaxGC;
+    float acc[kPix];
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) acc[k] = w2[gc];
+    for (int u = 0; u < gc; ++u) {
+      const float4 a = w1[u];
+      const float b = w2[u];
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) {
+        float h = a.w;
+        h += img[k][0] * a.x;
+        h += img[k][1] * a.y;
+        h += img[k][2] * a.z;
+        acc[k] += fmaxf(h, 0.0f) * b;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) out[k] = 1.0f / (1.0f + expf(-acc[k]));
   }
 };
 
@@ -172,7 +304,7 @@ __device__ __forceinline__ void add_cell(float sliced[kNC], float w,
   const float4* c4 = reinterpret_cast<const float4*>(cell);
 #pragma unroll
   for (int q = 0; q < kNC / 4; ++q) {
-    const float4 v = __ldg(c4 + q);
+    const float4 v = c4[q];
     sliced[4 * q + 0] += w * v.x;
     sliced[4 * q + 1] += w * v.y;
     sliced[4 * q + 2] += w * v.z;
@@ -180,87 +312,218 @@ __device__ __forceinline__ void add_cell(float sliced[kNC], float w,
   }
 }
 
-template <typename Guide, typename TIn, typename TOut>
-__global__ void __launch_bounds__(256)
+// Dynamic shared memory: the tile's cell window (ny, nx, gd, 12) when
+// kStaged (the launcher's bound fits a block), else none: the corners are
+// then read from the image's grid in device memory. A template argument,
+// so that each instantiation reads its corners through one address space
+// (shared loads, or global ones), never through generic 64-bit loads.
+// Four blocks an SM (at most 64 registers a thread): the kernel is bound
+// by the instructions it issues, and 32 warps an SM hide their latencies
+// better than the 24 that 74 registers a thread would leave.
+template <typename Guide, typename TIn, typename TOut, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 4)
     enhance_fused_kernel(const float* __restrict__ grid,
                          const TIn* __restrict__ frame,
                          const float* __restrict__ params, Guide guide_fn,
-                         TOut* __restrict__ out, int clip, int b, int h,
+                         TOut* __restrict__ out, int clip, int vec, int h,
                          int w, int gh, int gw, int gd, int y_off, int x_off,
                          float sy, float sx) {
-  __shared__ float p[Guide::kMaxParams];
-  const int n_params = guide_fn.n_params();
-  for (int i = threadIdx.x; i < n_params; i += blockDim.x) p[i] = params[i];
+  __shared__ float4 p4[(Guide::kSmem + 3) / 4];
+  __shared__ float u8_unit[sizeof(TIn) == 1 ? 256 : 1];
+  extern __shared__ float4 win4[];
+  float* p = reinterpret_cast<float*>(p4);
+  guide_fn.stage(params, p);
+  if (sizeof(TIn) == 1) {
+    for (int i = threadIdx.x; i < 256; i += kThreads) {
+      u8_unit[i] = __fdiv_rn(static_cast<float>(i), 255.0f);
+    }
+  }
+
+  // The tile and its window of cells: the taps of its first and last
+  // rows and columns (the taps grow with the coordinate).
+  const int ty0 = blockIdx.y * kTileH;
+  const int tx0 = blockIdx.x * kTileW;
+  const int rows = min(kTileH, h - ty0);
+  const int cols = min(kTileW, w - tx0);
+  const int cell_floats = gd * kNC;
+  const float* image_grid =
+      grid + static_cast<long long>(blockIdx.z) * gh * gw * cell_floats;
+  int wy0 = 0, wx0 = 0, nx = gw;
+  const float* win;
+  if constexpr (kStaged) {
+    wy0 = spatial_taps(ty0 + y_off, sy, gh).i[0];
+    const int ny =
+        spatial_taps(ty0 + rows - 1 + y_off, sy, gh).i[1] - wy0 + 1;
+    wx0 = spatial_taps(tx0 + x_off, sx, gw).i[0];
+    nx = spatial_taps(tx0 + cols - 1 + x_off, sx, gw).i[1] - wx0 + 1;
+    const int row4 = nx * cell_floats / 4;  // float4s a window row
+    const float4* g4 = reinterpret_cast<const float4*>(
+        image_grid + (wy0 * gw + wx0) * cell_floats);
+    const int grid_row4 = gw * cell_floats / 4;
+    for (int i = threadIdx.x; i < ny * row4; i += kThreads) {
+      const int r = i / row4;
+      win4[i] = __ldg(g4 + r * grid_row4 + (i - r * row4));
+    }
+    win = reinterpret_cast<const float*>(win4);
+  } else {
+    win = image_grid;
+  }
   __syncthreads();
 
-  const long long npix = static_cast<long long>(b) * h * w;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long grid_stride = static_cast<long long>(gh) * gw * gd * kNC;
-  for (long long pix = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       pix < npix; pix += stride) {
-    const int x = static_cast<int>(pix % w);
-    const long long row = pix / w;
-    const int y = static_cast<int>(row % h);
-    const long long bb = row / h;
+  const int r = threadIdx.x / (kTileW / kPix);
+  const int xq = (threadIdx.x % (kTileW / kPix)) * kPix;
+  if (r >= rows || xq >= cols) return;
+  const int y = ty0 + r;
+  const int x = tx0 + xq;
+  const int npx = min(kPix, w - x);
+  const long long image = static_cast<long long>(blockIdx.z) * h * w;
+  // 32-bit inside an image: the launcher keeps h * w * 3 below 2^31.
+  const int at = (y * w + x) * kNIn;
+  const TIn* src = frame + image * kNIn + at;
+  TOut* dst = out + image * kNOut + at;
 
-    float img[kNIn];
+  float img[kPix][kNIn];
+  if (vec && npx == kPix) {
+    load4(src, img, u8_unit);
+  } else {
 #pragma unroll
-    for (int j = 0; j < kNIn; ++j) img[j] = load_unit(frame + pix * kNIn + j);
+    for (int k = 0; k < kPix; ++k) {
+#pragma unroll
+      for (int j = 0; j < kNIn; ++j) {
+        img[k][j] =
+            k < npx ? unit(__ldg(src + k * kNIn + j), u8_unit) : 0.0f;
+      }
+    }
+  }
 
-    const float guide = guide_fn(p, img);
+  float guide[kPix];
+  guide_fn.eval(p, img, guide);
 
-    // Taps of the global pixel (the launcher bounds y + y_off by h_total
-    // and x + x_off by w_total, both ints): weights at unclamped centres,
-    // clamped reads.
-    const Taps ty = spatial_taps(y + y_off, sy, gh);
-    const Taps tx = spatial_taps(x + x_off, sx, gw);
-    const Taps tz = depth_taps(guide, gd);
-
-    const float* g = grid + bb * grid_stride;
+  // Taps of the global pixel (the launcher bounds y + y_off by h_total
+  // and x + x_off by w_total, both ints): weights at unclamped centres,
+  // clamped reads, from the window (or the grid).
+  const Taps ty = spatial_taps(y + y_off, sy, gh);
+  float o[kPix][kNOut];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const Taps tx = spatial_taps(x + k + x_off, sx, gw);
+    const Taps tz = depth_taps(guide[k], gd);
     float sliced[kNC];
 #pragma unroll
-    for (int k = 0; k < kNC; ++k) sliced[k] = 0.0f;
+    for (int q = 0; q < kNC; ++q) sliced[q] = 0.0f;
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const float wyx = ty.w[a] * tx.w[c];
         const float* cell =
-            g + (static_cast<long long>(ty.i[a]) * gw + tx.i[c]) * gd * kNC;
+            win + ((ty.i[a] - wy0) * nx + (tx.i[c] - wx0)) * cell_floats;
         add_cell(sliced, wyx * tz.w[0], cell + tz.i[0] * kNC);
         add_cell(sliced, wyx * tz.w[1], cell + tz.i[1] * kNC);
       }
     }
-
-    TOut* o = out + pix * kNOut;
 #pragma unroll
     for (int i = 0; i < kNOut; ++i) {
       float acc = sliced[i * (kNIn + 1) + kNIn];  // the affine offset
 #pragma unroll
-      for (int j = 0; j < kNIn; ++j) acc += sliced[i * (kNIn + 1) + j] * img[j];
-      if (clip) acc = clamp01(acc);
-      store(o + i, acc);
+      for (int j = 0; j < kNIn; ++j) {
+        acc += sliced[i * (kNIn + 1) + j] * img[k][j];
+      }
+      o[k][i] = clip ? clamp01(acc) : acc;
+    }
+  }
+
+  if (vec && npx == kPix) {
+    store4(dst, o);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      if (k < npx) {
+#pragma unroll
+        for (int i = 0; i < kNOut; ++i) store(dst + k * kNOut + i, o[k][i]);
+      }
     }
   }
 }
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;
+// Cells a tile of `tile` pixels can reach along an axis of scale s (grid
+// extent over total extent): the taps of its first and last pixels span
+// at most ceil((tile - 1) s) + 2 cells; one more for rounding.
+int window_cells(int tile, int extent, float s, int grid_extent) {
+  const int span = tile < extent ? tile : extent;
+  const double reach = static_cast<double>(span - 1) * s;
+  long long n = static_cast<long long>(reach);
+  if (static_cast<double>(n) < reach) ++n;
+  n += 3;
+  return static_cast<int>(n < grid_extent ? n : grid_extent);
+}
+
+// The largest window staged: a block's shared memory on sm_90 less the
+// guide parameters' static staging.
+constexpr int kMaxWindowBytes = 220 * 1024;
+
+// The rows one launch may take: the kernel indexes an image's values in
+// 32 bits, so rows * w * 3 must stay below 2^31, and its tile rows must
+// fit gridDim.y. 0 for a row of 2^31 values or more, which no launch
+// takes.
+int max_launch_rows(int h, int w) {
+  const long long by_index =
+      0x7fffffffLL / (static_cast<long long>(w) * kNIn);
+  return static_cast<int>(
+      std::min({static_cast<long long>(h), by_index, 65535LL * kTileH}));
+}
 
 template <typename Guide, typename TIn, typename TOut>
-void launch(const float* grid, const void* frame, const float* params,
-            Guide guide_fn, void* out, int clip, int b, int h, int w, int gh,
-            int gw, int gd, int y_off, int x_off, float sy, float sx,
-            cudaStream_t st) {
-  const long long npix = static_cast<long long>(b) * h * w;
-  long long blocks = (npix + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  enhance_fused_kernel<Guide, TIn, TOut>
-      <<<static_cast<int>(blocks), kThreads, 0, st>>>(
-          grid, static_cast<const TIn*>(frame), params, guide_fn,
-          static_cast<TOut*>(out), clip, b, h, w, gh, gw, gd, y_off, x_off,
-          sy, sx);
+cudaError_t launch(const float* grid, const void* frame, const float* params,
+                   Guide guide_fn, void* out, int clip, int b, int h, int w,
+                   int gh, int gw, int gd, int y_off, int x_off, float sy,
+                   float sx, cudaStream_t st) {
+  const long long want = static_cast<long long>(
+                             window_cells(kTileH, h, sy, gh)) *
+                         window_cells(kTileW, w, sx, gw) * gd * kNC *
+                         static_cast<int>(sizeof(float));
+  const int staged = want <= kMaxWindowBytes;
+  const int win_bytes = staged ? static_cast<int>(want) : 0;
+  auto kernel = staged ? enhance_fused_kernel<Guide, TIn, TOut, true>
+                       : enhance_fused_kernel<Guide, TIn, TOut, false>;
+  if (win_bytes > 48 * 1024) {  // above the default dynamic limit
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = max_launch_rows(h, w);
+  if (rows < 1) return cudaErrorInvalidValue;
+  // Vectors need rows of whole 4-pixel groups and aligned pointers.
+  const std::uintptr_t align = sizeof(TIn) == 1 ? 4 : 16;
+  const std::uintptr_t align_out = sizeof(TOut) == 1 ? 4 : 16;
+  auto run = [&](const float* g, const TIn* src, TOut* dst, int nb, int nh,
+                 int band_y) {
+    const int vec = w % kPix == 0 &&
+                    reinterpret_cast<std::uintptr_t>(src) % align == 0 &&
+                    reinterpret_cast<std::uintptr_t>(dst) % align_out == 0;
+    const dim3 blocks((w + kTileW - 1) / kTileW, (nh + kTileH - 1) / kTileH,
+                      nb);
+    kernel<<<blocks, kThreads, win_bytes, st>>>(g, src, params, guide_fn, dst,
+                                                clip, vec, nh, w, gh, gw, gd,
+                                                band_y, x_off, sy, sx);
+    return cudaGetLastError();
+  };
+  const TIn* src = static_cast<const TIn*>(frame);
+  TOut* dst = static_cast<TOut*>(out);
+  if (rows == h && b <= 65535) return run(grid, src, dst, b, h, y_off);
+  // A frame too large for one launch: each image in H-bands of `rows`,
+  // each band at its offset (K7's arguments), so its pixels take the
+  // same taps and float operations as in one launch.
+  const long long cells = static_cast<long long>(gh) * gw * gd * kNC;
+  for (int i = 0; i < b; ++i) {
+    for (int y0 = 0; y0 < h; y0 += rows) {
+      const long long at = (static_cast<long long>(i) * h + y0) * w * kNIn;
+      const cudaError_t err = run(grid + i * cells, src + at, dst + at, 1,
+                                  std::min(rows, h - y0), y_off + y0);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 // Checks the band, picks the input and output types; returns
@@ -279,20 +542,25 @@ int dispatch(const void* grid, const void* frame, int u8_in,
   const float* g = static_cast<const float*>(grid);
   const float* p = static_cast<const float*>(params);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (u8_in && u8_out) {
-    launch<Guide, uint8_t, uint8_t>(g, frame, p, guide_fn, out, clip, b, h,
-                                    w, gh, gw, gd, y_off, x_off, sy, sx, st);
+    err = launch<Guide, uint8_t, uint8_t>(g, frame, p, guide_fn, out, clip, b,
+                                          h, w, gh, gw, gd, y_off, x_off, sy,
+                                          sx, st);
   } else if (u8_in) {
-    launch<Guide, uint8_t, float>(g, frame, p, guide_fn, out, clip, b, h, w,
-                                  gh, gw, gd, y_off, x_off, sy, sx, st);
+    err = launch<Guide, uint8_t, float>(g, frame, p, guide_fn, out, clip, b,
+                                        h, w, gh, gw, gd, y_off, x_off, sy,
+                                        sx, st);
   } else if (u8_out) {
-    launch<Guide, float, uint8_t>(g, frame, p, guide_fn, out, clip, b, h, w,
-                                  gh, gw, gd, y_off, x_off, sy, sx, st);
+    err = launch<Guide, float, uint8_t>(g, frame, p, guide_fn, out, clip, b,
+                                        h, w, gh, gw, gd, y_off, x_off, sy,
+                                        sx, st);
   } else {
-    launch<Guide, float, float>(g, frame, p, guide_fn, out, clip, b, h, w,
-                                gh, gw, gd, y_off, x_off, sy, sx, st);
+    err = launch<Guide, float, float>(g, frame, p, guide_fn, out, clip, b, h,
+                                      w, gh, gw, gd, y_off, x_off, sy, sx,
+                                      st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // namespace

@@ -47,10 +47,14 @@ __device__ __forceinline__ Taps spatial_taps(int x, float scale,
 
 // Depth taps of a guide value; dw (when not null) receives the weights'
 // derivatives with respect to the guide: gd * (d / sqrt(d^2 + eps)) at
-// each unclamped tap, 0 where the tent is clipped (sqrt(.) > 1).
+// each unclamped tap, 0 where the tent is clipped (sqrt(.) > 1). The
+// derivative is steep where the guide sits at a bin centre (d / sqrt(d^2 +
+// 1e-8) goes from -1 to 1 over |d| < 1e-4), so there gz is rounded as the
+// plain version rounds it, never fused into the subtractions that follow.
 __device__ __forceinline__ Taps depth_taps(float guide, int gd,
                                            float* dw = nullptr) {
-  const float gz = guide * static_cast<float>(gd);
+  const float gz = dw != nullptr ? __fmul_rn(guide, static_cast<float>(gd))
+                                 : guide * static_cast<float>(gd);
   const float f = floorf(gz - 0.5f);
   const float d0 = f + 0.5f - gz;
   const float d1 = f + 1.5f - gz;

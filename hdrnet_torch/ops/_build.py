@@ -55,13 +55,15 @@ _SIGNATURES = {
     # n_out, has_offset, sy, sx, stream
     'hdrnet_slice_apply_pix_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _I, _F, _F, _P),
-    # guide, image, ct, out, b, h, w, gh, gw, gd, n_in, n_out, has_offset,
-    # sy, sx, pad_y, pad_x, stream
-    'hdrnet_slice_apply_grid_bwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _F, _F, _I, _I, _P),
-    # channels, gd, &nsub, &record stride -> dynamic shared bytes
-    'hdrnet_slice_apply_grid_bwd_smem': (_I, _I, ctypes.POINTER(_I),
-                                         ctypes.POINTER(_I)),
+    # guide, image, ct, scratch, out, b, h, w, gh, gw, gd, n_in, n_out,
+    # has_offset, sy, sx, pad_y, pad_x, strips, stream
+    'hdrnet_slice_apply_grid_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
+    # b, h, gh, gw, gd, channels, &strips, &scratch floats -> dynamic
+    # shared bytes
+    'hdrnet_slice_apply_grid_bwd_plan': (_I, _I, _I, _I, _I, _I,
+                                         ctypes.POINTER(_I),
+                                         ctypes.POINTER(ctypes.c_longlong)),
 }
 
 
@@ -87,16 +89,16 @@ def find_nvcc():
   raise RuntimeError('nvcc not found: set CUDA_HOME or put nvcc on PATH')
 
 
-def _sources():
-  srcs = sorted(CSRC.glob('*.cu'))
+def _sources(csrc=CSRC):
+  srcs = sorted(Path(csrc).glob('*.cu'))
   if not srcs:
-    raise RuntimeError(f'no CUDA sources under {CSRC}')
+    raise RuntimeError(f'no CUDA sources under {csrc}')
   return srcs
 
 
-def _source_hash():
+def _source_hash(csrc=CSRC):
   h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-  for path in sorted(CSRC.glob('*.cu*')):
+  for path in sorted(Path(csrc).glob('*.cu*')):
     h.update(path.name.encode())
     h.update(path.read_bytes())
   return h.hexdigest()[:16]
@@ -139,11 +141,13 @@ def _build(out_dir, srcs):
   return log, seconds
 
 
-@functools.lru_cache(maxsize=None)
-def library():
-  """Builds the kernels if needed and returns the loaded KernelLibrary."""
-  srcs = _sources()
-  out_dir = BUILD_ROOT / _source_hash()
+def load_library(csrc, build_root):
+  """Builds the sources of `csrc` (if needed) into `build_root`/<hash>/
+  and returns the loaded KernelLibrary, its launchers given their
+  argument types. Another tree's sources with the same launchers (a
+  baseline checkout, to time against) load this way beside this tree's."""
+  srcs = _sources(csrc)
+  out_dir = Path(build_root) / _source_hash(csrc)
   path = out_dir / LIB_NAME
   if path.is_file():
     log, seconds = (out_dir / 'build.log').read_text(), 0.0
@@ -155,6 +159,13 @@ def library():
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
   return KernelLibrary(lib, path, log, seconds)
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+  """Builds this tree's kernels if needed and returns the loaded
+  KernelLibrary."""
+  return load_library(CSRC, BUILD_ROOT)
 
 
 def check(err, name):

@@ -325,6 +325,10 @@ def _enhance_fused(grid5, frame, params, guide_mode, clip_output, u8_output,
     raise ValueError('grid must be 16-byte aligned (the kernel reads float4)')
   b, h, w, _ = frame.shape
   _, gh, gw, gd, _ = grid5.shape
+  if w * N_IN >= 2**31:
+    # Larger frames run in H-bands inside the launcher; a row must fit.
+    raise ValueError(f'a row of {w} pixels exceeds the kernel\'s 32-bit '
+                     f'index (W * {N_IN} < 2^31)')
   out = torch.empty((b, h, w, N_OUT),
                     dtype=torch.uint8 if u8_output else torch.float32,
                     device=frame.device)

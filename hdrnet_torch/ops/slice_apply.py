@@ -25,13 +25,13 @@ implementation is the same device-picked route.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from hdrnet_torch.ops import _build
 from hdrnet_torch.ops import reference as ref
 
-MAX_N_IN = 6  # kMaxNIn in csrc/slice_apply.cu
 # Dynamic shared memory one block may use on Hopper (sm_90).
 _MAX_SMEM = 227 * 1024
 
@@ -137,13 +137,10 @@ def slice_apply_grid_bwd_plain(grid_shape, guide, image, ct, has_offset=True):
 # --- wrappers ----------------------------------------------------------------
 
 
-def _dims(grid_shape, guide, image, has_offset):
+def _dims(grid_shape, guide, image):
   b, h, w = guide.shape
   _, gh, gw, gd, _ = grid_shape
-  n_in = image.shape[-1]
-  if n_in > MAX_N_IN:
-    raise ValueError(f'the kernels take n_in <= {MAX_N_IN}, got {n_in}')
-  return (b, h, w, gh, gw, gd, n_in)
+  return (b, h, w, gh, gw, gd, image.shape[-1])
 
 
 def slice_apply_fwd(grid5, guide, image, has_offset=True):
@@ -175,7 +172,7 @@ def _slice_apply_fwd(grid5, guide, image, has_offset):
   n_in, n_out = _check(tuple(grid5.shape), guide, image, None, has_offset)
   if not _on_card('slice_apply_fwd', grid5, guide, image):
     return slice_apply_fwd_plain(grid5, guide, image, has_offset)
-  b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image, has_offset)
+  b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image)
   out = torch.empty((b, h, w, n_out), dtype=torch.float32,
                     device=guide.device)
   with torch.cuda.device(guide.device):
@@ -201,7 +198,7 @@ def slice_apply_pix_bwd(grid5, guide, image, ct, has_offset=True,
   if not _on_card('slice_apply_pix_bwd', grid5, guide, image, ct):
     return slice_apply_pix_bwd_plain(grid5, guide, image, ct, has_offset,
                                      need_input)
-  b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image, has_offset)
+  b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image)
   dev = guide.device
   d_guide = torch.empty((b, h, w), dtype=torch.float32, device=dev)
   d_image = (torch.empty((b, h, w, n_in), dtype=torch.float32, device=dev)
@@ -217,12 +214,38 @@ def slice_apply_pix_bwd(grid5, guide, image, ct, has_offset=True,
   return d_guide, d_image
 
 
+def grid_bwd_plan(grid_shape, guide):
+  """(strips, scratch floats, shared bytes) of K5 for a grid cotangent of
+  `grid_shape` over `guide`'s frames on the card; raises where the
+  kernel cannot run (a C above the block's 256 threads, or records and
+  slots beyond a block's shared memory)."""
+  b, h, _ = guide.shape
+  _, gh, gw, gd, c = grid_shape
+  return _grid_bwd_plan(guide.device, b, h, gh, gw, gd, c)
+
+
+# A plan queries the card (occupancy, SM count): asked once a shape, since
+# a train step calls K5 with the same shapes every step.
+@functools.lru_cache(maxsize=256)
+def _grid_bwd_plan(device, b, h, gh, gw, gd, c):
+  strips, floats = ctypes.c_int(), ctypes.c_longlong()
+  with torch.cuda.device(device):
+    smem = _build.library().lib.hdrnet_slice_apply_grid_bwd_plan(
+        b, h, gh, gw, gd, c, ctypes.byref(strips), ctypes.byref(floats))
+  if strips.value < 1 or smem > _MAX_SMEM:
+    raise ValueError(f'grid_bwd: {c} channels x {gd} bins exceed one block '
+                     f'(256 threads, {smem} bytes of shared memory)')
+  return strips.value, floats.value, smem
+
+
 def slice_apply_grid_bwd(grid_shape, guide, image, ct, has_offset=True):
   """Grid cotangent (B, gh, gw, gd, C) of the slice-apply: the splat over
   the mirror-padded image with z-extreme depth weights forced to 1.
 
   Deterministic on the card: kernel K5 sums in a fixed order, so two runs
-  give the same bits. CPU tensors: the plain version.
+  give the same bits. It writes one partial (4 cells x gd x C floats)
+  per block into a scratch tensor allocated here (``grid_bwd_plan``
+  sizes it), then sums them. CPU tensors: the plain version.
   """
   global grid_bwd_launches
   grid_shape = tuple(int(d) for d in grid_shape)
@@ -230,22 +253,17 @@ def slice_apply_grid_bwd(grid_shape, guide, image, ct, has_offset=True):
   if not _on_card('slice_apply_grid_bwd', guide, image, ct):
     return slice_apply_grid_bwd_plain(grid_shape, guide, image, ct,
                                       has_offset)
-  b, h, w, gh, gw, gd, _ = _dims(grid_shape, guide, image, has_offset)
-  lib = _build.library().lib
-  nsub, stride = ctypes.c_int(), ctypes.c_int()
-  smem = lib.hdrnet_slice_apply_grid_bwd_smem(grid_shape[-1], gd,
-                                              ctypes.byref(nsub),
-                                              ctypes.byref(stride))
-  if nsub.value < 1 or smem > _MAX_SMEM:
-    raise ValueError(f'grid_bwd: {grid_shape[-1]} channels x {gd} bins '
-                     f'exceed one block ({smem} bytes of shared memory)')
+  b, h, w, gh, gw, gd, _ = _dims(grid_shape, guide, image)
+  strips, floats, _ = grid_bwd_plan(grid_shape, guide)
   pad_y, pad_x = ref.pad_amounts(h, w, gh, gw)
-  out = torch.empty(grid_shape, dtype=torch.float32, device=guide.device)
-  with torch.cuda.device(guide.device):
-    err = lib.hdrnet_slice_apply_grid_bwd(
-        guide.data_ptr(), image.data_ptr(), ct.data_ptr(), out.data_ptr(),
-        b, h, w, gh, gw, gd, n_in, n_out, int(has_offset), gh / h, gw / w,
-        pad_y, pad_x, _stream(guide.device))
+  dev = guide.device
+  scratch = torch.empty((floats,), dtype=torch.float32, device=dev)
+  out = torch.empty(grid_shape, dtype=torch.float32, device=dev)
+  with torch.cuda.device(dev):
+    err = _build.library().lib.hdrnet_slice_apply_grid_bwd(
+        guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), b, h, w, gh, gw, gd, n_in, n_out,
+        int(has_offset), gh / h, gw / w, pad_y, pad_x, strips, _stream(dev))
   _build.check(err, 'hdrnet_slice_apply_grid_bwd')
   grid_bwd_launches += 1
   return out

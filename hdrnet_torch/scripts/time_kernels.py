@@ -1,0 +1,204 @@
+#!/usr/bin/env python
+"""Times this tree's K5 and fused K1/K6/K7 kernels in turns with a
+baseline tree's, on one CUDA card, at the shapes the port's paths run.
+
+  python -m hdrnet_torch.scripts.time_kernels --baseline_csrc DIR
+
+DIR is another checkout's ``hdrnet_torch/csrc`` (for example the parent
+commit unpacked with ``git archive`` into the gitignored ``build/``); it
+is built beside this tree's kernels into ``build/hdrnet_torch_baseline``.
+Both libraries are called through their C launchers, with the same
+inputs, in turns baseline / this tree / this tree / baseline. A turn is
+the device time a call of a CUDA graph holding ``ITERS`` calls (graph
+replay: no host gaps between launches), timed with CUDA events. Both
+trees must export this tree's launchers (``_build._SIGNATURES``).
+
+Cases: K5 at 2048^2, 1024^2 and 512^2, b=1 (the curves step and the
+pyramid's three levels; n_in = n_out = 3, 16x16x8 grid); K1 (curves
+guide) and K6 (NN guide, gc 16) at 4K b=1, f32 -> f32 clipped and
+u8 -> u8; K7, the four 1080-row bands of an 8K f32 frame in each mode.
+Each case also reports the largest difference between the two trees'
+outputs. Prints the card's name and power limit, then one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from hdrnet_torch.ops import _build
+from hdrnet_torch.ops import reference as ref
+from hdrnet_torch.utils.timing import graph_ms
+
+ITERS = 20
+UHD = (2160, 3840)
+EIGHT_K = (4320, 7680)
+K5_SIZES = (2048, 1024, 512)
+GRID = (16, 16, 8)
+
+_FUSED = ('hdrnet_enhance_fused', 'hdrnet_enhance_fused_nn')
+
+
+def load(csrc, build_root):
+  """The kernels of `csrc` built into `build_root`."""
+  return _build.load_library(csrc, build_root).lib
+
+
+def _stream():
+  return torch.cuda.current_stream().cuda_stream
+
+
+def k5_call(lib, guide, image, ct, grid_shape):
+  """A function that launches `lib`'s K5 once on these inputs (scratch
+  and output allocated once, outside), and the output tensor."""
+  b, h, w = guide.shape
+  _, gh, gw, gd, c = grid_shape
+  n_in, n_out = image.shape[-1], ct.shape[-1]
+  pad_y, pad_x = ref.pad_amounts(h, w, gh, gw)
+  out = torch.empty(grid_shape, device=guide.device)
+  dims = (b, h, w, gh, gw, gd, n_in, n_out, 1, gh / h, gw / w, pad_y, pad_x)
+  ptrs = (guide.data_ptr(), image.data_ptr(), ct.data_ptr())
+  strips, floats = ctypes.c_int(), ctypes.c_longlong()
+  lib.hdrnet_slice_apply_grid_bwd_plan(b, h, gh, gw, gd, c,
+                                       ctypes.byref(strips),
+                                       ctypes.byref(floats))
+  scratch = torch.empty((floats.value,), device=guide.device)
+
+  def call():
+    _build.check(lib.hdrnet_slice_apply_grid_bwd(
+        *ptrs, scratch.data_ptr(), out.data_ptr(), *dims, strips.value,
+        _stream()), 'K5')
+  call.scratch_bytes = floats.value * 4
+  return call, out
+
+
+def fused_call(lib, grid, frame, params, mode, u8_out, bands=1):
+  """A function that launches `lib`'s K1 (curves) or K6 (nn) on the frame,
+  or on its `bands` H-bands with K7's offsets, and the output."""
+  b, h, w, _ = frame.shape
+  _, gh, gw, gd, _ = grid.shape
+  out = torch.empty(frame.shape, device=frame.device,
+                    dtype=torch.uint8 if u8_out else torch.float32)
+  u8_in = int(frame.dtype == torch.uint8)
+  hb = h // bands
+  gc = (params.numel() - 1) // 5
+  launches = []
+  for i in range(bands):
+    band, out_band = frame[:, i * hb:(i + 1) * hb], out[:, i * hb:(i + 1) * hb]
+    geo = (b, hb, w, gh, gw, gd, i * hb, 0, h, w, gh / h, gw / w)
+    if mode == 'curves':
+      args = (grid.data_ptr(), band.data_ptr(), u8_in, params.data_ptr(),
+              out_band.data_ptr(), int(u8_out), 1, *geo)
+    else:
+      args = (grid.data_ptr(), band.data_ptr(), u8_in, params.data_ptr(), gc,
+              out_band.data_ptr(), int(u8_out), 1, *geo)
+    launches.append(args)
+  fn = getattr(lib, _FUSED[mode == 'nn'])
+
+  def call():
+    for args in launches:
+      _build.check(fn(*args, _stream()), mode)
+  return call, out
+
+
+def _turns(base, cur):
+  """baseline, this tree, this tree, baseline."""
+  return [graph_ms(f, ITERS) for f in (base, cur, cur, base)]
+
+
+def _seeded_params(dev):
+  """Realistic guide parameters: the seeded default curves model's, and
+  the NN model's (gc 16) with perturbed batch-norm statistics folded."""
+  from hdrnet_torch.config import ModelConfig
+  from hdrnet_torch.inference import Enhancer
+  from hdrnet_torch.models import make_model
+  curves = Enhancer(ModelConfig(), device=dev, seed=0).guide_params
+  cfg = ModelConfig(model_name='HDRNetPointwiseNNGuide')
+  state = make_model(cfg, generator=torch.Generator().manual_seed(1)
+                     ).state_dict()
+  gen = torch.Generator().manual_seed(2)
+  for k, v in state.items():
+    if k.startswith('guide') and k.endswith('running_var'):
+      state[k] = 0.5 + 1.5 * torch.rand(v.shape, generator=gen)
+    elif k.startswith('guide') and '.bn.' in k:
+      state[k] = 0.1 * torch.randn(v.shape, generator=gen)
+  nn = Enhancer(cfg, state, device=dev, seed=1).guide_params
+  return {'curves': curves, 'nn': nn}
+
+
+def main(argv=None):
+  parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+  parser.add_argument('--baseline_csrc', required=True,
+                      help="another tree's hdrnet_torch/csrc")
+  args = parser.parse_args(argv)
+  if not torch.cuda.is_available():
+    raise SystemExit('time_kernels: needs a CUDA device')
+  dev = torch.device('cuda', 0)
+  smi = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+  root = _build.BUILD_ROOT
+  cur = load(_build.CSRC, root)
+  base = load(Path(args.baseline_csrc).resolve(),
+              root.parent / 'hdrnet_torch_baseline')
+  rng = np.random.RandomState(0)
+  results = {}
+
+  def put(name, base_fn, cur_fn, base_out, cur_out, extra=None):
+    turns = _turns(base_fn, cur_fn)
+    torch.cuda.synchronize()
+    diff = float((cur_out.float() - base_out.float()).abs().max())
+    scale = float(base_out.float().abs().max())
+    results[name] = {'baseline_ms': (turns[0] + turns[3]) / 2,
+                     'ms': (turns[1] + turns[2]) / 2, 'turns': turns,
+                     'max_abs_diff': diff, 'baseline_max_abs': scale,
+                     **(extra or {})}
+    print(f'{name}: turns baseline / this / this / baseline '
+          f'{" / ".join(f"{t:.4f}" for t in turns)} ms; max |diff| {diff:.3e} '
+          f'(of {scale:.3e})', flush=True)
+
+  gh, gw, gd = GRID
+  for n in K5_SIZES:
+    t = lambda *s: torch.from_numpy(rng.rand(*s).astype(np.float32)).to(dev)
+    guide, image = t(1, n, n), t(1, n, n, 3)
+    ct = torch.from_numpy(rng.randn(1, n, n, 3).astype(np.float32)).to(dev)
+    shape = (1, gh, gw, gd, 12)
+    base_fn, base_out = k5_call(base, guide, image, ct, shape)
+    cur_fn, cur_out = k5_call(cur, guide, image, ct, shape)
+    put(f'K5 {n}^2', base_fn, cur_fn, base_out, cur_out,
+        {'scratch_bytes': cur_fn.scratch_bytes})
+    del guide, image, ct
+
+  params = _seeded_params(dev)
+  frame = torch.from_numpy(rng.rand(1, *UHD, 3).astype(np.float32)).to(dev)
+  frame8 = (frame * 255).to(torch.uint8)
+  grid = 0.5 * rng.randn(1, gh, gw, gd, 12)
+  for i in range(3):
+    grid[..., i * 4 + i] += 1.0
+  grid = torch.from_numpy(grid.astype(np.float32)).to(dev)
+  for mode, kid in (('curves', 'K1'), ('nn', 'K6')):
+    for x, u8, what in ((frame, False, 'f32'), (frame8, True, 'u8')):
+      b_fn, b_out = fused_call(base, grid, x, params[mode], mode, u8)
+      c_fn, c_out = fused_call(cur, grid, x, params[mode], mode, u8)
+      put(f'{kid} 4K {what}', b_fn, c_fn, b_out, c_out)
+  del frame, frame8
+  frame = torch.from_numpy(rng.rand(1, *EIGHT_K, 3).astype(np.float32)).to(
+      dev)
+  for mode in ('nn', 'curves'):
+    b_fn, b_out = fused_call(base, grid, frame, params[mode], mode, False, 4)
+    c_fn, c_out = fused_call(cur, grid, frame, params[mode], mode, False, 4)
+    put(f'K7 four 1080-row 8K bands {mode}', b_fn, c_fn, b_out, c_out)
+  print(smi)
+  print(json.dumps({'device': smi, 'iters_a_graph': ITERS,
+                    'cases': results}))
+  return results
+
+
+if __name__ == '__main__':
+  main()

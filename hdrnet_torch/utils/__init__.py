@@ -1,2 +1,2 @@
-"""Helpers of the port: image conversions, dataset metadata and the
-import of reference TF checkpoints."""
+"""Helpers of the port: image conversions, dataset metadata, the import
+of reference TF checkpoints, and device timing."""

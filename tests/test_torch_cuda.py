@@ -271,11 +271,18 @@ def _scaled_close(got, want, rel):
 
 TRAIN_SHAPES = [(2, 101, 60, 16, 16, 8), (2, 37, 1031, 10, 6, 8),
                 (1, 270, 481, 32, 32, 16)]
+# K5 cuts the padded frame into regions between cell centres and each
+# region into row strips: a 14 x 25 grid over 203 x 317 pixels gives
+# regions of 14-15 rows by 12-13 columns, split unevenly.
+ODD_STRIPS_SHAPE = (3, 203, 317, 14, 25, 5)
 
 
-@pytest.mark.parametrize('n_in', [0, 3])
-@pytest.mark.parametrize('shape', TRAIN_SHAPES)
+@pytest.mark.parametrize('n_in', [0, 3, 8])
+@pytest.mark.parametrize('shape', TRAIN_SHAPES + [ODD_STRIPS_SHAPE])
 def test_slice_apply_kernels_match_plain(cuda, shape, n_in):
+  """K3, K4 and K5 against their plain versions, with n_in 8 (K3/K4's
+  looped path, K5's C = 27) beside 3 and 0; K5 twice gives the same
+  bits."""
   b, h, w, gh, gw, gd = shape
   n_out = 5 if n_in == 0 else 3
   grid, guide, image, ct = _train_inputs(6, b, h, w, n_in, cuda, gh, gw, gd,
@@ -570,3 +577,152 @@ def test_export_round_trip_on_card(cuda, name, tmp_path):
     torch.cuda.synchronize()
     assert fused.launches + fused.nn_launches > before, fn_name
     assert torch.equal(got, want), fn_name
+
+
+def test_grid_bwd_plan_sizes_its_scratch(cuda):
+  """K5's plan: at least two waves of blocks at every pyramid level (strips
+  capped by a region's rows), and a scratch of one partial a block."""
+  for n in (2048, 1024, 512, 64):
+    guide = torch.zeros((1, n, n), device=cuda)
+    strips, floats, smem = slice_apply.grid_bwd_plan((1, 16, 16, 8, 12),
+                                                     guide)
+    assert 1 <= strips <= max(1, n // 16)
+    assert floats == 17 * 17 * strips * 4 * 8 * 12
+    assert 0 < smem <= 227 * 1024
+  with pytest.raises(ValueError, match='exceed'):
+    slice_apply.grid_bwd_plan((1, 4, 4, 8, 300), guide)
+
+
+@pytest.mark.parametrize('mode', ['curves', 'nn'])
+@pytest.mark.parametrize('u8', [False, True])
+@pytest.mark.parametrize('w', [61, 62, 63, 64, 67, 130])
+def test_fused_kernel_ragged_rows(cuda, mode, u8, w):
+  """K1/K6 take 4 pixels a thread on 16 x 64 tiles: widths that are not
+  a multiple of 4 (scalar loads and stores) or of 64 (a partial tile),
+  and a frame that is not 16-byte aligned, against the plain version."""
+  if mode == 'nn':
+    grid, frame, params = _nn_inputs(11, 2, 37, w, 16, cuda, u8)
+  else:
+    grid, frame, params = _inputs(11, 2, 37, w, cuda, u8)
+  kw = dict(clip_output=True, u8_output=u8)
+  # The same values one element into a larger buffer: not aligned.
+  shifted = torch.empty(frame.numel() + 1, dtype=frame.dtype, device=cuda)
+  shifted[1:] = frame.reshape(-1)
+  unaligned = shifted[1:].view(frame.shape)
+  want = fused.enhance_fused_plain(grid, frame, params, mode, **kw)
+  got = fused.enhance_fused(grid, frame, params, mode, **kw)
+  assert torch.equal(fused.enhance_fused(grid, unaligned, params, mode, **kw),
+                     got)
+  torch.cuda.synchronize()
+  if u8:
+    diff = (got.int() - want.int()).cpu().numpy()
+    assert np.abs(diff).max() <= 1 and (diff != 0).mean() < 0.01
+  else:
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize('mode', ['curves', 'nn'])
+def test_fused_kernel_bands_cut_tiles(cuda, mode):
+  """K7 at offsets that cut the kernel's 16 x 64 tiles (rows 7, 23, 50,
+  columns 5, 70, 131): each band and tile bit for bit the same pixels of
+  the whole frame."""
+  if mode == 'nn':
+    grid, frame, params = _nn_inputs(12, 1, 211, 333, 16, cuda, False)
+  else:
+    grid, frame, params = _inputs(12, 1, 211, 333, cuda, False)
+  whole = fused.enhance_fused(grid, frame, params, mode, clip_output=True)
+  for y0, y1, x0, x1 in ((7, 23, 0, 333), (23, 50, 5, 70), (50, 211, 131, 333),
+                         (0, 211, 70, 131), (100, 101, 5, 6)):
+    tile = frame[:, y0:y1, x0:x1].contiguous()
+    got = fused.enhance_fused(grid, tile, params, mode, clip_output=True,
+                              y_offset=y0, x_offset=x0, h_total=211,
+                              w_total=333)
+    assert torch.equal(got, whole[:, y0:y1, x0:x1]), (y0, y1, x0, x1)
+
+
+def test_fused_kernel_large_grid_small_frame(cuda):
+  """A grid whose cells for one tile exceed a block's shared memory (a
+  32 x 32 x 16 grid over a 40 x 130 frame) is read from device memory
+  instead, with the same result as the plain version; its bands equal
+  the whole frame."""
+  grid, frame, params = _inputs(13, 1, 40, 130, cuda, False, 32, 32, 16)
+  got = fused.enhance_fused(grid, frame, params, clip_output=True)
+  want = fused.enhance_fused_plain(grid, frame, params, clip_output=True)
+  torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+  band = frame[:, 9:18].contiguous()
+  assert torch.equal(fused.enhance_fused(grid, band, params, clip_output=True,
+                                         y_offset=9, h_total=40),
+                     got[:, 9:18])
+
+
+def test_fused_kernel_frame_past_32_bit_index(cuda):
+  """A uint8 frame of 2^31 values or more (24576 x 32768, 805 MP, 2.4 GB)
+  runs in H-bands inside the launcher, since the kernel indexes an image
+  in 32 bits: rows at the frame's start, across the first band's end and
+  at the frame's end are bit for bit the same rows run as bands of their
+  own, and within 1 code of the plain version."""
+  h, w = 24576, 32768
+  grid, _, params = _inputs(14, 1, 16, 64, cuda, True)
+  gen = torch.Generator(device=cuda).manual_seed(14)
+  frame = torch.randint(0, 256, (1, h, w, 3), dtype=torch.uint8,
+                        device=cuda, generator=gen)
+  kw = dict(clip_output=True, u8_output=True)
+  whole = fused.enhance_fused(grid, frame, params, **kw)
+  edge = (2**31 - 1) // (3 * w)  # the first band's rows
+  for y0, y1 in ((0, 8), (edge - 8, edge + 8), (h - 8, h)):
+    band = frame[:, y0:y1].contiguous()
+    got = fused.enhance_fused(grid, band, params, y_offset=y0, h_total=h,
+                              **kw)
+    assert torch.equal(whole[:, y0:y1], got), (y0, y1)
+    want = fused.enhance_fused_plain(grid, band, params, y_offset=y0,
+                                     h_total=h, **kw)
+    diff = (got.int() - want.int()).cpu().numpy()
+    assert np.abs(diff).max() <= 1 and (diff != 0).mean() < 0.01
+
+
+def test_export_tf32_outside_load_artifact(cuda, tmp_path, record_property):
+  """F2: a reloaded graph run with cuDNN's TF32 on, outside load_artifact
+  (which sets the manifest's switches), against the eager Enhancer. The
+  test reports which it saw: a difference above 1e-4 (what the manifest's
+  record guards against) or a match. load_artifact's run is bit-identical
+  whatever the caller's switches."""
+  import json
+  from hdrnet_torch.bin import export
+  from hdrnet_torch.config import Config, TrainConfig
+  from hdrnet_torch.training import loop, step
+  from hdrnet_torch.training.checkpoint import Checkpointer
+  cfg = Config(model=ModelConfig(), train=TrainConfig())
+  model = Enhancer(cfg.model, device='cpu', seed=5).model
+  cfg.save(str(tmp_path))
+  Checkpointer(str(tmp_path)).save(0, step.create_state(
+      model, loop.make_optimizer(model, cfg.train)))
+  export.main([str(tmp_path), '--fullres', '270', '480'])
+  path = str(tmp_path / 'serve_fn.pt2')
+  with open(str(tmp_path / 'serve_fn.manifest.json')) as f:
+    assert json.load(f)['precision'] == export.PRECISION
+  enh = Enhancer.from_checkpoint(str(tmp_path), device=cuda)
+  rng = np.random.RandomState(6)
+  low = torch.from_numpy(rng.rand(1, 256, 256, 3).astype(np.float32)).to(cuda)
+  full = torch.from_numpy(rng.rand(1, 270, 480, 3).astype(np.float32)).to(
+      cuda)
+  want = enh(low, full)
+  saved = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+  try:
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    module = torch.export.load(path).module()
+    with torch.no_grad():
+      tf32 = module(low, full)
+    loaded = export.load_artifact(path)(low, full)
+  finally:
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+  torch.cuda.synchronize()
+  assert torch.equal(loaded, want)
+  diff = float((tf32 - want).abs().max())
+  seen = ('differs by more than 1e-4' if diff > 1e-4
+          else 'matches within 1e-4')
+  record_property('tf32_max_abs_diff', diff)
+  print(f'reloaded serve_fn with cudnn.allow_tf32 on: {seen} '
+        f'(max |diff| {diff:.3e})')

@@ -158,9 +158,9 @@ def test_one_train_step_matches_jax(name, gc, guide_reg, guide_lr_scale):
   (jax.value_and_grad inside the JAX step), the updated parameters, and
   the guides' BN statistics, which move in training whatever
   ``batch_norm`` says. (``batch_norm`` is off: with it on, the backbone's
-  BN over a batch of two is ill-conditioned for every HDRNet model alike;
-  in float64 the port and JAX agree, in float32 only to ~7e-4 of a
-  leaf's max, the port being the nearer to the float64 gradients.)"""
+  BN over a batch of two is ill-conditioned, and in float32 the two
+  packages agree only to ~7e-4 of a leaf's max. The BN-on step is held
+  to JAX in float64 by ``tests/test_torch_bn_step_f64.py``.)"""
   lr = 1e-3
   cfg = _cfg(name, gc=gc)
   tc = TrainConfig(learning_rate=lr, guide_lr_scale=guide_lr_scale)

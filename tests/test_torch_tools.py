@@ -227,6 +227,39 @@ def test_export_reloads_bit_identical_to_eager(exported):
     assert manifest['outputs'][0]['dtype'] == str(want.dtype)[6:]
 
 
+def test_export_manifest_records_full_float32(exported, tmp_path,
+                                              monkeypatch):
+  """F2: each manifest records the TF32 switches its graph must run with
+  (off: full float32, as the Enhancer runs), and load_artifact sets them
+  around the call, whatever the caller's, and restores the caller's; a
+  manifest without the record is refused."""
+  _, ckpt, programs = exported
+  for fn_name in programs:
+    with open(os.path.join(ckpt, f'{fn_name}.manifest.json')) as f:
+      assert json.load(f)['precision'] == {'cudnn_allow_tf32': False,
+                                           'matmul_allow_tf32': False}
+  seen = []
+
+  class Program:
+    def module(self):
+      return lambda *a: seen.append((torch.backends.cudnn.allow_tf32,
+                                     torch.backends.cuda.matmul.allow_tf32))
+  monkeypatch.setattr(torch.export, 'load', lambda path: Program())
+  monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+  monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+  export.load_artifact(os.path.join(ckpt, 'serve_fn.pt2'))()
+  assert seen == [(False, False)]
+  assert torch.backends.cudnn.allow_tf32
+  assert torch.backends.cuda.matmul.allow_tf32
+  with open(os.path.join(ckpt, 'serve_fn.manifest.json')) as f:
+    manifest = json.load(f)
+  del manifest['precision']
+  with open(tmp_path / 'old.manifest.json', 'w') as f:
+    json.dump(manifest, f)
+  with pytest.raises(ValueError, match='precision'):
+    export.load_artifact(str(tmp_path / 'old.pt2'))
+
+
 def test_export_matches_jax(exported):
   name, ckpt, _ = exported
   model, variables = _flax(name)

@@ -116,7 +116,7 @@ def _cf(x):
   return jnp.transpose(jnp.asarray(x), (0, 3, 1, 2))
 
 
-@pytest.mark.parametrize('n_in', [3, 0])
+@pytest.mark.parametrize('n_in', [3, 0, 8])
 def test_plain_kernels_match_jax_interpret(n_in):
   """K3, K4 and K5's plain versions against the JAX Pallas kernels in
   interpret mode (channel-first there, channels-last here)."""

@@ -45,10 +45,13 @@ sizes, the kernels' launches counted), and the host cost of a registered
 CPU.
 
 The redesigned kernels (K5 as regions of row strips with a fixed-order
-sum of partials; K1/K6/K7 on 2D tiles with the tile's cells staged in
-shared memory): K3, K4 and K5 also at n_in = 8 against their plain
-versions, and K5 timed at the pyramid's three level sizes (2048^2,
-1024^2, 512^2) with its scratch memory.
+sum of partials; K1/K6/K7, K3 and K4 on 2D tiles with the tile's cells
+staged in shared memory): K3, K4 and K5 also at n_in = 8 and under a
+grid whose tile windows K3/K4 read from device memory, against their
+plain versions, and K3, K4 and K5 timed at the pyramid's three level
+sizes (2048^2, 1024^2, 512^2), K5 with its scratch memory. The K3, K4
+and K5 rows count their launches on every path that runs them: the
+curves and pyramid train steps, evaluate, export and fit_grid.
 
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
@@ -107,14 +110,23 @@ F32_OPS_PER_S = 67e12
 # curves guide 3 x (3 FMA + 16 x (sub, max, FMA) + FMA) + add + clip; NN
 # guide gc x (3 FMA, max, FMA) + the sigmoid (4); slice + apply: the y and
 # x taps (14 each), the depth taps (15), 12 corner weights, 8 corners x
-# 12 FMA, the 3 x 3 FMA affine and the clip; K4: the taps and weights
-# with their depth derivatives (68), 8 corners x 12 x 2 FMA, and the
-# 15-FMA contraction into d_guide; K5, a padded pixel: the C = 12
-# products, the weights (30) and 4 cells x 2 depth bins x 12 FMA.
+# 12 FMA, the 3 x 3 FMA affine and the clip; K4 with the guide's
+# cotangent only (the training path): the taps and weights with their
+# depth derivatives (68), 8 corners x 12 FMA, and the 15-FMA contraction
+# into d_guide; K5, a padded pixel: the C = 12 products, the weights (30)
+# and 4 cells x 2 depth bins x 12 FMA.
 CURVES_GUIDE_OPS = 219
 SLICE_APPLY_OPS = 271
-K4_OPS = 482
+K4_GUIDE_OPS = 290
 K5_OPS = 234
+
+
+def _tally_slice(slice_launches, k3, k4=0, k5=0):
+  """Adds one path's K3, K4 and K5 launches, counted between a reset of
+  the wrappers' counters and their read, to the run's tally (the kernels
+  line's launches of those rows)."""
+  for key, n in (('K3', k3), ('K4', k4), ('K5', k5)):
+    slice_launches[key] += n
 
 
 def _nn_guide_ops(gc):
@@ -159,8 +171,8 @@ def _kernel_label(mangled):
     if rest[i] in 'fh':
       args.append({'f': 'f32', 'h': 'u8'}[rest[i]])
       i += 1
-    elif rest.startswith('Li', i):  # an int argument: Li<value>E
-      n = re.match(r'Li(-?\d+)E', rest[i:])
+    elif rest.startswith(('Li', 'Lb'), i):  # int or bool: L{i,b}<value>E
+      n = re.match(r'L[ib](-?\d+)E', rest[i:])
       if not n:
         return mangled
       args.append(n.group(1))
@@ -267,64 +279,89 @@ def _train_inputs(gen, b, hw, n_in, dev, n_out=3, grid=(16, 16, 8)):
   return g5, guide, image, ct
 
 
-def _k5_bound(n, grid_shape=(1, 16, 16, 8, 12), n_in=3, n_out=3):
-  """K5's bound at n x n, b=1: guide, image and ct read once, the grid
-  cotangent written once; every padded pixel's splat."""
+def _slice_bounds(n, grid_shape=(1, 16, 16, 8, 12), n_in=3, n_out=3):
+  """Bounds of K3, K4 (the guide's cotangent only) and K5 at n x n, b=1:
+  each input read once, each output written once; K5 also splats every
+  padded pixel."""
   _, gh, gw, _, _ = grid_shape
   grid_bytes = 4 * int(np.prod(grid_shape))
+  pixels = n * n
   pad_y, pad_x = -(-n // (2 * gh)), -(-n // (2 * gw))
   padded = (n + 2 * pad_y) * (n + 2 * pad_x)
-  return _bound(grid_bytes + n * n * (1 + n_in + n_out) * 4, padded * K5_OPS)
+  return {
+      # grid, guide, image in; output out.
+      'K3': _bound(grid_bytes + pixels * (1 + n_in + n_out) * 4,
+                   pixels * SLICE_APPLY_OPS),
+      # grid, guide, image, ct in; d_guide out.
+      'K4': _bound(grid_bytes + pixels * (1 + n_in + n_out + 1) * 4,
+                   pixels * K4_GUIDE_OPS),
+      # guide, image, ct in; the grid cotangent out.
+      'K5': _bound(grid_bytes + pixels * (1 + n_in + n_out) * 4,
+                   padded * K5_OPS),
+  }
 
 
-def _k5_levels(gen, dev, tag):
-  """K5 at the pyramid's three level sizes, b=1, n_in = n_out = 3: CUDA
-  events around 50 wrapper calls, and the device time of a call in a CUDA
-  graph of 20 (no host gaps: at the small levels a launch is shorter
-  than a wrapper call); its blocks, its scratch and the memory one call
-  allocates (scratch and output), and its bound."""
+def _slice_levels(gen, dev, tag):
+  """K3, K4 (the guide's cotangent only, as training runs it) and K5 at
+  the pyramid's three level sizes, b=1, n_in = n_out = 3: CUDA events
+  around 50 wrapper calls, and the device time of a call in a CUDA graph
+  of 20 (no host gaps: at the small levels a launch is shorter than a
+  wrapper call), with each bound; K5's blocks, its scratch and the memory
+  one call allocates (scratch and output)."""
   from hdrnet_torch.ops import slice_apply as sa
   from hdrnet_torch.utils.timing import graph_ms
-  levels = {}
+  levels = {'K3': {}, 'K4': {}, 'K5': {}}
   for n in TRAIN_HW[0], TRAIN_HW[0] // 2, TRAIN_HW[0] // 4:
     g5, guide, image, ct = _train_inputs(gen, 1, (n, n), 3, dev)
-    call = lambda: sa.slice_apply_grid_bwd(g5.shape, guide, image, ct)
+    calls = {
+        'K3': lambda: sa.slice_apply_fwd(g5, guide, image),
+        'K4': lambda: sa.slice_apply_pix_bwd(g5, guide, image, ct,
+                                             need_input=False),
+        'K5': lambda: sa.slice_apply_grid_bwd(g5.shape, guide, image, ct)}
+    bounds = _slice_bounds(n, tuple(g5.shape))
+    for kid, call in calls.items():
+      levels[kid][f'{n}^2'] = {
+          'ms': _time_ms(call, 50), 'graph_ms': graph_ms(call),
+          'bound_ms': bounds[kid][0], 'bound_by': bounds[kid][1]}
     strips, floats, smem = sa.grid_bwd_plan(g5.shape, guide)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    call()
+    calls['K5']()
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - before
-    bound = _k5_bound(n, tuple(g5.shape))
-    levels[f'{n}^2'] = {
-        'ms': _time_ms(call, 50), 'graph_ms': graph_ms(call),
-        'bound_ms': bound[0], 'bound_by': bound[1], 'strips': strips,
+    levels['K5'][f'{n}^2'].update({
+        'strips': strips,
         'blocks': (g5.shape[1] + 1) * (g5.shape[2] + 1) * strips,
-        'shared_bytes': smem,
-        'scratch_bytes': floats * 4, 'peak_bytes_a_call': peak}
-    del g5, guide, image, ct
-  print(f'timing {tag}: K5 at the pyramid\'s levels, b=1: '
-        + '; '.join(f'{k} {v["ms"]:.4f} ms (graph {v["graph_ms"]:.4f}, '
-                    f'bound {v["bound_ms"]:.4f}, {v["blocks"]} blocks, '
-                    f'scratch {v["scratch_bytes"]} B, a call allocates '
-                    f'{v["peak_bytes_a_call"]} B)' for k, v in levels.items()),
-        flush=True)
+        'shared_bytes': smem, 'scratch_bytes': floats * 4,
+        'peak_bytes_a_call': torch.cuda.max_memory_allocated() - before})
+    del g5, guide, image, ct, calls
+  for kid, by_size in levels.items():
+    print(f'timing {tag}: {kid} at the pyramid\'s levels, b=1: '
+          + '; '.join(f'{k} {v["ms"]:.4f} ms (graph {v["graph_ms"]:.4f}, '
+                      f'bound {v["bound_ms"]:.4f})'
+                      for k, v in by_size.items()), flush=True)
+  print('K5 at the levels: ' + '; '.join(
+      f'{k} {v["blocks"]} blocks, scratch {v["scratch_bytes"]} B, a call '
+      f'allocates {v["peak_bytes_a_call"]} B'
+      for k, v in levels['K5'].items()), flush=True)
   return levels
 
 
 def _check_train_kernels(gen, dev, full_float32):
   """K3, K4 and K5 against their plain versions (under full float32) at
-  the training shape and an odd one, with 3 input channels, none (the
-  plain slice) and 8 (the zoo's feature models: K3 and K4's looped path,
-  K5's C = 27); K5 twice must give the same bits."""
+  the training shape, an odd one and one whose tile windows K3/K4 read
+  from device memory (a 128 x 128 x 8 grid over 20 x 70), with 3 input
+  channels, none (the plain slice) and 8 (the zoo's feature models: K3
+  and K4's looped path, K5's C = 27); K5 twice must give the same bits,
+  and K4 without the input's cotangent the same d_guide bits."""
   from hdrnet_torch.ops import slice_apply as sa
   errs = {'K3': 0.0, 'K4': 0.0, 'K5': 0.0}
-  for b, hw in [(1, TRAIN_HW), (2, (101, 60))]:
+  for b, hw, grid in [(1, TRAIN_HW, (16, 16, 8)), (2, (101, 60), (16, 16, 8)),
+                      (1, (20, 70), (128, 128, 8))]:
     for n_in in (3, 0, 8):
       g5, guide, image, ct = _train_inputs(gen, b, hw, n_in, dev,
-                                           n_out=3 if n_in else 12)
-      what = f'b={b} {hw} n_in={n_in}'
+                                           n_out=3 if n_in else 12, grid=grid)
+      what = f'b={b} {hw} grid {grid} n_in={n_in}'
       with full_float32():
         out = sa.slice_apply_fwd(g5, guide, image)
         errs['K3'] = max(errs['K3'], _max_err(
@@ -339,6 +376,11 @@ def _check_train_kernels(gen, dev, full_float32):
                                                   ct), K5_REL, f'K5 {what}'))
         if n_in:
           d_guide, d_image = sa.slice_apply_pix_bwd(g5, guide, image, ct)
+          dg_only, _ = sa.slice_apply_pix_bwd(g5, guide, image, ct,
+                                              need_input=False)
+          if not torch.equal(dg_only, d_guide):
+            raise AssertionError(f'K4 {what}: d_guide differs without '
+                                 f'd_image')
           want_dg, want_di = sa.slice_apply_pix_bwd_plain(g5, guide, image,
                                                           ct)
           errs['K4'] = max(
@@ -349,8 +391,10 @@ def _check_train_kernels(gen, dev, full_float32):
   print(f'K3/K4/K5 vs plain: max abs err K3 {errs["K3"]:.3e} (<= '
         f'{K3_TOL:.0e}), K4 {errs["K4"]:.3e} (guide <= {K4_GUIDE_REL:.0e} '
         f'of its max, input <= {K3_TOL:.0e}), K5 {errs["K5"]:.3e} (<= '
-        f'{K5_REL:.0e} of its max), at 2048^2 b=1 and 101x60 b=2, n_in 3, '
-        f'0 and 8; K5 bit-identical across runs', flush=True)
+        f'{K5_REL:.0e} of its max), at 2048^2 b=1, 101x60 b=2 and 20x70 '
+        f'under a 128x128x8 grid (K3/K4 windows in device memory), n_in 3, '
+        f'0 and 8; K5 bit-identical across runs, K4\'s d_guide the same '
+        f'bits without d_image', flush=True)
   return errs
 
 
@@ -454,14 +498,14 @@ def _cudnn_deterministic():
      torch.backends.cudnn.benchmark) = saved
 
 
-def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
-                      steps=TRAIN_STEPS):
+def _train_full_width(dev, tag, enh_cls, slice_launches,
+                      model_name='HDRNetCurves', steps=TRAIN_STEPS):
   """The model and optimizer of scripts/ll/train_std.sh (HDRNetCurves) or
   train_gpyrnn.sh (HDRNetGaussianPyrNN): `steps` steps with one K3, K4
   and K5 a slice-apply (three a step for the pyramid), save, restore, one
   more step each way, evaluate the checkpoint through bin/evaluate.py's
   functions (training graph and serving path), serve it at 4K. Returns
-  the launch counts and timings."""
+  the timings; the K3/K4/K5 launches go into slice_launches."""
   import shutil
   from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
   from hdrnet_torch.models import make_model
@@ -503,6 +547,7 @@ def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
   n = steps * per_step
   if launches != {'K3': n, 'K4': n, 'K5': n}:
     raise AssertionError(f'launches over {steps} steps: {launches}')
+  _tally_slice(slice_launches, n, n, n)
   losses = [float(x) for x in losses]
   ema = float(emas[-1])
   if not all(np.isfinite(losses)) or not ema < losses[0]:
@@ -545,6 +590,7 @@ def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
   if eval_launches != want:
     raise AssertionError(f'evaluate launches (K3, K1, K6) {eval_launches}; '
                          f'expected {want}')
+  _tally_slice(slice_launches, eval_launches[False][0])
   eval_rel = max(abs(a - b) / abs(b) for a, b in zip(psnrs[True],
                                                      psnrs[False]))
   if not (np.isfinite(psnrs[False]).all() and eval_rel <= 1e-5):
@@ -591,7 +637,7 @@ def _train_full_width(dev, tag, enh_cls, model_name='HDRNetCurves',
   torch.cuda.synchronize()
   step_ms = (time.perf_counter() - t0) * 1e3 / n
   steady_peak = torch.cuda.max_memory_allocated() / 2 ** 20
-  return launches, step_ms, peak_mib, steady_peak
+  return step_ms, peak_mib, steady_peak
 
 
 def _nn_enhancer(enh_cls, name, dev, seed):
@@ -804,7 +850,7 @@ def _seeded_checkpoint(directory, model_name, seed):
       model, loop.make_optimizer(model, cfg.train)))
 
 
-def _check_export(dev, tag, gen):
+def _check_export(dev, tag, gen, slice_launches):
   """bin/export.py's main on a seeded HDRNetCurves and a seeded
   HDRNetGaussianPyrNN checkpoint at --fullres 1080 1920: every .pt2
   reloads and equals the eager Enhancer bit for bit, serve_any_fn at two
@@ -858,6 +904,7 @@ def _check_export(dev, tag, gen):
     if counts != expect:
       raise AssertionError(f'{name} reloaded graphs launched {counts}; '
                            f'expected {expect}')
+    _tally_slice(slice_launches, counts['K3'])
     ops = {k: export.hdrnet_ops(p) for k, p in programs.items()}
     lines.append(f'{name}: 5 artifacts in {export_s:.1f} s, graphs call '
                  f'{json.dumps(ops)}; reloaded runs bit-identical (serve_any '
@@ -902,7 +949,7 @@ def _fit_grads(fit_grid, pair, where):
   return {k: p.grad.detach().cpu() for k, p in leaves}
 
 
-def _check_fit_grid(dev, tag):
+def _check_fit_grid(dev, tag, slice_launches):
   """bin/fit_grid.py's fit_pair on the card: 50 steps with the curves
   guide on a seeded 1024^2 pair (PSNR above identity, K3/K4/K5 launched,
   ms a step). At 256^2, the card against the CPU: the first step's
@@ -934,6 +981,7 @@ def _check_fit_grid(dev, tag):
   if counts != (51, 50, 50) or not psnr > identity:
     raise AssertionError(f'fit_grid 1024^2: launches (K3, K4, K5) {counts}, '
                          f'PSNR {psnr} vs identity {identity}')
+  _tally_slice(slice_launches, *counts)
   small = pair(256)
   sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
   card, cpu = (_fit_grads(fit_grid, small, w) for w in (dev, 'cpu'))
@@ -941,6 +989,7 @@ def _check_fit_grid(dev, tag):
   if counts_256 != (1, 1, 1):
     raise AssertionError(f'fit_grid gradients: launches (K3, K4, K5) '
                          f'{counts_256} on the card')
+  _tally_slice(slice_launches, *counts_256)
   grad_err, flips = {}, {}
   for k in card:
     want, got = cpu[k], card[k]
@@ -1428,10 +1477,12 @@ def main():
   train_errs = _check_train_kernels(gen, dev, full_float32)
   _check_model_gradients(dev, full_float32)
   _check_model_gradients(dev, full_float32, PYR)
-  train_launches, step_ms, peak_mib, steady_peak = _train_full_width(
-      dev, tag, Enhancer)
-  pyr_train_launches, pyr_step_ms, _, pyr_peak = _train_full_width(
-      dev, tag, Enhancer, PYR, PYR_TRAIN_STEPS)
+  # K3/K4/K5 launches on every path that runs them (the kernels line).
+  slice_launches = {'K3': 0, 'K4': 0, 'K5': 0}
+  step_ms, peak_mib, steady_peak = _train_full_width(dev, tag, Enhancer,
+                                                     slice_launches)
+  pyr_step_ms, _, pyr_peak = _train_full_width(
+      dev, tag, Enhancer, slice_launches, PYR, PYR_TRAIN_STEPS)
   print(f'timing {tag}: {PYR} train step at full width {pyr_step_ms:.4f} ms '
         f'({1e3 / pyr_step_ms:.2f} steps/s, host clock over 20 steps); '
         f'peak memory allocated during those steps {pyr_peak:.1f} MiB',
@@ -1455,7 +1506,7 @@ def main():
     times[name] = (kernel_ms, plain_ms)
     print(f'timing {tag}: {name} 2048^2 b=1 kernel {kernel_ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms', flush=True)
-  k5_levels = _k5_levels(gen, dev, tag)
+  slice_levels = _slice_levels(gen, dev, tag)
   share = sum(times[k][0] for k in ('K3', 'K4', 'K5')) / step_ms
   print(f'timing {tag}: train step at full width {step_ms:.4f} ms '
         f'({1e3 / step_ms:.2f} steps/s, host clock over 20 steps); K3+K4+K5 '
@@ -1466,17 +1517,15 @@ def main():
   k2x_launches, k2x_err, k2x_times, k2x_bound, k2x_floors = _check_k2x(
       dev, tag)
   times['K2x'] = (k2x_times[1]['gather'], k2x_times[1]['plain_gather'])
-  _check_export(dev, tag, gen)
-  _check_fit_grid(dev, tag)
+  _check_export(dev, tag, gen, slice_launches)
+  _check_fit_grid(dev, tag, slice_launches)
+  print(f'K3/K4/K5 launches on the paths (train steps, evaluate, export, '
+        f'fit_grid): {slice_launches}', flush=True)
 
   # The least time each kernel could take at the shapes it was timed at.
   k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)
   gc = fused.nn_guide_complexity(nn_params)
   k6_bound = _fused_bound(gn4k, x4k, nn_params, _nn_guide_ops(gc))
-  pixels = TRAIN_HW[0] * TRAIN_HW[1]
-  grid_bytes = _nbytes(g5)
-  pad_y, pad_x = (-(-TRAIN_HW[0] // (2 * 16)), -(-TRAIN_HW[1] // (2 * 16)))
-  padded = (TRAIN_HW[0] + 2 * pad_y) * (TRAIN_HW[1] + 2 * pad_x)
   bounds = {
       'K1': k1_bound, 'K6': k6_bound, 'K7': k7_bound,
       # K2 reads only the sampled pixels and writes the preview.
@@ -1486,15 +1535,8 @@ def main():
       # whole, the one-hot products) goes beside it.
       'K2x': (k2x_bound[1], 'bytes'),
       'K2g': _bound(4 * 3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0),
-      # K3: grid, guide, image in; output out.
-      'K3': _bound(grid_bytes + pixels * (1 + 3 + 3) * 4,
-                   pixels * SLICE_APPLY_OPS),
-      # K4 as timed (d_guide only): grid, guide, image, ct in; d_guide out.
-      'K4': _bound(grid_bytes + pixels * (1 + 3 + 3 + 1) * 4,
-                   pixels * K4_OPS),
-      # K5: guide, image, ct in; the grid cotangent out; every padded
-      # pixel's splat.
-      'K5': _bound(grid_bytes + pixels * (1 + 3 + 3) * 4, padded * K5_OPS),
+      # K3, K4 (d_guide only, as timed) and K5 at 2048^2.
+      **_slice_bounds(TRAIN_HW[0], tuple(g5.shape)),
   }
   rows = [
       ('K1', 'K1 enhance_fused (curves guide + slice + apply)',
@@ -1520,15 +1562,17 @@ def main():
        'tensor cores; timed rows=\'gather\' at 4K b=1, rows=\'mma\' and b=4 '
        'in its phase line)', 'hdrnet_torch/csrc/downsample_onehot.cu',
        'scripts/exp_downsample_v2.py:102', k2x_launches, k2x_err, 'K2x'),
-      ('K3', 'K3 slice_apply_fwd (slice + apply, external guide)',
+      ('K3', 'K3 slice_apply_fwd (slice + apply, external guide; at 3 -> 3 '
+       'K1\'s kernel with the guide loaded)',
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:570',
-       train_launches['K3'], train_errs['K3'], 'K3'),
-      ('K4', 'K4 slice_apply_pix_bwd (guide and input cotangents)',
+       slice_launches['K3'], train_errs['K3'], 'K3'),
+      ('K4', 'K4 slice_apply_pix_bwd (guide and input cotangents; timed '
+       'with the guide\'s only, as training runs it)',
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:694',
-       train_launches['K4'], train_errs['K4'], 'K4'),
+       slice_launches['K4'], train_errs['K4'], 'K4'),
       ('K5', 'K5 slice_apply_grid_bwd (grid cotangent, deterministic)',
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:757',
-       train_launches['K5'], train_errs['K5'], 'K5'),
+       slice_launches['K5'], train_errs['K5'], 'K5'),
   ]
   # No single PyTorch call computes any of these functions: grid_sample
   # has no smoothed depth tent and interpolate another nearest table.
@@ -1538,7 +1582,8 @@ def main():
               'bound_ms': bounds[kid][0], 'bound_by': bounds[kid][1],
               'library_ms': None}
              for kid, name, source, replaces, n, err, key in rows]
-  kernels[[r[0] for r in rows].index('K5')]['levels'] = k5_levels
+  for kid in ('K3', 'K4', 'K5'):
+    kernels[[r[0] for r in rows].index(kid)]['levels'] = slice_levels[kid]
   kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
       f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
       for r in ('gather', 'mma')}

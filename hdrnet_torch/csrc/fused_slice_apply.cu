@@ -2,6 +2,9 @@
 // K6: the same with the pointwise NN guide.
 // K7: both with a pixel offset and a total extent, for a band of a larger
 // frame.
+// K3 at the models' 3 -> 3 with an offset: the same kernel with the guide
+// loaded, not computed, and no clip (slice_apply_fwd_fixed, called by
+// slice_apply.cu's launcher).
 //
 // K1 replaces hdrnet_tpu/ops/pallas.py: enhance_fused (pallas_call at
 // pallas.py:1216) -> _fused_fwd_kernel (pallas.py:635) in curves mode,
@@ -93,18 +96,24 @@
 //     contractions) is carried over: the tile is fixed, and its window
 //     follows from the scales.
 
-#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "slice_common.cuh"
+#include "slice_tile.cuh"
 
 namespace {
 
+using hdrnet::add_cell;
 using hdrnet::clamp01;
 using hdrnet::depth_taps;
+using hdrnet::kPix;
+using hdrnet::kTileH;
+using hdrnet::kTileW;
 using hdrnet::spatial_taps;
+using hdrnet::store4;
 using hdrnet::Taps;
+using hdrnet::Window;
 
 constexpr int kNIn = 3;
 constexpr int kNOut = 3;
@@ -121,10 +130,7 @@ constexpr int kNParams = kMix + kNIn + 1;  // 112
 // runtime value up to kMaxGC (the wrapper's MAX_GUIDE_COMPLEXITY).
 constexpr int kMaxGC = 64;
 
-constexpr int kThreads = 256;
-constexpr int kPix = 4;                        // pixels a thread, along x
-constexpr int kTileW = 64;                     // pixels a tile row
-constexpr int kTileH = kThreads * kPix / kTileW;  // 16 rows
+constexpr int kThreads = hdrnet::kTileThreads;
 
 // A channel in [0, 1]: float as is; uint8 v as v / 255 (IEEE division),
 // looked up in a 256-entry table of those quotients that the block fills.
@@ -145,18 +151,7 @@ __device__ __forceinline__ void store(uint8_t* p, float v) { *p = quant(v); }
 // The 4 pixels' channels: 3 x 16-byte (f32) or 3 x 4-byte (u8) loads.
 __device__ __forceinline__ void load4(const float* src, float img[kPix][kNIn],
                                       const float*) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float v[12];
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const float4 f = __ldg(s4 + q);
-    v[4 * q] = f.x;
-    v[4 * q + 1] = f.y;
-    v[4 * q + 2] = f.z;
-    v[4 * q + 3] = f.w;
-  }
-#pragma unroll
-  for (int k = 0; k < 12; ++k) img[k / 3][k % 3] = v[k];
+  hdrnet::load4(src, img);
 }
 __device__ __forceinline__ void load4(const uint8_t* src,
                                       float img[kPix][kNIn],
@@ -173,16 +168,6 @@ __device__ __forceinline__ void load4(const uint8_t* src,
   }
 }
 
-__device__ __forceinline__ void store4(float* dst, const float o[kPix][kNOut]) {
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const int k = 4 * q;
-    d4[q] = make_float4(o[k / 3][k % 3], o[(k + 1) / 3][(k + 1) % 3],
-                        o[(k + 2) / 3][(k + 2) % 3],
-                        o[(k + 3) / 3][(k + 3) % 3]);
-  }
-}
 __device__ __forceinline__ void store4(uint8_t* dst,
                                        const float o[kPix][kNOut]) {
   unsigned* d4 = reinterpret_cast<unsigned*>(dst);
@@ -200,8 +185,11 @@ __device__ __forceinline__ void store4(uint8_t* dst,
 
 // The guide functors: kSmem floats of staged parameters; stage() copies
 // (and may re-lay) the packed vector into them; eval() is the guide of
-// a thread's 4 pixels, with each pixel's operations in the plain
-// version's order and each parameter read once for the 4.
+// a thread's 4 pixels (npx of them in the frame, the first at pixel `pix`
+// of the launch; v4: a whole, aligned 4-pixel group), with each pixel's
+// operations in the plain version's order and each parameter read once
+// for the 4; at(n) is the functor for a launch that starts n pixels
+// further into the frame.
 
 // Literal relu form of the curves guide (pallas.py:514-526).
 struct CurvesGuide {
@@ -210,9 +198,11 @@ struct CurvesGuide {
                                         float* p) const {
     for (int i = threadIdx.x; i < kNParams; i += blockDim.x) p[i] = params[i];
   }
+  __host__ __device__ CurvesGuide at(long long) const { return *this; }
   __device__ __forceinline__ void eval(const float* p,
                                        const float img[kPix][kNIn],
-                                       float out[kPix]) const {
+                                       float out[kPix], long long, int,
+                                       bool) const {
     float acc[kPix];
 #pragma unroll
     for (int k = 0; k < kPix; ++k) acc[k] = 0.0f;
@@ -273,9 +263,11 @@ struct NNGuide {
       }
     }
   }
+  __host__ __device__ NNGuide at(long long) const { return *this; }
   __device__ __forceinline__ void eval(const float* p,
                                        const float img[kPix][kNIn],
-                                       float out[kPix]) const {
+                                       float out[kPix], long long, int,
+                                       bool) const {
     const float4* w1 = reinterpret_cast<const float4*>(p);
     const float* w2 = p + 4 * kMaxGC;
     float acc[kPix];
@@ -298,19 +290,33 @@ struct NNGuide {
   }
 };
 
-// sliced[k] += w * cell[k] for one grid cell's 12 coefficients.
-__device__ __forceinline__ void add_cell(float sliced[kNC], float w,
-                                         const float* cell) {
-  const float4* c4 = reinterpret_cast<const float4*>(cell);
-#pragma unroll
-  for (int q = 0; q < kNC / 4; ++q) {
-    const float4 v = c4[q];
-    sliced[4 * q + 0] += w * v.x;
-    sliced[4 * q + 1] += w * v.y;
-    sliced[4 * q + 2] += w * v.z;
-    sliced[4 * q + 3] += w * v.w;
+// K3's guide: loaded from the frame's guide (B, H, W), one 16-byte load
+// for a whole 4-pixel group where the guide is aligned (vec), else one
+// scalar a pixel. No parameters (one unused float: no zero-length array).
+struct LoadedGuide {
+  static constexpr int kSmem = 1;
+  const float* guide;  // pixel 0 of the launch
+  int vec;
+  __device__ __forceinline__ void stage(const float*, float*) const {}
+  __host__ __device__ LoadedGuide at(long long n) const {
+    return LoadedGuide{guide + n, vec};
   }
-}
+  __device__ __forceinline__ void eval(const float*, const float[kPix][kNIn],
+                                       float out[kPix], long long pix,
+                                       int npx, bool v4) const {
+    const float* g = guide + pix;
+    if (v4 && vec) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(g));
+      out[0] = v.x;
+      out[1] = v.y;
+      out[2] = v.z;
+      out[3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < kPix; ++k) out[k] = k < npx ? __ldg(g + k) : 0.0f;
+    }
+  }
+};
 
 // Dynamic shared memory: the tile's cell window (ny, nx, gd, 12) when
 // kStaged (the launcher's bound fits a block), else none: the corners are
@@ -339,35 +345,15 @@ __global__ void __launch_bounds__(kThreads, 4)
     }
   }
 
-  // The tile and its window of cells: the taps of its first and last
-  // rows and columns (the taps grow with the coordinate).
+  // The tile and its window of cells.
   const int ty0 = blockIdx.y * kTileH;
   const int tx0 = blockIdx.x * kTileW;
   const int rows = min(kTileH, h - ty0);
   const int cols = min(kTileW, w - tx0);
   const int cell_floats = gd * kNC;
-  const float* image_grid =
-      grid + static_cast<long long>(blockIdx.z) * gh * gw * cell_floats;
-  int wy0 = 0, wx0 = 0, nx = gw;
-  const float* win;
-  if constexpr (kStaged) {
-    wy0 = spatial_taps(ty0 + y_off, sy, gh).i[0];
-    const int ny =
-        spatial_taps(ty0 + rows - 1 + y_off, sy, gh).i[1] - wy0 + 1;
-    wx0 = spatial_taps(tx0 + x_off, sx, gw).i[0];
-    nx = spatial_taps(tx0 + cols - 1 + x_off, sx, gw).i[1] - wx0 + 1;
-    const int row4 = nx * cell_floats / 4;  // float4s a window row
-    const float4* g4 = reinterpret_cast<const float4*>(
-        image_grid + (wy0 * gw + wx0) * cell_floats);
-    const int grid_row4 = gw * cell_floats / 4;
-    for (int i = threadIdx.x; i < ny * row4; i += kThreads) {
-      const int r = i / row4;
-      win4[i] = __ldg(g4 + r * grid_row4 + (i - r * row4));
-    }
-    win = reinterpret_cast<const float*>(win4);
-  } else {
-    win = image_grid;
-  }
+  const Window win = hdrnet::tile_window<kStaged>(
+      grid + static_cast<long long>(blockIdx.z) * gh * gw * cell_floats, win4,
+      cell_floats, ty0 + y_off, rows, tx0 + x_off, cols, gh, gw, sy, sx);
   __syncthreads();
 
   const int r = threadIdx.x / (kTileW / kPix);
@@ -397,7 +383,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 
   float guide[kPix];
-  guide_fn.eval(p, img, guide);
+  guide_fn.eval(p, img, guide, image + y * w + x, npx, vec && npx == kPix);
 
   // Taps of the global pixel (the launcher bounds y + y_off by h_total
   // and x + x_off by w_total, both ints): weights at unclamped centres,
@@ -417,7 +403,8 @@ __global__ void __launch_bounds__(kThreads, 4)
       for (int c = 0; c < 2; ++c) {
         const float wyx = ty.w[a] * tx.w[c];
         const float* cell =
-            win + ((ty.i[a] - wy0) * nx + (tx.i[c] - wx0)) * cell_floats;
+            win.p + ((ty.i[a] - win.wy0) * win.nx + (tx.i[c] - win.wx0)) *
+                        cell_floats;
         add_cell(sliced, wyx * tz.w[0], cell + tz.i[0] * kNC);
         add_cell(sliced, wyx * tz.w[1], cell + tz.i[1] * kNC);
       }
@@ -446,43 +433,13 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-// Cells a tile of `tile` pixels can reach along an axis of scale s (grid
-// extent over total extent): the taps of its first and last pixels span
-// at most ceil((tile - 1) s) + 2 cells; one more for rounding.
-int window_cells(int tile, int extent, float s, int grid_extent) {
-  const int span = tile < extent ? tile : extent;
-  const double reach = static_cast<double>(span - 1) * s;
-  long long n = static_cast<long long>(reach);
-  if (static_cast<double>(n) < reach) ++n;
-  n += 3;
-  return static_cast<int>(n < grid_extent ? n : grid_extent);
-}
-
-// The largest window staged: a block's shared memory on sm_90 less the
-// guide parameters' static staging.
-constexpr int kMaxWindowBytes = 220 * 1024;
-
-// The rows one launch may take: the kernel indexes an image's values in
-// 32 bits, so rows * w * 3 must stay below 2^31, and its tile rows must
-// fit gridDim.y. 0 for a row of 2^31 values or more, which no launch
-// takes.
-int max_launch_rows(int h, int w) {
-  const long long by_index =
-      0x7fffffffLL / (static_cast<long long>(w) * kNIn);
-  return static_cast<int>(
-      std::min({static_cast<long long>(h), by_index, 65535LL * kTileH}));
-}
-
 template <typename Guide, typename TIn, typename TOut>
 cudaError_t launch(const float* grid, const void* frame, const float* params,
                    Guide guide_fn, void* out, int clip, int b, int h, int w,
                    int gh, int gw, int gd, int y_off, int x_off, float sy,
                    float sx, cudaStream_t st) {
-  const long long want = static_cast<long long>(
-                             window_cells(kTileH, h, sy, gh)) *
-                         window_cells(kTileW, w, sx, gw) * gd * kNC *
-                         static_cast<int>(sizeof(float));
-  const int staged = want <= kMaxWindowBytes;
+  const long long want = hdrnet::window_bytes(h, w, sy, sx, gh, gw, gd, kNC);
+  const int staged = want <= hdrnet::kMaxWindowBytes;
   const int win_bytes = staged ? static_cast<int>(want) : 0;
   auto kernel = staged ? enhance_fused_kernel<Guide, TIn, TOut, true>
                        : enhance_fused_kernel<Guide, TIn, TOut, false>;
@@ -491,39 +448,26 @@ cudaError_t launch(const float* grid, const void* frame, const float* params,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_bytes);
     if (err != cudaSuccess) return err;
   }
-  const int rows = max_launch_rows(h, w);
-  if (rows < 1) return cudaErrorInvalidValue;
   // Vectors need rows of whole 4-pixel groups and aligned pointers.
   const std::uintptr_t align = sizeof(TIn) == 1 ? 4 : 16;
   const std::uintptr_t align_out = sizeof(TOut) == 1 ? 4 : 16;
-  auto run = [&](const float* g, const TIn* src, TOut* dst, int nb, int nh,
-                 int band_y) {
+  const long long cells = static_cast<long long>(gh) * gw * gd * kNC;
+  // A frame too large for one launch goes in H-bands, each at its offset
+  // (K7's arguments), so its pixels take the same taps and float
+  // operations as in one launch.
+  return hdrnet::for_each_band(b, h, w, kNIn, [&](int i, int nb, int y0,
+                                                  int nh) {
+    const long long px = (static_cast<long long>(i) * h + y0) * w;
+    const TIn* src = static_cast<const TIn*>(frame) + px * kNIn;
+    TOut* dst = static_cast<TOut*>(out) + px * kNOut;
     const int vec = w % kPix == 0 &&
                     reinterpret_cast<std::uintptr_t>(src) % align == 0 &&
                     reinterpret_cast<std::uintptr_t>(dst) % align_out == 0;
-    const dim3 blocks((w + kTileW - 1) / kTileW, (nh + kTileH - 1) / kTileH,
-                      nb);
-    kernel<<<blocks, kThreads, win_bytes, st>>>(g, src, params, guide_fn, dst,
-                                                clip, vec, nh, w, gh, gw, gd,
-                                                band_y, x_off, sy, sx);
+    kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
+        grid + i * cells, src, params, guide_fn.at(px), dst, clip, vec, nh,
+        w, gh, gw, gd, y_off + y0, x_off, sy, sx);
     return cudaGetLastError();
-  };
-  const TIn* src = static_cast<const TIn*>(frame);
-  TOut* dst = static_cast<TOut*>(out);
-  if (rows == h && b <= 65535) return run(grid, src, dst, b, h, y_off);
-  // A frame too large for one launch: each image in H-bands of `rows`,
-  // each band at its offset (K7's arguments), so its pixels take the
-  // same taps and float operations as in one launch.
-  const long long cells = static_cast<long long>(gh) * gw * gd * kNC;
-  for (int i = 0; i < b; ++i) {
-    for (int y0 = 0; y0 < h; y0 += rows) {
-      const long long at = (static_cast<long long>(i) * h + y0) * w * kNIn;
-      const cudaError_t err = run(grid + i * cells, src + at, dst + at, 1,
-                                  std::min(rows, h - y0), y_off + y0);
-      if (err != cudaSuccess) return err;
-    }
-  }
-  return cudaSuccess;
+  });
 }
 
 // Checks the band, picks the input and output types; returns
@@ -564,6 +508,22 @@ int dispatch(const void* grid, const void* frame, int u8_in,
 }
 
 }  // namespace
+
+namespace hdrnet {
+
+// K3 at n_in = n_out = 3 with an offset: slice, apply, no clip, with the
+// guide loaded (one launch of K1's kernel; its window, tiles and bands).
+cudaError_t slice_apply_fwd_fixed(const float* grid, const float* guide,
+                                  const float* image, float* out, int b,
+                                  int h, int w, int gh, int gw, int gd,
+                                  float sy, float sx, cudaStream_t stream) {
+  const LoadedGuide loaded{guide, w % kPix == 0 && aligned16(guide)};
+  return launch<LoadedGuide, float, float>(grid, image, nullptr, loaded, out,
+                                           0, b, h, w, gh, gw, gd, 0, 0, sy,
+                                           sx, stream);
+}
+
+}  // namespace hdrnet
 
 // K1 (K7 with nonzero offsets or totals above h, w). sy = gh / h_total
 // and sx = gw / w_total, computed by the caller.

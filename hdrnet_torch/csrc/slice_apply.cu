@@ -1,33 +1,64 @@
 // K3, K4, K5: the bilateral slice-apply with an external guide, and its
-// two backward passes, the training path of HDRNetCurves.
+// two backward passes, the training path of every HDRNet model and of
+// fit_grid.
 //
 // Layouts (float32, contiguous): grid (B, gh, gw, gd, C) with
 // C = n_out * ni_tot packed row-major (channel i * ni_tot + j; j = n_in is
 // the affine offset when has_offset), guide (B, H, W), image (B, H, W,
 // n_in), output and its cotangent ct (B, H, W, n_out). n_in = 0 with
 // has_offset is the plain slice: ni_tot = 1 and the output is the C sliced
-// channels. n_in, n_out and C are runtime values: K3 and K4 keep the
-// image and the sliced row of one output channel in registers for
-// n_in <= kFastNIn (the models' 3 channels), and loop over the channels
-// with the same sums in the same order above it; K5 takes any C whose
-// records fit in a block's shared memory.
+// channels. n_in, n_out and C are runtime values; the models' 3 -> 3 with
+// an offset (C = 12) has kernels of its own.
 //
 // K3 slice_apply_fwd: replaces hdrnet_tpu/ops/pallas.py slice_apply_fwd
 //   (pallas_call at pallas.py:1097) -> _fwd_kernel (pallas.py:570) with
-//   _apply_epilogue (610). One thread per pixel: read the guide, gather
-//   8 corners x C from the grid, apply the affine (no clip). Bound (derived
-//   from the shapes, not measured): at 2048^2 with n_in = n_out = 3 it
-//   reads 4 + 12 + 0 bytes a pixel besides the grid and writes 12, about
-//   117 MB, or 35 us at 3.35 TB/s; the 96 grid reads a pixel hit L1/L2
-//   (the grid is 98 KB an image), so the load pipe, not DRAM, is the
-//   likely limit. The design keeps one pass with no intermediate: the
-//   sliced coefficients of one output channel live in registers only.
+//   _apply_epilogue (610): out_i = sum_j sliced[i, j] in_j + sliced[i,
+//   n_in]. What bounds it (derived from the shapes, not measured): at
+//   2048^2, 3 -> 3, it must read guide and image and write the output, 28
+//   bytes a pixel, 117 MB, 35 us at 3.35 TB/s; its 271 float operations a
+//   pixel are 17 us at 67 TFLOP/s. Like K1 it is held back in practice by
+//   the instructions it issues: 96 corner FMAs a pixel, its taps, and
+//   every load and index operation around them.
+//   The design: at 3 -> 3 with an offset K3 is K1's kernel
+//   (fused_slice_apply.cu, slice_apply_fwd_fixed) with a guide functor
+//   that loads the guide (one 16-byte load for a thread's 4 pixels) and
+//   the clip off: K1's tiles, window, vector I/O and bands. Other channel
+//   counts run the generic tile kernel below.
 // K4 slice_apply_pix_bwd: replaces pallas.py slice_apply_pix_bwd
-//   (pallas_call at pallas.py:1357) -> _pix_bwd_kernel (pallas.py:694).
-//   One thread per pixel, both cotangents from one gather: the slice with
-//   the depth weights (for d_input) and with their guide derivatives (for
-//   d_guide) share every grid read. About 30% more bytes than K3 (ct in,
-//   two outputs) and twice its FMAs; same bound, same design.
+//   (pallas_call at pallas.py:1357) -> _pix_bwd_kernel (pallas.py:694):
+//   d_guide = sum_i ct_i sum_j (d sliced / d z)[i, j] in_ext_j and, when
+//   asked for, d_image_j = sum_i sliced[i, j] ct_i. What bounds it
+//   (derived): at 2048^2, 3 -> 3, d_guide only (the training path: no
+//   model's image takes a gradient) it reads guide, image and ct and
+//   writes d_guide, 32 bytes a pixel, 134 MB, 40 us; with d_image 44
+//   bytes, 55 us; its float operations (482 a pixel with both) 30 us.
+//   Issue-bound in practice, as K3.
+//   The design (pix_bwd_fixed_kernel): K1's 16 x 64 tiles, 4 pixels a
+//   thread along a row, 32-bit indices inside an image (H-bands past 2^31
+//   values); the tile's cells staged in shared memory once and each
+//   corner read as 3 16-byte loads (read from the grid in device memory
+//   where the window would not fit: a template argument); one float4 of
+//   guide and d_guide and 3 of image, ct and d_image a thread where rows
+//   are whole 4-pixel groups and pointers aligned; four blocks an SM (64
+//   registers). Whether d_image is wanted is a template argument: the
+//   d_guide-only kernel sums only the derivative-weighted slice (96 FMAs
+//   a pixel, not 192); with d_image both sums share each corner load.
+// Other channel counts (n_in != 3, n_out != 3, no offset, or a grid that
+//   is not 16-byte aligned): the generic tile kernels, with the same
+//   tiles, window and bands, and the window's cells re-laid at a stride
+//   of whole float4s (C rounded up to a multiple of 4). A thread's 4
+//   pixels are 16 apart along the row, so that a warp's scalar frame
+//   loads and stores fall on neighbouring pixels (4 consecutive pixels a
+//   thread spread a warp's store of a 12-channel output over 32 cache
+//   lines: at n_in = 0, C = 12, 2048^2 that took 1.0552 ms against the
+//   per-pixel kernel it replaced at 0.5969, timed in turns on an H100 at
+//   700 W by scripts/time_kernels.py; with the pixels 16 apart and 16-byte
+//   stores it takes a quarter of that kernel's time).
+//   n_in = 0 (the plain slice) sums 4 channels at a time from 16-byte
+//   corner loads, and stores them (and reads K4's ct) as 16-byte vectors
+//   where C is a multiple of 4 and the pointers aligned; n_in >= 1 sums
+//   each sliced coefficient where it is used, from scalar corner loads,
+//   in the fixed kernels' order.
 // K5 slice_apply_grid_bwd: replaces pallas.py slice_apply_grid_bwd
 //   (pallas_call at pallas.py:1315) -> _grid_bwd_kernel (pallas.py:757).
 //   A splat of ct_i * in_ext_j over the mirror-padded image into the grid:
@@ -77,8 +108,8 @@
 //   The mirror is done in the index, with no padded copies.
 //
 // None of the TPU tile planner (cell windows, strips, z strategies) is
-// carried over: K3/K4 are per-pixel gathers with no window cap, and K5's
-// regions follow from the grid alone.
+// carried over: K3/K4's windows follow from their tiles' taps, and K5's
+// regions from the grid alone.
 
 #include <algorithm>
 #include <mutex>
@@ -87,21 +118,23 @@
 #include <cuda_runtime.h>
 
 #include "slice_common.cuh"
+#include "slice_tile.cuh"
 
 namespace {
 
+using hdrnet::aligned16;
 using hdrnet::clampi;
 using hdrnet::depth_taps;
 using hdrnet::kEps;
+using hdrnet::kNC3;
+using hdrnet::kPix;
+using hdrnet::kTileH;
+using hdrnet::kTileW;
 using hdrnet::spatial_taps;
 using hdrnet::Taps;
+using hdrnet::Window;
 
-// K3/K4 keep the image and one output channel's sliced row in registers
-// up to kFastNIn input channels; above it they loop (same sums, order).
-constexpr int kFastNIn = 3;
-constexpr int kFastExt = kFastNIn + 1;
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132 * 16;
+constexpr int kThreads = hdrnet::kTileThreads;
 
 struct Geometry {
   int b, h, w, gh, gw, gd;
@@ -109,212 +142,429 @@ struct Geometry {
   float sy, sx;  // gh / h, gw / w
 };
 
-// Per-pixel corner table: the 8 corner weights and grid offsets.
-struct Corners {
-  float w[8];
-  float dw[8];  // depth-derivative weights (K4 only)
-  long long off[8];
+// ---- K4 at 3 -> 3 with an offset ------------------------------------------
+
+// sdz[k] += dw * cell[k] and, with kBoth, s[k] += w * cell[k]: one cell's 12
+// coefficients as 3 16-byte loads, shared by both sums.
+template <bool kBoth>
+__device__ __forceinline__ void add_cell2(float s[kNC3], float sdz[kNC3],
+                                          float w, float dw,
+                                          const float* cell) {
+  const float4* c4 = reinterpret_cast<const float4*>(cell);
+#pragma unroll
+  for (int q = 0; q < kNC3 / 4; ++q) {
+    const float4 v4 = c4[q];
+    const float v[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kBoth) s[4 * q + e] += w * v[e];
+      sdz[4 * q + e] += dw * v[e];
+    }
+  }
+}
+
+// Dynamic shared memory: the tile's window (ny, nx, gd, 12) when kStaged,
+// else none (corners from the grid). vec: rows of whole 4-pixel groups and
+// every frame pointer 16-byte aligned. y_off: the launch's first row in
+// the frame (a band's), for the taps.
+template <bool kNeedInput, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 4)
+    pix_bwd_fixed_kernel(const float* __restrict__ grid,
+                         const float* __restrict__ guide,
+                         const float* __restrict__ image,
+                         const float* __restrict__ ct,
+                         float* __restrict__ d_guide,
+                         float* __restrict__ d_image, int vec, int h, int w,
+                         int gh, int gw, int gd, int y_off, float sy,
+                         float sx) {
+  extern __shared__ float4 win4[];
+  const int ty0 = blockIdx.y * kTileH;
+  const int tx0 = blockIdx.x * kTileW;
+  const int rows = min(kTileH, h - ty0);
+  const int cols = min(kTileW, w - tx0);
+  const int cell_floats = gd * kNC3;
+  const Window win = hdrnet::tile_window<kStaged>(
+      grid + static_cast<long long>(blockIdx.z) * gh * gw * cell_floats, win4,
+      cell_floats, ty0 + y_off, rows, tx0, cols, gh, gw, sy, sx);
+  __syncthreads();
+
+  const int r = threadIdx.x / (kTileW / kPix);
+  const int xq = (threadIdx.x % (kTileW / kPix)) * kPix;
+  if (r >= rows || xq >= cols) return;
+  const int y = ty0 + r;
+  const int x = tx0 + xq;
+  const int npx = min(kPix, w - x);
+  const bool v4 = vec && npx == kPix;
+  // 32-bit inside an image: the launcher keeps h * w * 3 below 2^31.
+  const long long image_px = static_cast<long long>(blockIdx.z) * h * w;
+  const int at = y * w + x;
+  const float* g_src = guide + image_px + at;
+  const float* in_src = image + (image_px + at) * 3;
+  const float* ct_src = ct + (image_px + at) * 3;
+
+  float g[kPix], img[kPix][3], c[kPix][3];
+  if (v4) {
+    const float4 g4 = __ldg(reinterpret_cast<const float4*>(g_src));
+    g[0] = g4.x;
+    g[1] = g4.y;
+    g[2] = g4.z;
+    g[3] = g4.w;
+    hdrnet::load4(in_src, img);
+    hdrnet::load4(ct_src, c);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      g[k] = k < npx ? __ldg(g_src + k) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        img[k][j] = k < npx ? __ldg(in_src + k * 3 + j) : 0.0f;
+        c[k][j] = k < npx ? __ldg(ct_src + k * 3 + j) : 0.0f;
+      }
+    }
+  }
+
+  // Taps of the global pixel: weights (and their depth derivatives) at
+  // unclamped centres, clamped reads, from the window (or the grid).
+  const Taps ty = spatial_taps(y + y_off, sy, gh);
+  float dg[kPix], di[kPix][3];
+#pragma unroll
+  for (int k = 0; k < kPix; ++k) {
+    const Taps tx = spatial_taps(x + k, sx, gw);
+    float dz[2];
+    const Taps tz = depth_taps(g[k], gd, dz);
+    float s[kNC3], sdz[kNC3];
+#pragma unroll
+    for (int q = 0; q < kNC3; ++q) s[q] = sdz[q] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float wyx = ty.w[a] * tx.w[e];
+        const float* cell =
+            win.p + ((ty.i[a] - win.wy0) * win.nx + (tx.i[e] - win.wx0)) *
+                        cell_floats;
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          add_cell2<kNeedInput>(s, sdz, wyx * tz.w[d], wyx * dz[d],
+                                cell + tz.i[d] * kNC3);
+        }
+      }
+    }
+    // d_guide = sum_i ct_i sum_j sliced_dz[i, j] in_ext_j (in_ext_3 = 1).
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      float gacc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        gacc += sdz[i * 4 + j] * (j < 3 ? img[k][j] : 1.0f);
+      }
+      acc += gacc * c[k][i];
+    }
+    dg[k] = acc;
+    if constexpr (kNeedInput) {
+      // d_image_j = sum_i sliced[i, j] ct_i
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        float v = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) v += s[i * 4 + j] * c[k][i];
+        di[k][j] = v;
+      }
+    }
+  }
+
+  float* dg_dst = d_guide + image_px + at;
+  float* di_dst = kNeedInput ? d_image + (image_px + at) * 3 : nullptr;
+  if (v4) {
+    *reinterpret_cast<float4*>(dg_dst) = make_float4(dg[0], dg[1], dg[2],
+                                                     dg[3]);
+    if constexpr (kNeedInput) hdrnet::store4(di_dst, di);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kPix; ++k) {
+      if (k < npx) {
+        dg_dst[k] = dg[k];
+        if constexpr (kNeedInput) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) di_dst[k * 3 + j] = di[k][j];
+        }
+      }
+    }
+  }
+}
+
+// ---- K3 and K4 at other channel counts --------------------------------------
+
+// Channel counts of the generic kernels. cs: the staged window's floats a
+// cell and bin, c rounded up to whole float4s (the grid's own stride c
+// where the corners are read from it).
+struct Channels {
+  int n_in, n_out, ni_tot, has_offset, c, cs;
 };
 
-__device__ __forceinline__ Corners corners(const Geometry& g, long long bb,
-                                           int y, int x, float guide,
-                                           bool derivative) {
-  const Taps ty = spatial_taps(y, g.sy, g.gh);
-  const Taps tx = spatial_taps(x, g.sx, g.gw);
+Channels channels(int n_in, int n_out, int has_offset) {
+  const int ni_tot = n_in + (has_offset ? 1 : 0);
+  const int c = n_out * ni_tot;
+  return Channels{n_in, n_out, ni_tot, has_offset, c, (c + 3) / 4 * 4};
+}
+
+// A pixel's 8 corners in the order (y tap, x tap, z tap): weights, their
+// depth derivatives (kDerivative, K4) and offsets from the window's base.
+struct Corners {
+  float w[8];
+  float dw[8];
+  int off[8];
+};
+
+template <bool kDerivative>
+__device__ __forceinline__ Corners corners(const Window& win, const Taps& ty,
+                                           int x, float sx, int gw,
+                                           float guide, int gd, int stride) {
+  const Taps tx = spatial_taps(x, sx, gw);
   float dz[2] = {0.0f, 0.0f};
-  const Taps tz = depth_taps(guide, g.gd, derivative ? dz : nullptr);
-  const int c = g.n_out * g.ni_tot;
-  const long long base = bb * g.gh * g.gw * g.gd;
+  const Taps tz = depth_taps(guide, gd, kDerivative ? dz : nullptr);
   Corners k;
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const float wyx = ty.w[a] * tx.w[e];
-      const long long cell =
-          (base + (static_cast<long long>(ty.i[a]) * g.gw + tx.i[e]) * g.gd);
+      const int cell =
+          ((ty.i[a] - win.wy0) * win.nx + (tx.i[e] - win.wx0)) * gd;
 #pragma unroll
       for (int d = 0; d < 2; ++d) {
         const int n = (a * 2 + e) * 2 + d;
         k.w[n] = wyx * tz.w[d];
         k.dw[n] = wyx * dz[d];
-        k.off[n] = (cell + tz.i[d]) * c;
+        k.off[n] = (cell + tz.i[d]) * stride;
       }
     }
   }
   return k;
 }
 
-// sum_n w[n] * grid[off[n] + ch]: one sliced channel, corners in order.
-__device__ __forceinline__ float slice_one(const float* __restrict__ grid,
-                                           const float w[8],
-                                           const long long off[8], int ch) {
+// sum_n w[n] * win[off[n] + ch]: one sliced channel, corners in order.
+__device__ __forceinline__ float slice_one(const float* win, const float w[8],
+                                           const int off[8], int ch) {
   float s = 0.0f;
 #pragma unroll
-  for (int n = 0; n < 8; ++n) s += w[n] * __ldg(grid + off[n] + ch);
+  for (int n = 0; n < 8; ++n) s += w[n] * win[off[n] + ch];
   return s;
 }
 
-// in_ext: the n_in image channels, then 1 for the offset.
-__device__ __forceinline__ float ext_at(const Geometry& g,
-                                        const float* __restrict__ image,
-                                        long long pix, int j) {
-  return j < g.n_in ? __ldg(image + pix * g.n_in + j) : 1.0f;
+// Channels q .. q + 3 sliced at once: 16-byte loads from the staged window
+// (stride cs), guarded scalar loads from the grid (stride c).
+template <bool kStaged>
+__device__ __forceinline__ float4 slice_quad(const float* win,
+                                             const float w[8],
+                                             const int off[8], int q, int c) {
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    float4 v;
+    if constexpr (kStaged) {
+      v = *reinterpret_cast<const float4*>(win + off[n] + q);
+    } else {
+      const float* s = win + off[n] + q;
+      v = make_float4(s[0], q + 1 < c ? s[1] : 0.0f, q + 2 < c ? s[2] : 0.0f,
+                      q + 3 < c ? s[3] : 0.0f);
+    }
+    a.x += w[n] * v.x;
+    a.y += w[n] * v.y;
+    a.z += w[n] * v.z;
+    a.w += w[n] * v.w;
+  }
+  return a;
 }
 
-__device__ __forceinline__ void pixel_coords(const Geometry& g, long long pix,
-                                             int* y, int* x, long long* bb) {
-  *x = static_cast<int>(pix % g.w);
-  const long long row = pix / g.w;
-  *y = static_cast<int>(row % g.h);
-  *bb = row / g.h;
+// The generic kernels' tile: its window (staged re-laid at stride cs, with
+// zeros in the padding) and this thread's pixels: row y of the launch,
+// columns x + kStride * k for k < npx (0 for none). Synchronizes the
+// block.
+constexpr int kStride = kTileW / kPix;  // 16 threads a tile row
+
+struct Tile {
+  Window win;
+  int y, x, npx;
+};
+
+template <bool kStaged>
+__device__ __forceinline__ Tile generic_tile(const float* grid, float* win,
+                                             const Channels& ch, int h, int w,
+                                             int gh, int gw, int gd,
+                                             int y_off, float sy, float sx) {
+  const int ty0 = blockIdx.y * kTileH;
+  const int tx0 = blockIdx.x * kTileW;
+  const int rows = min(kTileH, h - ty0);
+  const int cols = min(kTileW, w - tx0);
+  const float* image_grid =
+      grid + static_cast<long long>(blockIdx.z) * gh * gw * gd * ch.c;
+  Tile t;
+  if constexpr (kStaged) {
+    const hdrnet::WindowSpan s =
+        hdrnet::window_span(ty0 + y_off, rows, tx0, cols, gh, gw, sy, sx);
+    const int bins = s.nx * gd;  // cells x bins a window row
+    for (int i = threadIdx.x; i < s.ny * bins * ch.cs; i += kThreads) {
+      const int e = i / ch.cs, k = i - e * ch.cs;
+      const int r = e / bins;
+      win[i] = k < ch.c ? __ldg(image_grid +
+                                ((s.wy0 + r) * gw + s.wx0) * gd * ch.c +
+                                (e - r * bins) * ch.c + k)
+                        : 0.0f;
+    }
+    t.win = Window{win, s.wy0, s.wx0, s.nx};
+  } else {
+    t.win = Window{image_grid, 0, 0, gw};
+  }
+  __syncthreads();
+  const int r = threadIdx.x / kStride;
+  const int lx = threadIdx.x % kStride;
+  t.y = ty0 + r;
+  t.x = tx0 + lx;
+  t.npx = r < rows && lx < cols ? min(kPix, (cols - lx + kStride - 1) /
+                                                kStride)
+                                : 0;
+  return t;
 }
 
-// kExt > 0: n_in + 1 <= kExt, the image and the sums in registers;
-// kExt == 0: any n_in, each sliced channel summed where it is used.
-template <int kExt>
-__global__ void __launch_bounds__(kThreads)
-    slice_apply_fwd_kernel(Geometry g, const float* __restrict__ grid,
+// kSlice: n_in = 0 (out channel c is sliced channel c), 4 channels at a
+// time (vec: stored as float4s); else each output channel from its row of
+// sliced coefficients.
+template <bool kSlice, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 4)
+    slice_apply_fwd_kernel(Channels ch, const float* __restrict__ grid,
                            const float* __restrict__ guide,
                            const float* __restrict__ image,
-                           float* __restrict__ out) {
-  const long long npix = static_cast<long long>(g.b) * g.h * g.w;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long pix = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       pix < npix; pix += stride) {
-    int y, x;
-    long long bb;
-    pixel_coords(g, pix, &y, &x, &bb);
-    const Corners k = corners(g, bb, y, x, __ldg(guide + pix), false);
-    if constexpr (kExt > 0) {
-      float ext[kExt];
+                           float* __restrict__ out, int vec, int h, int w,
+                           int gh, int gw, int gd, int y_off, float sy,
+                           float sx) {
+  extern __shared__ float4 win4[];
+  const Tile t = generic_tile<kStaged>(grid, reinterpret_cast<float*>(win4),
+                                       ch, h, w, gh, gw, gd, y_off, sy, sx);
+  if (t.npx == 0) return;
+  const long long image_px = static_cast<long long>(blockIdx.z) * h * w;
+  const float* g_img = guide + image_px;
+  const float* in_img = image + image_px * ch.n_in;
+  float* out_img = out + image_px * ch.n_out;
+  const int stride = kStaged ? ch.cs : ch.c;
+  const Taps ty = spatial_taps(t.y + y_off, sy, gh);
+  for (int k = 0; k < t.npx; ++k) {
+    const int x = t.x + kStride * k;
+    const int p = t.y * w + x;  // in the image, 32-bit
+    const Corners kc = corners<false>(t.win, ty, x, sx, gw, __ldg(g_img + p),
+                                      gd, stride);
+    if constexpr (kSlice) {
+      for (int q = 0; q < ch.c; q += 4) {
+        const float4 a = slice_quad<kStaged>(t.win.p, kc.w, kc.off, q, ch.c);
+        float* o = out_img + p * ch.c + q;
+        if (vec) {
+          *reinterpret_cast<float4*>(o) = a;
+        } else {
+          const float v[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int j = 0; j < kExt; ++j) ext[j] = ext_at(g, image, pix, j);
-      for (int i = 0; i < g.n_out; ++i) {
-        float s[kExt];
-#pragma unroll
-        for (int j = 0; j < kExt; ++j) s[j] = 0.0f;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float* cell = grid + k.off[n] + i * g.ni_tot;
-#pragma unroll
-          for (int j = 0; j < kExt; ++j) {
-            if (j < g.ni_tot) s[j] += k.w[n] * __ldg(cell + j);
+          for (int e = 0; e < 4; ++e) {
+            if (q + e < ch.c) o[e] = v[e];
           }
         }
-        // out_i = offset + sum_j A_ij * in_j, in the order of K1. The
-        // offset is picked by an unrolled compare, so s stays in registers.
-        float acc = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kExt; ++j) {
-          if (g.has_offset && j == g.n_in) acc = s[j];
-        }
-#pragma unroll
-        for (int j = 0; j < kExt; ++j) {
-          if (j < g.n_in) acc += s[j] * ext[j];
-        }
-        out[pix * g.n_out + i] = acc;
       }
     } else {
-      for (int i = 0; i < g.n_out; ++i) {
-        const int row = i * g.ni_tot;
-        float acc =
-            g.has_offset ? slice_one(grid, k.w, k.off, row + g.n_in) : 0.0f;
-        for (int j = 0; j < g.n_in; ++j) {
-          acc += slice_one(grid, k.w, k.off, row + j) *
-                 __ldg(image + pix * g.n_in + j);
+      for (int i = 0; i < ch.n_out; ++i) {
+        const int row = i * ch.ni_tot;
+        float acc = ch.has_offset
+                        ? slice_one(t.win.p, kc.w, kc.off, row + ch.n_in)
+                        : 0.0f;
+        for (int j = 0; j < ch.n_in; ++j) {
+          acc += slice_one(t.win.p, kc.w, kc.off, row + j) *
+                 __ldg(in_img + p * ch.n_in + j);
         }
-        out[pix * g.n_out + i] = acc;
+        out_img[p * ch.n_out + i] = acc;
       }
     }
   }
 }
 
-template <int kExt>
-__global__ void __launch_bounds__(kThreads)
-    slice_apply_pix_bwd_kernel(Geometry g, const float* __restrict__ grid,
-                               const float* __restrict__ guide,
-                               const float* __restrict__ image,
-                               const float* __restrict__ ct,
-                               float* __restrict__ d_guide,
-                               float* __restrict__ d_image) {
-  const long long npix = static_cast<long long>(g.b) * g.h * g.w;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long pix = static_cast<long long>(blockIdx.x) * blockDim.x +
-                       threadIdx.x;
-       pix < npix; pix += stride) {
-    int y, x;
-    long long bb;
-    pixel_coords(g, pix, &y, &x, &bb);
-    const Corners k = corners(g, bb, y, x, __ldg(guide + pix), true);
+// d_image null: d_guide only. kSlice as in slice_apply_fwd_kernel (no
+// input channels, so no d_image; vec: ct read as float4s).
+template <bool kSlice, bool kStaged>
+__global__ void __launch_bounds__(kThreads, 4)
+    pix_bwd_kernel(Channels ch, const float* __restrict__ grid,
+                   const float* __restrict__ guide,
+                   const float* __restrict__ image,
+                   const float* __restrict__ ct, float* __restrict__ d_guide,
+                   float* __restrict__ d_image, int vec, int h, int w, int gh,
+                   int gw, int gd, int y_off, float sy, float sx) {
+  extern __shared__ float4 win4[];
+  const Tile t = generic_tile<kStaged>(grid, reinterpret_cast<float*>(win4),
+                                       ch, h, w, gh, gw, gd, y_off, sy, sx);
+  if (t.npx == 0) return;
+  const long long image_px = static_cast<long long>(blockIdx.z) * h * w;
+  const float* in_img = image + image_px * ch.n_in;
+  const float* ct_img = ct + image_px * ch.n_out;
+  const int stride = kStaged ? ch.cs : ch.c;
+  const Taps ty = spatial_taps(t.y + y_off, sy, gh);
+  for (int k = 0; k < t.npx; ++k) {
+    const int x = t.x + kStride * k;
+    const int p = t.y * w + x;  // in the image, 32-bit
+    const Corners kc = corners<true>(t.win, ty, x, sx, gw,
+                                     __ldg(guide + image_px + p), gd, stride);
+    const float* ct_p = ct_img + p * ch.n_out;
     float dg = 0.0f;
-    if constexpr (kExt > 0) {
-      float ext[kExt];
+    if constexpr (kSlice) {
+      for (int q = 0; q < ch.c; q += 4) {
+        const float4 a = slice_quad<kStaged>(t.win.p, kc.dw, kc.off, q, ch.c);
+        const float v[4] = {a.x, a.y, a.z, a.w};
+        float c[4];
+        if (vec) {
+          const float4 c4 = __ldg(reinterpret_cast<const float4*>(ct_p + q));
+          c[0] = c4.x;
+          c[1] = c4.y;
+          c[2] = c4.z;
+          c[3] = c4.w;
+        } else {
 #pragma unroll
-      for (int j = 0; j < kExt; ++j) ext[j] = ext_at(g, image, pix, j);
-      float di[kExt];
-#pragma unroll
-      for (int j = 0; j < kExt; ++j) di[j] = 0.0f;
-      for (int i = 0; i < g.n_out; ++i) {
-        float s[kExt], sdz[kExt];
-#pragma unroll
-        for (int j = 0; j < kExt; ++j) s[j] = sdz[j] = 0.0f;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const float* cell = grid + k.off[n] + i * g.ni_tot;
-#pragma unroll
-          for (int j = 0; j < kExt; ++j) {
-            if (j < g.ni_tot) {
-              const float v = __ldg(cell + j);
-              s[j] += k.w[n] * v;
-              sdz[j] += k.dw[n] * v;
-            }
+          for (int e = 0; e < 4; ++e) {
+            c[e] = q + e < ch.c ? __ldg(ct_p + q + e) : 0.0f;
           }
         }
-        const float cti = __ldg(ct + pix * g.n_out + i);
-        // d_guide += ct_i * sum_j sliced_dz[i, j] * in_ext_j
-        float gacc = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kExt; ++j) {
-          if (j < g.ni_tot) gacc += sdz[j] * ext[j];
-        }
-        dg += gacc * cti;
-        // d_in_j += sliced[i, j] * ct_i
-#pragma unroll
-        for (int j = 0; j < kExt; ++j) {
-          if (j < g.n_in) di[j] += s[j] * cti;
-        }
-      }
-      if (d_image != nullptr) {
-#pragma unroll
-        for (int j = 0; j < kExt; ++j) {
-          if (j < g.n_in) d_image[pix * g.n_in + j] = di[j];
+        for (int e = 0; e < 4; ++e) {
+          if (q + e < ch.c) dg += v[e] * c[e];
         }
       }
     } else {
-      for (int i = 0; i < g.n_out; ++i) {
-        const float cti = __ldg(ct + pix * g.n_out + i);
+      const float* in_p = in_img + p * ch.n_in;
+      for (int i = 0; i < ch.n_out; ++i) {
         float gacc = 0.0f;
-        for (int j = 0; j < g.ni_tot; ++j) {
-          gacc += slice_one(grid, k.dw, k.off, i * g.ni_tot + j) *
-                  ext_at(g, image, pix, j);
+        for (int j = 0; j < ch.ni_tot; ++j) {
+          gacc += slice_one(t.win.p, kc.dw, kc.off, i * ch.ni_tot + j) *
+                  (j < ch.n_in ? __ldg(in_p + j) : 1.0f);
         }
-        dg += gacc * cti;
+        dg += gacc * __ldg(ct_p + i);
       }
       if (d_image != nullptr) {
-        for (int j = 0; j < g.n_in; ++j) {
-          float di = 0.0f;
-          for (int i = 0; i < g.n_out; ++i) {
-            di += slice_one(grid, k.w, k.off, i * g.ni_tot + j) *
-                  __ldg(ct + pix * g.n_out + i);
+        float* di = d_image + (image_px + p) * ch.n_in;
+        for (int j = 0; j < ch.n_in; ++j) {
+          float v = 0.0f;
+          for (int i = 0; i < ch.n_out; ++i) {
+            v += slice_one(t.win.p, kc.w, kc.off, i * ch.ni_tot + j) *
+                 __ldg(ct_p + i);
           }
-          d_image[pix * g.n_in + j] = di;
+          di[j] = v;
         }
       }
     }
-    d_guide[pix] = dg;
+    d_guide[image_px + p] = dg;
   }
+}
+
+// Lets a kernel take a window above the default 48 KB of dynamic shared
+// memory.
+template <typename Kernel>
+cudaError_t allow_window(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // ---- K5 ------------------------------------------------------------------
@@ -673,24 +923,78 @@ Geometry make_geometry(int b, int h, int w, int gh, int gw, int gd,
                   n_in + (has_offset ? 1 : 0), has_offset, sy, sx};
 }
 
-int pixel_blocks(const Geometry& g) {
-  const long long npix = static_cast<long long>(g.b) * g.h * g.w;
-  long long blocks = (npix + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
+// The kernels of the models' 3 -> 3 with an offset read the grid as
+// float4s.
+bool fixed_channels(const void* grid, int n_in, int n_out, int has_offset) {
+  return n_in == 3 && n_out == 3 && has_offset && aligned16(grid);
+}
+
+cudaError_t pix_bwd_fixed(const float* grid, const float* guide,
+                          const float* image, const float* ct,
+                          float* d_guide, float* d_image, int b, int h,
+                          int w, int gh, int gw, int gd, float sy, float sx,
+                          cudaStream_t st) {
+  const long long want =
+      hdrnet::window_bytes(h, w, sy, sx, gh, gw, gd, kNC3);
+  const bool staged = want <= hdrnet::kMaxWindowBytes;
+  const int win_bytes = staged ? static_cast<int>(want) : 0;
+  auto kernel = d_image != nullptr
+                    ? (staged ? pix_bwd_fixed_kernel<true, true>
+                              : pix_bwd_fixed_kernel<true, false>)
+                    : (staged ? pix_bwd_fixed_kernel<false, true>
+                              : pix_bwd_fixed_kernel<false, false>);
+  const cudaError_t err = allow_window(kernel, win_bytes);
+  if (err != cudaSuccess) return err;
+  const long long cells = static_cast<long long>(gh) * gw * gd * kNC3;
+  return hdrnet::for_each_band(b, h, w, 3, [&](int i, int nb, int y0,
+                                               int nh) {
+    const long long px = (static_cast<long long>(i) * h + y0) * w;
+    const float* g = guide + px;
+    const float* in = image + px * 3;
+    const float* c = ct + px * 3;
+    float* dg = d_guide + px;
+    float* di = d_image != nullptr ? d_image + px * 3 : nullptr;
+    const int vec = w % kPix == 0 && aligned16(g) && aligned16(in) &&
+                    aligned16(c) && aligned16(dg) &&
+                    (di == nullptr || aligned16(di));
+    kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
+        grid + i * cells, g, in, c, dg, di, vec, nh, w, gh, gw, gd, y0, sy,
+        sx);
+    return cudaGetLastError();
+  });
+}
+
+// The generic kernels' launches: the staged or the global instantiation
+// of `pick(staged)`, over the frame's bands; launch(kernel, image, images,
+// y0, rows, window bytes) launches one.
+template <typename Pick, typename Launch>
+cudaError_t launch_generic(const Channels& ch, int b, int h, int w, int gh,
+                           int gw, int gd, float sy, float sx, Pick pick,
+                           Launch launch) {
+  const long long want = hdrnet::window_bytes(h, w, sy, sx, gh, gw, gd, ch.cs);
+  const bool staged = want <= hdrnet::kMaxWindowBytes;
+  const int win_bytes = staged ? static_cast<int>(want) : 0;
+  auto kernel = pick(staged);
+  const cudaError_t err = allow_window(kernel, win_bytes);
+  if (err != cudaSuccess) return err;
+  const int vals = std::max({1, ch.n_in, ch.n_out});
+  return hdrnet::for_each_band(b, h, w, vals, [&](int i, int nb, int y0,
+                                                  int nh) {
+    return launch(kernel, i, nb, y0, nh, win_bytes);
+  });
 }
 
 }  // namespace
 
 // Shapes are checked by the Python wrappers (hdrnet_torch/ops/
-// slice_apply.py); each launcher returns cudaGetLastError().
+// slice_apply.py); each launcher returns cudaGetLastError(), or
+// cudaErrorInvalidValue without a launch for a row of 2^31 values.
 
 extern "C" int hdrnet_slice_apply_fwd(const void* grid, const void* guide,
                                       const void* image, void* out, int b,
                                       int h, int w, int gh, int gw, int gd,
                                       int n_in, int n_out, int has_offset,
                                       float sy, float sx, void* stream) {
-  const Geometry g =
-      make_geometry(b, h, w, gh, gw, gd, n_in, n_out, has_offset, sy, sx);
   if (static_cast<long long>(b) * h * w == 0)
     return static_cast<int>(cudaGetLastError());
   const auto st = static_cast<cudaStream_t>(stream);
@@ -698,14 +1002,31 @@ extern "C" int hdrnet_slice_apply_fwd(const void* grid, const void* guide,
   const auto* guide_p = static_cast<const float*>(guide);
   const auto* image_p = static_cast<const float*>(image);
   auto* out_p = static_cast<float*>(out);
-  if (n_in <= kFastNIn) {
-    slice_apply_fwd_kernel<kFastExt><<<pixel_blocks(g), kThreads, 0, st>>>(
-        g, grid_p, guide_p, image_p, out_p);
-  } else {
-    slice_apply_fwd_kernel<0><<<pixel_blocks(g), kThreads, 0, st>>>(
-        g, grid_p, guide_p, image_p, out_p);
+  if (fixed_channels(grid, n_in, n_out, has_offset)) {
+    return static_cast<int>(hdrnet::slice_apply_fwd_fixed(
+        grid_p, guide_p, image_p, out_p, b, h, w, gh, gw, gd, sy, sx, st));
   }
-  return static_cast<int>(cudaGetLastError());
+  const Channels ch = channels(n_in, n_out, has_offset);
+  const long long cells = static_cast<long long>(gh) * gw * gd * ch.c;
+  return static_cast<int>(launch_generic(
+      ch, b, h, w, gh, gw, gd, sy, sx,
+      [&](bool staged) {
+        if (n_in == 0) {
+          return staged ? slice_apply_fwd_kernel<true, true>
+                        : slice_apply_fwd_kernel<true, false>;
+        }
+        return staged ? slice_apply_fwd_kernel<false, true>
+                      : slice_apply_fwd_kernel<false, false>;
+      },
+      [&](auto kernel, int i, int nb, int y0, int nh, int win_bytes) {
+        const long long px = (static_cast<long long>(i) * h + y0) * w;
+        float* o = out_p + px * n_out;
+        const int vec = ch.c % 4 == 0 && aligned16(o);
+        kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
+            ch, grid_p + i * cells, guide_p + px, image_p + px * n_in, o, vec,
+            nh, w, gh, gw, gd, y0, sy, sx);
+        return cudaGetLastError();
+      }));
 }
 
 extern "C" int hdrnet_slice_apply_pix_bwd(
@@ -713,8 +1034,6 @@ extern "C" int hdrnet_slice_apply_pix_bwd(
     void* d_guide, void* d_image, int b, int h, int w, int gh, int gw,
     int gd, int n_in, int n_out, int has_offset, float sy, float sx,
     void* stream) {
-  const Geometry g =
-      make_geometry(b, h, w, gh, gw, gd, n_in, n_out, has_offset, sy, sx);
   if (static_cast<long long>(b) * h * w == 0)
     return static_cast<int>(cudaGetLastError());
   const auto st = static_cast<cudaStream_t>(stream);
@@ -724,15 +1043,33 @@ extern "C" int hdrnet_slice_apply_pix_bwd(
   const auto* ct_p = static_cast<const float*>(ct);
   auto* dg_p = static_cast<float*>(d_guide);
   auto* di_p = static_cast<float*>(d_image);
-  if (n_in <= kFastNIn) {
-    slice_apply_pix_bwd_kernel<kFastExt><<<pixel_blocks(g), kThreads, 0,
-                                           st>>>(g, grid_p, guide_p, image_p,
-                                                 ct_p, dg_p, di_p);
-  } else {
-    slice_apply_pix_bwd_kernel<0><<<pixel_blocks(g), kThreads, 0, st>>>(
-        g, grid_p, guide_p, image_p, ct_p, dg_p, di_p);
+  if (fixed_channels(grid, n_in, n_out, has_offset)) {
+    return static_cast<int>(pix_bwd_fixed(grid_p, guide_p, image_p, ct_p,
+                                          dg_p, di_p, b, h, w, gh, gw, gd, sy,
+                                          sx, st));
   }
-  return static_cast<int>(cudaGetLastError());
+  const Channels ch = channels(n_in, n_out, has_offset);
+  const long long cells = static_cast<long long>(gh) * gw * gd * ch.c;
+  return static_cast<int>(launch_generic(
+      ch, b, h, w, gh, gw, gd, sy, sx,
+      [&](bool staged) {
+        if (n_in == 0) {
+          return staged ? pix_bwd_kernel<true, true>
+                        : pix_bwd_kernel<true, false>;
+        }
+        return staged ? pix_bwd_kernel<false, true>
+                      : pix_bwd_kernel<false, false>;
+      },
+      [&](auto kernel, int i, int nb, int y0, int nh, int win_bytes) {
+        const long long px = (static_cast<long long>(i) * h + y0) * w;
+        const float* c = ct_p + px * n_out;
+        const int vec = ch.c % 4 == 0 && aligned16(c);
+        kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
+            ch, grid_p + i * cells, guide_p + px, image_p + px * n_in, c,
+            dg_p + px, di_p != nullptr ? di_p + px * n_in : nullptr, vec, nh,
+            w, gh, gw, gd, y0, sy, sx);
+        return cudaGetLastError();
+      }));
 }
 
 namespace {

@@ -216,10 +216,12 @@ def bilateral_slice_apply_grid_vjp(guide, image, ct, grid_shape,
   return torch.stack(out, dim=3).reshape(b, gh, gw, gd, no, ni_tot)
 
 
-def bilateral_slice_apply_guide_vjp(grid, guide, image, ct, has_offset=True):
+def bilateral_slice_apply_guide_vjp(grid, guide, image, ct, has_offset=True,
+                                    band=None):
   """Guide cotangent (cc:140-206): the slice re-interpolated with the
   depth-weight derivative ``gd * smoothed_lerp_weight_grad`` at the two
-  unclamped taps, gathered at clamped indices. Returns (b, h, w)."""
+  unclamped taps, gathered at clamped indices. Returns (b, h, w); `band`
+  as in ``_slice_channels``."""
   b, gh, gw, gd, no, ni_tot = grid.shape
   _, h, w = guide.shape
   gzf = guide * gd
@@ -230,19 +232,22 @@ def bilateral_slice_apply_guide_vjp(grid, guide, image, ct, has_offset=True):
   c0 = torch.clamp(z0, 0, gd - 1)
   c1 = torch.clamp(z1, 0, gd - 1)
   sliced_dz = _slice_channels(grid.reshape(b, gh, gw, gd, no * ni_tot),
-                              guide, dw0, dw1, c0, c1)
+                              guide, dw0, dw1, c0, c1, band)
   sliced_dz = sliced_dz.reshape(b, h, w, no, ni_tot)
   image_ext = _extend_image(image, has_offset)
   return ((sliced_dz * image_ext[..., None, :]).sum(-1) * ct).sum(-1)
 
 
-def bilateral_slice_apply_input_vjp(grid, guide, ct, has_offset=True):
+def bilateral_slice_apply_input_vjp(grid, guide, ct, has_offset=True,
+                                    band=None):
   """Input cotangent (cc:208-259): the sliced affine matrix transposed,
-  applied to ct. Returns (b, h, w, n_in)."""
+  applied to ct. Returns (b, h, w, n_in); `band` as in
+  ``_slice_channels``."""
   b, gh, gw, gd, no, ni_tot = grid.shape
   _, h, w = guide.shape
   n_in = ni_tot - 1 if has_offset else ni_tot
-  sliced = bilateral_slice(grid.reshape(b, gh, gw, gd, no * ni_tot), guide)
+  sliced = bilateral_slice(grid.reshape(b, gh, gw, gd, no * ni_tot), guide,
+                           band)
   sliced = sliced.reshape(b, h, w, no, ni_tot)
   return (sliced[..., :n_in] * ct[..., :, None]).sum(-2)
 

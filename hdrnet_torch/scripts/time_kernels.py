@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Times this tree's K5 and fused K1/K6/K7 kernels in turns with a
+"""Times this tree's K3, K4, K5 and fused K1/K6/K7 kernels in turns with a
 baseline tree's, on one CUDA card, at the shapes the port's paths run.
 
   python -m hdrnet_torch.scripts.time_kernels --baseline_csrc DIR
@@ -13,10 +13,14 @@ the device time a call of a CUDA graph holding ``ITERS`` calls (graph
 replay: no host gaps between launches), timed with CUDA events. Both
 trees must export this tree's launchers (``_build._SIGNATURES``).
 
-Cases: K5 at 2048^2, 1024^2 and 512^2, b=1 (the curves step and the
-pyramid's three levels; n_in = n_out = 3, 16x16x8 grid); K1 (curves
-guide) and K6 (NN guide, gc 16) at 4K b=1, f32 -> f32 clipped and
-u8 -> u8; K7, the four 1080-row bands of an 8K f32 frame in each mode.
+Cases, each at 2048^2, 1024^2 and 512^2, b=1 (the curves step and the
+pyramid's three levels), with a 16x16x8 grid: K3 at n_in = n_out = 3,
+at n_in = 0 (the plain slice of C = 12 channels) and at n_in = 8 (C =
+27); K4 at 3 -> 3 with the guide cotangent only (the training path) and
+with the input's too, at n_in = 0 (C = 12) and at n_in = 8 with both;
+K5 at 3 -> 3. Then K1 (curves guide) and K6 (NN guide, gc 16) at 4K
+b=1, f32 -> f32 clipped and u8 -> u8; K7, the four 1080-row bands of an
+8K f32 frame in each mode.
 Each case also reports the largest difference between the two trees'
 outputs. Prints the card's name and power limit, then one JSON object.
 """
@@ -39,7 +43,7 @@ from hdrnet_torch.utils.timing import graph_ms
 ITERS = 20
 UHD = (2160, 3840)
 EIGHT_K = (4320, 7680)
-K5_SIZES = (2048, 1024, 512)
+SIZES = (2048, 1024, 512)
 GRID = (16, 16, 8)
 
 _FUSED = ('hdrnet_enhance_fused', 'hdrnet_enhance_fused_nn')
@@ -78,6 +82,41 @@ def k5_call(lib, guide, image, ct, grid_shape):
   return call, out
 
 
+def k3_call(lib, grid, guide, image):
+  """A function that launches `lib`'s K3 once (output allocated once),
+  and the output."""
+  b, h, w = guide.shape
+  _, gh, gw, gd, c = grid.shape
+  n_in = image.shape[-1]
+  n_out = c // (n_in + 1)
+  out = torch.empty((b, h, w, n_out), device=guide.device)
+  args = (grid.data_ptr(), guide.data_ptr(), image.data_ptr(),
+          out.data_ptr(), b, h, w, gh, gw, gd, n_in, n_out, 1, gh / h,
+          gw / w)
+
+  def call():
+    _build.check(lib.hdrnet_slice_apply_fwd(*args, _stream()), 'K3')
+  return call, out
+
+
+def k4_call(lib, grid, guide, image, ct, need_input):
+  """A function that launches `lib`'s K4 once, and its outputs: (d_guide,)
+  or (d_guide, d_image)."""
+  b, h, w = guide.shape
+  _, gh, gw, gd, _ = grid.shape
+  n_in, n_out = image.shape[-1], ct.shape[-1]
+  d_guide = torch.empty((b, h, w), device=guide.device)
+  d_image = (torch.empty((b, h, w, n_in), device=guide.device)
+             if need_input else None)
+  args = (grid.data_ptr(), guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
+          d_guide.data_ptr(), None if d_image is None else d_image.data_ptr(),
+          b, h, w, gh, gw, gd, n_in, n_out, 1, gh / h, gw / w)
+
+  def call():
+    _build.check(lib.hdrnet_slice_apply_pix_bwd(*args, _stream()), 'K4')
+  return call, (d_guide,) if d_image is None else (d_guide, d_image)
+
+
 def fused_call(lib, grid, frame, params, mode, u8_out, bands=1):
   """A function that launches `lib`'s K1 (curves) or K6 (nn) on the frame,
   or on its `bands` H-bands with K7's offsets, and the output."""
@@ -105,6 +144,13 @@ def fused_call(lib, grid, frame, params, mode, u8_out, bands=1):
     for args in launches:
       _build.check(fn(*args, _stream()), mode)
   return call, out
+
+
+def _flat(out):
+  """An output, or a tuple of outputs, as one float tensor."""
+  if isinstance(out, tuple):
+    return torch.cat([t.float().reshape(-1) for t in out])
+  return out.float()
 
 
 def _turns(base, cur):
@@ -153,8 +199,8 @@ def main(argv=None):
   def put(name, base_fn, cur_fn, base_out, cur_out, extra=None):
     turns = _turns(base_fn, cur_fn)
     torch.cuda.synchronize()
-    diff = float((cur_out.float() - base_out.float()).abs().max())
-    scale = float(base_out.float().abs().max())
+    diff = float((_flat(cur_out) - _flat(base_out)).abs().max())
+    scale = float(_flat(base_out).abs().max())
     results[name] = {'baseline_ms': (turns[0] + turns[3]) / 2,
                      'ms': (turns[1] + turns[2]) / 2, 'turns': turns,
                      'max_abs_diff': diff, 'baseline_max_abs': scale,
@@ -164,16 +210,35 @@ def main(argv=None):
           f'(of {scale:.3e})', flush=True)
 
   gh, gw, gd = GRID
-  for n in K5_SIZES:
+  for n in SIZES:
     t = lambda *s: torch.from_numpy(rng.rand(*s).astype(np.float32)).to(dev)
-    guide, image = t(1, n, n), t(1, n, n, 3)
-    ct = torch.from_numpy(rng.randn(1, n, n, 3).astype(np.float32)).to(dev)
+    tn = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        dev)
+    guide, image, image8 = t(1, n, n), t(1, n, n, 3), t(1, n, n, 8)
+    empty = image[..., :0].contiguous()
+    ct, ct12 = tn(1, n, n, 3), tn(1, n, n, 12)
     shape = (1, gh, gw, gd, 12)
+    grid, grid27 = tn(*shape), tn(1, gh, gw, gd, 27)
+    for name, make in (
+        ('K3 3->3', lambda lib: k3_call(lib, grid, guide, image)),
+        ('K3 n_in=0 C=12', lambda lib: k3_call(lib, grid, guide, empty)),
+        ('K3 n_in=8 C=27', lambda lib: k3_call(lib, grid27, guide, image8)),
+        ('K4 d_guide only',
+         lambda lib: k4_call(lib, grid, guide, image, ct, False)),
+        ('K4 d_guide and d_image',
+         lambda lib: k4_call(lib, grid, guide, image, ct, True)),
+        ('K4 n_in=0 C=12',
+         lambda lib: k4_call(lib, grid, guide, empty, ct12, False)),
+        ('K4 n_in=8 C=27 d_guide and d_image',
+         lambda lib: k4_call(lib, grid27, guide, image8, ct, True))):
+      base_fn, base_out = make(base)
+      cur_fn, cur_out = make(cur)
+      put(f'{name} {n}^2', base_fn, cur_fn, base_out, cur_out)
     base_fn, base_out = k5_call(base, guide, image, ct, shape)
     cur_fn, cur_out = k5_call(cur, guide, image, ct, shape)
     put(f'K5 {n}^2', base_fn, cur_fn, base_out, cur_out,
         {'scratch_bytes': cur_fn.scratch_bytes})
-    del guide, image, ct
+    del guide, image, image8, empty, ct, ct12, grid, grid27
 
   params = _seeded_params(dev)
   frame = torch.from_numpy(rng.rand(1, *UHD, 3).astype(np.float32)).to(dev)

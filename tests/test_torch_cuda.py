@@ -275,10 +275,16 @@ TRAIN_SHAPES = [(2, 101, 60, 16, 16, 8), (2, 37, 1031, 10, 6, 8),
 # region into row strips: a 14 x 25 grid over 203 x 317 pixels gives
 # regions of 14-15 rows by 12-13 columns, split unevenly.
 ODD_STRIPS_SHAPE = (3, 203, 317, 14, 25, 5)
+# K3/K4 stage the cells a 16 x 64 tile reaches in shared memory; a
+# 128 x 128 x 8 grid over 20 x 70 pixels reaches about 4.5 MB of them, so
+# the corners are read from device memory instead (70 columns: a ragged
+# 4-pixel group at each row's end).
+GLOBAL_WINDOW_SHAPE = (1, 20, 70, 128, 128, 8)
 
 
 @pytest.mark.parametrize('n_in', [0, 3, 8])
-@pytest.mark.parametrize('shape', TRAIN_SHAPES + [ODD_STRIPS_SHAPE])
+@pytest.mark.parametrize('shape', TRAIN_SHAPES + [ODD_STRIPS_SHAPE,
+                                                  GLOBAL_WINDOW_SHAPE])
 def test_slice_apply_kernels_match_plain(cuda, shape, n_in):
   """K3, K4 and K5 against their plain versions, with n_in 8 (K3/K4's
   looped path, K5's C = 27) beside 3 and 0; K5 twice gives the same
@@ -307,6 +313,85 @@ def test_slice_apply_kernels_match_plain(cuda, shape, n_in):
   _scaled_close(d_grid, slice_apply.slice_apply_grid_bwd_plain(
       grid.shape, guide, image, ct), 2e-4)
   assert torch.equal(d_grid, again)  # deterministic: no float atomics
+
+
+def _unaligned(t):
+  """The same values one element into a larger buffer: contiguous, not
+  16-byte aligned."""
+  buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+  buf[1:] = t.reshape(-1)
+  return buf[1:].view(t.shape)
+
+
+@pytest.mark.parametrize('w', [60, 61, 62, 70])
+@pytest.mark.parametrize('n_in', [0, 3])
+def test_slice_apply_kernels_vector_and_scalar_paths(cuda, w, n_in):
+  """K3 and K4 on 4-pixel groups: widths that are not a multiple of 4
+  (scalar loads and stores at each row's end) and inputs that are not
+  16-byte aligned (scalar throughout) give the same bits as the aligned
+  call and agree with the plain versions; without the input's
+  cotangent K4 returns None and the same d_guide bits; a grid that is
+  not aligned runs the generic kernels, within the same limits; two runs
+  give the same bits."""
+  n_out = 12 if n_in == 0 else 3
+  grid, guide, image, ct = _train_inputs(9, 2, 37, w, n_in, cuda, 16, 16, 8,
+                                         n_out)
+  out = slice_apply.slice_apply_fwd(grid, guide, image)
+  d_guide, d_image = slice_apply.slice_apply_pix_bwd(grid, guide, image, ct)
+  dg_only, none = slice_apply.slice_apply_pix_bwd(grid, guide, image, ct,
+                                                  need_input=False)
+  assert none is None and torch.equal(dg_only, d_guide)
+  assert torch.equal(slice_apply.slice_apply_fwd(grid, guide, image), out)
+  again = slice_apply.slice_apply_pix_bwd(grid, guide, image, ct)
+  assert torch.equal(again[0], d_guide) and torch.equal(again[1], d_image)
+  u_guide, u_image, u_ct = map(_unaligned, (guide, image, ct))
+  assert torch.equal(slice_apply.slice_apply_fwd(grid, u_guide, u_image), out)
+  u_dg, u_di = slice_apply.slice_apply_pix_bwd(grid, u_guide, u_image, u_ct)
+  assert torch.equal(u_dg, d_guide) and torch.equal(u_di, d_image)
+  want = slice_apply.slice_apply_fwd_plain(grid, guide, image)
+  want_dg, want_di = slice_apply.slice_apply_pix_bwd_plain(grid, guide,
+                                                           image, ct)
+  u_grid = _unaligned(grid)
+  for got, got_dg, got_di in (
+      (out, d_guide, d_image),
+      (slice_apply.slice_apply_fwd(u_grid, guide, image),
+       *slice_apply.slice_apply_pix_bwd(u_grid, guide, image, ct))):
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    _scaled_close(got_dg, want_dg, 1e-4)
+    torch.testing.assert_close(got_di, want_di, rtol=0, atol=1e-4)
+
+
+def test_slice_apply_kernels_past_32_bit_index(cuda):
+  """A 24576 x 32768 frame of 3 channels (2.4e9 values an image, f32) runs
+  in H-bands inside the launchers, since K3 and K4 index an image in 32
+  bits: rows at the frame's start, across the first band's end and at
+  its end agree with the plain versions of those rows at their offset
+  (about 23 GB for K3, 35 GB for K4 with the input's cotangent)."""
+  from hdrnet_torch.ops import reference as ref
+  h, w = 24576, 32768
+  gen = torch.Generator(device=cuda).manual_seed(15)
+  grid = torch.randn((1, 16, 16, 8, 12), generator=gen, device=cuda)
+  guide = torch.rand((1, h, w), generator=gen, device=cuda)
+  image = torch.rand((1, h, w, 3), generator=gen, device=cuda)
+  grid6 = grid.reshape(1, 16, 16, 8, 3, 4)
+  edge = (2**31 - 1) // (3 * w)  # the first band's rows
+  spans = ((0, 8), (edge - 8, edge + 8), (h - 8, h))
+  out = slice_apply.slice_apply_fwd(grid, guide, image)
+  for y0, y1 in spans:
+    want = ref.bilateral_slice_apply(grid6, guide[:, y0:y1],
+                                     image[:, y0:y1], band=(y0, 0, h, w))
+    torch.testing.assert_close(out[:, y0:y1], want, rtol=0, atol=1e-4)
+  del out
+  ct = torch.randn((1, h, w, 3), generator=gen, device=cuda)
+  d_guide, d_image = slice_apply.slice_apply_pix_bwd(grid, guide, image, ct)
+  for y0, y1 in spans:
+    rows = (slice(None), slice(y0, y1))
+    band = (y0, 0, h, w)
+    _scaled_close(d_guide[rows], ref.bilateral_slice_apply_guide_vjp(
+        grid6, guide[rows], image[rows], ct[rows], band=band), 1e-4)
+    torch.testing.assert_close(
+        d_image[rows], ref.bilateral_slice_apply_input_vjp(
+            grid6, guide[rows], ct[rows], band=band), rtol=0, atol=1e-4)
 
 
 def test_slice_apply_op_grads_on_card_match_cpu(cuda):

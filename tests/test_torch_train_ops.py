@@ -148,6 +148,54 @@ def test_plain_kernels_match_jax_interpret(n_in):
   _close_scaled(got_grid.numpy(), want_grid, 2e-4)
 
 
+# A 128 x 128 x 8 grid over a 20 x 70 frame: the cells a 16 x 64 tile
+# reaches exceed a block's shared memory, so the CUDA K3/K4 read their
+# corners from device memory; 70 columns end in a ragged 4-pixel group.
+GLOBAL_WINDOW_CASE = (1, 128, 128, 8, 3, 20, 70)
+
+
+@pytest.mark.parametrize('n_in', [3, 0, 8])
+def test_plain_kernels_match_jax_at_global_window(n_in):
+  """Plain K3 and K4 against the JAX package at the shape whose window
+  the CUDA kernels read from device memory. The JAX Pallas kernels refuse
+  it (no tile plan fits VMEM), so the JAX side is its reference: the
+  forward and the guide and input VJPs under ``jax.vmap``."""
+  b, gh, gw, gd, no, h, w = GLOBAL_WINDOW_CASE
+  assert not pk.feasible(h, w, gh, gw)
+  grid, guide, image, ct = _inputs(4, b, gh, gw, gd, no, n_in, h, w)
+  grid5 = grid.reshape(b, gh, gw, gd, -1)
+  want = jax.vmap(jref.bilateral_slice_apply)(grid, guide, image)
+  got = sa.slice_apply_fwd_plain(_t(grid5), _t(guide), _t(image))
+  np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+  got_dg, got_di = sa.slice_apply_pix_bwd_plain(_t(grid5), _t(guide),
+                                                _t(image), _t(ct))
+  want_dg = jax.vmap(jref.bilateral_slice_apply_guide_vjp)(grid, guide,
+                                                           image, ct)
+  _close_scaled(got_dg.numpy(), want_dg, 1e-4)
+  if n_in:
+    want_di = jax.vmap(jref.bilateral_slice_apply_input_vjp)(grid, guide, ct)
+    np.testing.assert_allclose(got_di.numpy(), want_di, rtol=0, atol=1e-4)
+
+
+def test_plain_vjps_take_a_band():
+  """The guide and input VJPs of a band (its rows at their offset in the
+  whole frame's taps) are bit for bit those rows of the whole frame's:
+  what the GPU tests hold the banded kernels to."""
+  b, gh, gw, gd, no, ni, h, w = 2, 5, 7, 8, 3, 3, 45, 61
+  grid, guide, image, ct = map(_t, _inputs(5, b, gh, gw, gd, no, ni, h, w))
+  whole_dg = tref.bilateral_slice_apply_guide_vjp(grid, guide, image, ct)
+  whole_di = tref.bilateral_slice_apply_input_vjp(grid, guide, ct)
+  for y0, y1 in ((0, 7), (7, 30), (30, 45)):
+    rows = slice(None), slice(y0, y1)
+    band = (y0, 0, h, w)
+    dg = tref.bilateral_slice_apply_guide_vjp(
+        grid, guide[rows], image[rows], ct[rows], band=band)
+    di = tref.bilateral_slice_apply_input_vjp(grid, guide[rows], ct[rows],
+                                              band=band)
+    assert torch.equal(dg, whole_dg[rows]), (y0, y1)
+    assert torch.equal(di, whole_di[rows]), (y0, y1)
+
+
 def _jax_grads(grid, guide, image, probe):
   def loss(grid, guide, image):
     out = jax_slice_apply(grid, guide, image, backend='reference')

@@ -44,6 +44,21 @@ sizes, the kernels' launches counted), and the host cost of a registered
 ``fit_pair`` at 1024^2 on the card, and at 256^2 on the card against the
 CPU.
 
+The extended zoo and the baselines (the composite route: the model's
+forward, whose slice-apply is K3, and K4 and K5 in training):
+``scripts/ll_strong/train_fpyrnn3_cm2.sh``'s ``HDRNetFeaturesPyrNN3``
+(cm 2, 1024^2, b=4; K3/K4/K5 at n_in 8, C = 27, K4 with the features'
+cotangent) trains 10 steps, its first step's gradients held to the
+plain path's, resumes bit for bit, and serves 4K frames through
+``Enhancer.process`` and ``make_stream_fn`` against the plain chain;
+each of the other 13 new models takes one step at its script's widths
+(the size cut to 512^2 b=1) and serves one 1080p frame, both held to the
+plain path; K3/K4/K5 are held and timed at the fpyrnn3_cm2 shapes (C =
+27, b=4, 1024^2, 512^2, 256^2). The bfloat16 coefficient backbone
+(``Enhancer(coeff_bf16=True)``) of ``HDRNetCurves`` and
+``HDRNetPointwiseNNGuide`` serves 4K frames in turns with float32,
+against it.
+
 The redesigned kernels (K5 as regions of row strips with a fixed-order
 sum of partials; K1/K6/K7, K3 and K4 on 2D tiles with the tile's cells
 staged in shared memory): K3, K4 and K5 also at n_in = 8 and under a
@@ -100,6 +115,52 @@ TRAIN_STEPS = 30
 PYR_TRAIN_STEPS = 20
 NN = 'HDRNetPointwiseNNGuide'
 PYR = 'HDRNetGaussianPyrNN'
+
+# The extended zoo: scripts/ll_strong/train_fpyrnn3_cm2.sh trained at its
+# size; the other new models at their scripts' widths (the default
+# ModelConfig: l8/s16/cm1, 256^2, gc 16, depth 5 and width 32 for the
+# baselines; 6 input channels for the style models) and one step at a
+# size cut to ZOO_CUT_HW, b=1. (model, n_in, script, slice-applies a
+# forward).
+FPYR = 'HDRNetFeaturesPyrNN3'
+ZOO_TRAIN_HW = (1024, 1024)
+ZOO_TRAIN_B = 4
+ZOO_STEPS = 10
+ZOO_CUT_HW = (512, 512)
+ZOO_OTHERS = [
+    ('UNet', 3, 'scripts/ll/train_unet.sh', 0),
+    ('DilatedConvolutions', 3, 'scripts/ll/train_dilated.sh', 0),
+    ('HDRNetGaussianPyr', 3, 'scripts/ll/train_gpyr.sh', 3),
+    ('HDRNet3x3NNGuide', 3, 'scripts/ll/train_3x3nn_guide.sh', 1),
+    ('HDRNetStack', 3, 'scripts/ll/train_stack.sh', 2),
+    ('HDRNetFullresFeatures', 3,
+     'scripts/ll_strong/train_fullres_features.sh', 1),
+    ('HDRNetFullresFeaturesMultiscale', 3,
+     'scripts/ll_strong/train_fullres_features_ms.sh', 1),
+    ('HDRNetFullresFeaturesWithGuide', 3,
+     'scripts/ll_strong/train_fullres_features_w_guide.sh', 1),
+    ('HDRNetFeaturesPyrNN', 3, 'scripts/ll_strong/train_fpyrnn.sh', 3),
+    ('HDRNetFeaturesPyrNN2', 3, 'scripts/ll_strong/train_fpyrnn2.sh', 3),
+    ('HDRNetFeaturesPyrSimpleGuideNN', 3,
+     'scripts/ll_strong/train_fpyr_simple_guide.sh', 3),
+    ('StyleTransferNN', 6, 'scripts/st/nst_nn.sh', 1),
+    ('StyleTransferCurves', 6, 'scripts/st/nst_curves.sh', 1),
+]
+# HDRNetStack's guides: the first stage's gradient passes through the
+# whole second stage, where float32 rounding grows
+# (tests/test_torch_zoo_train.py measures up to 1.9e-4 of the leaf's max
+# against the JAX step on the CPU); the second stage's conv2 bias, one
+# entry summed over 262144 pixels of terms of both signs, differed from
+# the plain path's by 3.3e-4 of its value on an NVIDIA H100 80GB HBM3
+# (700 W) in this script's run. Held to 1e-3; every other leaf to
+# GRAD_REL.
+STACK_GUIDE_REL = 1e-3
+# The bfloat16 backbone against float32 at the default widths:
+# tests/test_torch_zoo_tools.py measured on the CPU (540x960, seeds
+# 0-2, both models) max abs 2.07e-2 to 3.06e-2 and PSNR 47.97 to 50.25
+# dB, and holds them to these limits.
+BF16_MAX_ABS = 6e-2
+BF16_MIN_PSNR = 44.0
 
 # The least time the card could take (H100 SXM data sheet at 700 W): the
 # larger of the bytes a kernel must move over the memory rate and its
@@ -398,36 +459,32 @@ def _check_train_kernels(gen, dev, full_float32):
   return errs
 
 
-class _PlainSliceApply(torch.autograd.Function):
-  """The slice-apply op on the plain versions, for comparison only."""
-
-  @staticmethod
-  def forward(ctx, grid5, guide, image):
-    from hdrnet_torch.ops import slice_apply as sa
-    ctx.save_for_backward(grid5, guide, image)
-    return sa.slice_apply_fwd_plain(grid5, guide, image)
-
-  @staticmethod
-  def backward(ctx, ct):
-    from hdrnet_torch.ops import slice_apply as sa
-    grid5, guide, image = ctx.saved_tensors
-    ct = ct.contiguous()
-    d_guide, _ = sa.slice_apply_pix_bwd_plain(grid5, guide, image, ct,
-                                              need_input=False)
-    d_grid = sa.slice_apply_grid_bwd_plain(grid5.shape, guide, image, ct)
-    return d_grid, d_guide, None
-
-
-def _plain_slice_apply(grid, guide, image, has_offset=True):
-  assert has_offset
-  return _PlainSliceApply.apply(grid.reshape(grid.shape[:4] + (-1,)),
-                                guide, image)
+@contextlib.contextmanager
+def _plain_slice_apply_ops():
+  """Inside the block the slice-apply op of every model (forward and
+  both backward passes) runs the plain versions of K3, K4 and K5, and the
+  Enhancer's preview the plain version of K2; for comparison only."""
+  import hdrnet_torch.inference as inference
+  from hdrnet_torch.ops import downsample
+  from hdrnet_torch.ops import slice_apply as sa
+  saved = (sa.slice_apply_fwd, sa.slice_apply_pix_bwd,
+           sa.slice_apply_grid_bwd, inference.nearest_lowres)
+  sa.slice_apply_fwd = sa.slice_apply_fwd_plain
+  sa.slice_apply_pix_bwd = sa.slice_apply_pix_bwd_plain
+  sa.slice_apply_grid_bwd = sa.slice_apply_grid_bwd_plain
+  inference.nearest_lowres = downsample.nearest_lowres_plain
+  try:
+    yield
+  finally:
+    (sa.slice_apply_fwd, sa.slice_apply_pix_bwd, sa.slice_apply_grid_bwd,
+     inference.nearest_lowres) = saved
 
 
-def _train_batches(n, cfg, seed=7):
-  """n in-memory uint8 batches of one image, shaped like the pipeline's:
-  a seeded frame, its target clip(1.3 x), and both cut to the preview by
-  the legacy nearest table."""
+def _train_batches(n, cfg, seed=7, b=1):
+  """n in-memory uint8 batches of b images, shaped like the pipeline's:
+  seeded frames of cfg.n_in channels, their target clip(1.3 x) of the
+  first three, and both cut to the preview by the legacy nearest
+  table."""
   from hdrnet_torch.ops.resize import _nearest_indices
   rng = np.random.RandomState(seed)
   h, w = cfg.output_resolution
@@ -435,8 +492,9 @@ def _train_batches(n, cfg, seed=7):
   iy, ix = _nearest_indices(h, s), _nearest_indices(w, s)
   out = []
   for _ in range(n):
-    full = rng.randint(0, 256, (1, h, w, 3)).astype(np.uint8)
-    target = np.clip(full.astype(np.float32) * 1.3, 0, 255).astype(np.uint8)
+    full = rng.randint(0, 256, (b, h, w, cfg.n_in)).astype(np.uint8)
+    target = np.clip(full[..., :3].astype(np.float32) * 1.3, 0,
+                     255).astype(np.uint8)
     out.append({'lowres_input': np.ascontiguousarray(full[:, iy][:, :, ix]),
                 'lowres_output': np.ascontiguousarray(target[:, iy][:, :, ix]),
                 'image_input': full, 'image_output': target})
@@ -447,7 +505,6 @@ def _check_model_gradients(dev, full_float32, model_name='HDRNetCurves'):
   """Every parameter gradient of one 2048^2 step of the model at the
   default widths on the CUDA path against the same step on the plain
   versions."""
-  import hdrnet_torch.models.hdrnet as hdrnet_module
   from hdrnet_torch.config import ModelConfig
   from hdrnet_torch.models import make_model
   from hdrnet_torch.training import metrics, step
@@ -463,12 +520,8 @@ def _check_model_gradients(dev, full_float32, model_name='HDRNetCurves'):
       return loss.detach(), torch.autograd.grad(loss, params)
 
   loss, got = grads()
-  kernel_op = hdrnet_module.bilateral_slice_apply
-  hdrnet_module.bilateral_slice_apply = _plain_slice_apply
-  try:
+  with _plain_slice_apply_ops():
     want_loss, want = grads()
-  finally:
-    hdrnet_module.bilateral_slice_apply = kernel_op
   worst = 0.0
   for (name, _), g, w in zip(model.named_parameters(), got, want):
     scale = float(w.abs().max())
@@ -498,6 +551,29 @@ def _cudnn_deterministic():
      torch.backends.cudnn.benchmark) = saved
 
 
+def _check_resume(cfg, state, fresh, batch, train_step, ckpt_dir, what):
+  """Saves `state` and `cfg` to ckpt_dir (left there), restores them into
+  fresh(99), and takes one step of each on `batch` under
+  cudnn.deterministic: the losses and every parameter must agree bit for
+  bit (RESUME_TOL). Returns the largest difference."""
+  import shutil
+  from hdrnet_torch.training.checkpoint import Checkpointer
+  shutil.rmtree(ckpt_dir, ignore_errors=True)
+  cfg.save(ckpt_dir)
+  Checkpointer(ckpt_dir).save(state.step, state)
+  restored = Checkpointer(ckpt_dir).restore(fresh(99))
+  with _cudnn_deterministic():
+    _, m_a = train_step(state, batch)
+    _, m_b = train_step(restored, batch)
+  err = abs(float(m_a['loss']) - float(m_b['loss']))
+  for a, b in zip(state.model.parameters(), restored.model.parameters()):
+    err = max(err, float((a - b).detach().abs().max()))
+  if not err <= RESUME_TOL:
+    raise AssertionError(f'{what} resume: max diff {err:.3e}, not '
+                         f'bit-identical')
+  return err
+
+
 def _train_full_width(dev, tag, enh_cls, slice_launches,
                       model_name='HDRNetCurves', steps=TRAIN_STEPS):
   """The model and optimizer of scripts/ll/train_std.sh (HDRNetCurves) or
@@ -512,7 +588,6 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
   from hdrnet_torch.ops import downsample, fused
   from hdrnet_torch.ops import slice_apply as sa
   from hdrnet_torch.training import loop, step
-  from hdrnet_torch.training.checkpoint import Checkpointer
   per_step = 3 if model_name == PYR else 1
   cfg = Config(
       model=ModelConfig(model_name=model_name, net_input_size=256,
@@ -555,20 +630,8 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
 
   # Save, restore into a fresh state, one more step each way.
   ckpt_dir = 'build/chip_smoke_ckpt'
-  shutil.rmtree(ckpt_dir, ignore_errors=True)
-  cfg.save(ckpt_dir)
-  Checkpointer(ckpt_dir).save(state.step, state)
-  restored = Checkpointer(ckpt_dir).restore(fresh(99))
-  batch = step.to_device(host[0], dev)
-  with _cudnn_deterministic():
-    _, m_a = train_step(state, batch)
-    _, m_b = train_step(restored, batch)
-  resume_err = abs(float(m_a['loss']) - float(m_b['loss']))
-  for a, b in zip(state.model.parameters(), restored.model.parameters()):
-    resume_err = max(resume_err, float((a - b).detach().abs().max()))
-  if not resume_err <= RESUME_TOL:
-    raise AssertionError(f'resume: max diff {resume_err:.3e}, not '
-                         f'bit-identical')
+  resume_err = _check_resume(cfg, state, fresh, step.to_device(host[0], dev),
+                             train_step, ckpt_dir, model_name)
 
   # Evaluate the checkpoint as bin/evaluate.py does, on the four batches:
   # the training graph (one K3 a slice-apply) and the serving path (one
@@ -1028,6 +1091,473 @@ def _check_fit_grid(dev, tag, slice_launches):
         + ' / '.join(f'{b:.2e}' for _, b in drift.values()) + ' dB',
         flush=True)
   return step_ms
+
+
+# --- the extended zoo and the baselines -------------------------------------
+
+
+@contextlib.contextmanager
+def _k4_input_flags():
+  """The need_input argument of every K4 call inside the block, in a
+  list: whether the call also gave the input's cotangent (the wrapper
+  still counts its own launches)."""
+  from hdrnet_torch.ops import slice_apply as sa
+  kernel, flags = sa.slice_apply_pix_bwd, []
+
+  def spy(*args, need_input=True, **kw):
+    flags.append(need_input)
+    return kernel(*args, need_input=need_input, **kw)
+  sa.slice_apply_pix_bwd = spy
+  try:
+    yield flags
+  finally:
+    sa.slice_apply_pix_bwd = kernel
+
+
+def _reset_slice_counts():
+  from hdrnet_torch.ops import slice_apply as sa
+  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
+
+
+def _slice_counts():
+  from hdrnet_torch.ops import slice_apply as sa
+  return {'K3': sa.fwd_launches, 'K4': sa.pix_bwd_launches,
+          'K5': sa.grid_bwd_launches}
+
+
+def _plain_first_grads(cfg, seed, batch, dev, full_float32):
+  """(loss, {name: gradient}) of the l2 loss of one normalized batch
+  through a fresh model of `cfg` from `seed` in training mode, on the
+  plain versions of the slice-apply, in full float32: the first step's
+  gradients on the plain path."""
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.training import metrics
+  model = make_model(cfg, generator=torch.Generator().manual_seed(
+      seed)).to(dev).train()
+  names, params = zip(*model.named_parameters())
+  with _plain_slice_apply_ops(), full_float32():
+    out = model(batch['lowres_input'], batch['image_input'])
+    loss = metrics.l2_loss(batch['image_output'], out)
+    grads = torch.autograd.grad(loss, params)
+  return float(loss.detach()), dict(zip(names, grads))
+
+
+def _hold_grads(model, want, what):
+  """Every parameter's gradient after a step against the plain path's,
+  GRAD_REL of the leaf's max |g| (STACK_GUIDE_REL for the stack's
+  guides). Returns (the worst ratio err / max, the failures)."""
+  worst, failures = 0.0, []
+  for name, p in model.named_parameters():
+    w = want[name]
+    scale = float(w.abs().max())
+    err = float((p.grad - w).abs().max())
+    rel = (STACK_GUIDE_REL if name.startswith(('stage0.guide.',
+                                               'stage1.guide.'))
+           else GRAD_REL)
+    if not err <= rel * scale:  # also catches NaN
+      failures.append(f'{what}: gradient of {name}: {err:.3e} > {rel:.0e} '
+                      f'* {scale:.3e}')
+    worst = max(worst, err / max(scale, 1e-30))
+  return worst, failures
+
+
+def _device_breakdown(fn):
+  """(busy ms, [(kernel name, ms, calls)] largest first) of the device
+  work of one fn() call, from torch.profiler's CUDA kernel events after
+  one unprofiled warm-up call; busy is 0.0 if the profiler sees no
+  device time."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  rows = sorted(((e.key[:70], e.device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.device_time_total > 0), key=lambda r: -r[1])
+  return sum(r[1] for r in rows), rows
+
+
+def _print_breakdown(what, tag, wall_ms, fn):
+  busy, rows = _device_breakdown(fn)
+  if not busy:
+    print(f'profile {what}: the profiler saw no device time', flush=True)
+    return
+  top = '; '.join(f'{name} {ms:.3f} ms x{n}' for name, ms, n in rows[:8])
+  print(f'profile {tag} {what}: device busy {busy:.3f} ms of {wall_ms:.3f} '
+        f'ms (idle share {max(0.0, 1 - busy / wall_ms):.2f}), '
+        f'{sum(r[2] for r in rows)} kernels; largest: {top}', flush=True)
+
+
+def _zoo_train_full_width(dev, tag, slice_launches, full_float32):
+  """scripts/ll_strong/train_fpyrnn3_cm2.sh's model and optimizer
+  (HDRNetFeaturesPyrNN3, cm 2, l8/s16, 256^2 preview, 1024^2, b=4, no BN,
+  Adam 1e-4) on seeded uint8 batches: the first step's every gradient
+  against the plain path, ZOO_STEPS steps with three K3, three K4 (each
+  with the features' cotangent) and three K5 a step, the step time (host
+  clock, synchronized after each step) and peak memory, then a save,
+  restore and one more step each way, bit for bit. Returns the model's
+  config, its trained weights and the numbers."""
+  import shutil
+  from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.training import loop, step
+  cfg = Config(
+      model=ModelConfig(model_name=FPYR, net_input_size=256,
+                        output_resolution=list(ZOO_TRAIN_HW), luma_bins=8,
+                        spatial_bin=16, channel_multiplier=2,
+                        batch_norm=False),
+      data=DataConfig(batch_size=ZOO_TRAIN_B,
+                      output_resolution=list(ZOO_TRAIN_HW)),
+      train=TrainConfig(learning_rate=1e-4))
+  seed = 2024
+
+  def fresh(s):
+    model = make_model(cfg.model, generator=torch.Generator().manual_seed(
+        s)).to(dev)
+    return step.create_state(model, loop.make_optimizer(model, cfg.train))
+
+  host = _train_batches(4, cfg.model, b=ZOO_TRAIN_B)
+  want_loss, want_grads = _plain_first_grads(
+      cfg.model, seed, step.normalize_batch(step.to_device(host[0], dev)),
+      dev, full_float32)
+  train_step = step.make_train_step()
+  state = fresh(seed)
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_slice_counts()
+  step_ms, losses = [], []
+  with _k4_input_flags() as flags:
+    for i in range(ZOO_STEPS):
+      t0 = time.perf_counter()
+      state, m = train_step(state, step.to_device(host[i % 4], dev))
+      torch.cuda.synchronize()
+      step_ms.append((time.perf_counter() - t0) * 1e3)
+      losses.append(float(m['loss']))
+      if i == 0:
+        grad_worst, failures = _hold_grads(state.model, want_grads,
+                                           f'{FPYR} first step')
+        if failures:
+          raise AssertionError('; '.join(failures))
+        if abs(losses[0] - want_loss) > 1e-5 * abs(want_loss):
+          raise AssertionError(f'{FPYR} first loss {losses[0]} vs plain '
+                               f'{want_loss}')
+  peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+  launches = _slice_counts()
+  n = 3 * ZOO_STEPS
+  if launches != {'K3': n, 'K4': n, 'K5': n} or flags != [True] * n:
+    raise AssertionError(f'{FPYR} launches over {ZOO_STEPS} steps '
+                         f'{launches}, K4 with the input cotangent '
+                         f'{sum(flags)} of {len(flags)}; expected {n} each')
+  _tally_slice(slice_launches, n, n, n)
+  if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    raise AssertionError(f'{FPYR} training: losses {losses}')
+
+  ckpt_dir = 'build/chip_smoke_zoo_ckpt'
+  _reset_slice_counts()
+  resume_err = _check_resume(cfg, state, fresh, step.to_device(host[0], dev),
+                             train_step, ckpt_dir, FPYR)
+  _tally_slice(slice_launches, *_slice_counts().values())
+  shutil.rmtree(ckpt_dir, ignore_errors=True)
+  steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+  print(f'zoo training {FPYR} at full width (train_fpyrnn3_cm2.sh: cm 2, '
+        f'l8/s16, 256^2, {ZOO_TRAIN_HW[0]}^2, b={ZOO_TRAIN_B}, Adam 1e-4; '
+        f'C = 27, n_in 8 a level): first-step gradients worst '
+        f'{grad_worst:.3e} of the leaf max vs plain (<= {GRAD_REL:.0e}); '
+        f'{ZOO_STEPS} steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}; '
+        f'launches {launches}, every K4 with the features\' cotangent; '
+        f'resume max diff {resume_err:.3e} (bit-identical under '
+        f'cudnn.deterministic); timing {tag}: step 1 {step_ms[0]:.2f} ms, '
+        f'median of steps 3-{ZOO_STEPS} {steady:.4f} ms (host clock, '
+        f'synchronized); peak memory allocated {peak_mib:.1f} MiB',
+        flush=True)
+  batch = step.to_device(host[1], dev)
+  _reset_slice_counts()
+  _print_breakdown(f'{FPYR} train step', tag, steady,
+                   lambda: train_step(state, batch))
+  _tally_slice(slice_launches, *_slice_counts().values())
+  weights = {k: v.detach().clone() for k, v in
+             state.model.state_dict().items()}
+  return cfg.model, weights, {'step_ms': steady, 'first_step_ms': step_ms[0],
+                              'peak_mib': peak_mib, 'grad_worst': grad_worst}
+
+
+def _zoo_serve_4k(dev, tag, model_cfg, weights, slice_launches, full_float32):
+  """The trained fpyrnn3_cm2 model through the composite route at 4K:
+  Enhancer.process on two f32 frames (b=1) and make_stream_fn on two u8
+  frames, one K2 and three K3 a frame and no K1 or K6, held to the plain
+  chain (K1_TOL; u8 1 code on < 1%); then the time of a frame."""
+  from hdrnet_torch.inference import Enhancer
+  from hdrnet_torch.ops import downsample, fused
+  enh = Enhancer(model_cfg, weights, device=dev)
+  if enh.fused:
+    raise AssertionError(f'{FPYR} took the fused route')
+  gen = torch.Generator(device=dev).manual_seed(77)
+  frames = [torch.rand((1, *UHD, 3), generator=gen, device=dev)
+            for _ in range(2)]
+  frames_u8 = [(torch.rand((1, *UHD, 3), generator=gen, device=dev) * 255)
+               .to(torch.uint8) for _ in range(2)]
+  fn = enh.make_stream_fn((1, *UHD, 3))
+  torch.cuda.synchronize()
+  _reset_slice_counts()
+  downsample.launches = fused.launches = fused.nn_launches = 0
+  outs = [enh.process(f) for f in frames]
+  outs_u8 = [fn(f) for f in frames_u8]
+  torch.cuda.synchronize()
+  counts = {'K2': downsample.launches, 'K1': fused.launches,
+            'K6': fused.nn_launches, **_slice_counts()}
+  want = {'K2': 4, 'K1': 0, 'K6': 0, 'K3': 12, 'K4': 0, 'K5': 0}
+  if counts != want:
+    raise AssertionError(f'{FPYR} composite serving launches {counts}; '
+                         f'expected {want}')
+  _tally_slice(slice_launches, counts['K3'])
+  with _plain_slice_apply_ops():
+    wants = [enh.process(f) for f in frames]
+    wants_u8 = [fn(f) for f in frames_u8]
+  err = 0.0
+  for out, w in zip(outs, wants):
+    if out.shape != (1, *UHD, 3) or not torch.isfinite(out).all():
+      raise AssertionError(f'{FPYR} composite process output malformed')
+    err = max(err, _max_err(out, w, K1_TOL, f'{FPYR} composite process'))
+  u8 = [_u8_check(o, w, f'{FPYR} composite stream')
+        for o, w in zip(outs_u8, wants_u8)]
+  del outs, wants, outs_u8, wants_u8
+  proc_ms = _time_ms(lambda: enh.process(frames[0]), 10)
+  stream_ms = _time_ms(lambda: fn(frames_u8[0]), 10)
+  _reset_slice_counts()
+  _print_breakdown(f'{FPYR} composite 4K frame', tag, proc_ms,
+                   lambda: enh.process(frames[0]))
+  _tally_slice(slice_launches, _slice_counts()['K3'])
+  print(f'zoo serving {FPYR} (cm 2) through the composite route at 4K: '
+        f'process x2 f32 max abs err {err:.3e} (<= {K1_TOL:.0e}) vs the '
+        f'plain chain; stream fn x2 u8 worst {max(u8)}; launches {counts}; '
+        f'timing {tag}: process {proc_ms:.4f} ms/frame, stream fn '
+        f'{stream_ms:.4f} ms/frame (device-resident u8)', flush=True)
+  return {'process_ms': proc_ms, 'stream_ms': stream_ms, 'err': err}
+
+
+def _zoo_others(dev, tag, slice_launches, full_float32):
+  """Each other new model at its script's widths (ZOO_OTHERS), the
+  resolution cut to ZOO_CUT_HW at b=1: one train step whose every
+  gradient is held to the plain path's, its K3/K4/K5 launches counted,
+  then one 1080p frame served (composite route) against the plain chain.
+  Returns {model: (step ms, frame ms)} (host clock, synchronized; the
+  first call at a shape, warm-up included)."""
+  from hdrnet_torch.config import ModelConfig, TrainConfig
+  from hdrnet_torch.inference import Enhancer
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.ops import downsample, fused
+  from hdrnet_torch.training import loop, step
+  gen = torch.Generator(device=dev).manual_seed(78)
+  results, grad_worst, failures = {}, {}, []
+  worst = {'grad': 0.0, 'serve': 0.0}
+  for name, n_in, script, n_slices in ZOO_OTHERS:
+    cfg = ModelConfig(model_name=name, n_in=n_in,
+                      output_resolution=list(ZOO_CUT_HW))
+    seed = 300 + len(results)
+    batch = _train_batches(1, cfg, seed=seed)[0]
+    _, want_grads = _plain_first_grads(
+        cfg, seed, step.normalize_batch(step.to_device(batch, dev)), dev,
+        full_float32)
+    model = make_model(cfg, generator=torch.Generator().manual_seed(
+        seed)).to(dev)
+    state = step.create_state(model, loop.make_optimizer(
+        model, TrainConfig(learning_rate=1e-4)))
+    torch.cuda.synchronize()
+    _reset_slice_counts()
+    t0 = time.perf_counter()
+    state, m = step.make_train_step()(state, step.to_device(batch, dev))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = _slice_counts()
+    if counts != {'K3': n_slices, 'K4': n_slices, 'K5': n_slices}:
+      raise AssertionError(f'{name} train step launches {counts}; expected '
+                           f'{n_slices} each')
+    _tally_slice(slice_launches, *counts.values())
+    grad_worst[name], failed = _hold_grads(model, want_grads,
+                                           f'{name} step')
+    failures += failed
+    worst['grad'] = max(worst['grad'], grad_worst[name])
+    enh = Enhancer(cfg, model.state_dict(), device=dev)
+    x = torch.rand((1, *FHD, n_in), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    _reset_slice_counts()
+    downsample.launches = fused.launches = fused.nn_launches = 0
+    t0 = time.perf_counter()
+    out = enh.process(x)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    served = (downsample.launches, fused.launches + fused.nn_launches,
+              _slice_counts()['K3'])
+    if enh.fused or served != (1, 0, n_slices):
+      raise AssertionError(f'{name} serving (K2, K1 + K6, K3) {served}, '
+                           f'fused {enh.fused}; expected (1, 0, '
+                           f'{n_slices}), composite')
+    _tally_slice(slice_launches, n_slices)
+    with _plain_slice_apply_ops():
+      want = enh.process(x)
+    if out.shape != (1, *FHD, 3) or not torch.isfinite(out).all():
+      raise AssertionError(f'{name} 1080p output malformed')
+    err = float((out - want).abs().max())
+    if not err <= K1_TOL:
+      failures.append(f'{name} 1080p vs plain: max abs err {err:.3e}')
+    worst['serve'] = max(worst['serve'], err)
+    results[name] = (step_ms, frame_ms)
+    del model, state, enh, want_grads, x, out, want
+    torch.cuda.empty_cache()
+  print('zoo gradients, worst |g - g_plain| / max|g_plain| a model: '
+        + json.dumps({k: float(f'{v:.3e}') for k, v in grad_worst.items()}),
+        flush=True)
+  if failures:
+    raise AssertionError('; '.join(failures))
+  print(f'zoo, the other {len(ZOO_OTHERS)} new models at their scripts\' '
+        f'widths, one train step at {ZOO_CUT_HW[0]}^2 b=1 (cut from the '
+        f'scripts\' 2048^2 b=1, 1024^2 b=4 and 512^2 b=4) and one 1080p '
+        f'frame: every gradient worst {worst["grad"]:.3e} of the leaf max '
+        f'vs plain (<= {GRAD_REL:.0e}; the stack\'s guides <= '
+        f'{STACK_GUIDE_REL:.0e}), 1080p max abs err '
+        f'{worst["serve"]:.3e} (<= {K1_TOL:.0e}) vs the plain chain; '
+        f'timing {tag} (step ms, frame ms; first call at the shape, '
+        f'host clock): {json.dumps(results)}', flush=True)
+  return results
+
+
+def _bf16_serving(dev, tag, x4k):
+  """The bfloat16 backbone (Enhancer(coeff_bf16=True)) of HDRNetCurves and
+  HDRNetPointwiseNNGuide at the default widths, seeded, at 4K f32 b=1,
+  in turns with float32: the max abs difference and the PSNR of bf16
+  against f32 (limits BF16_MAX_ABS and BF16_MIN_PSNR, from
+  tests/test_torch_zoo_tools.py's measurement on the CPU), and the ms
+  of a frame and of the backbone alone; still one K2 and one K1 or K6 a
+  frame."""
+  from hdrnet_torch.inference import Enhancer, ModelConfig
+  from hdrnet_torch.ops import downsample, fused
+  results = {}
+  for name in ('HDRNetCurves', NN):
+    f32 = Enhancer(ModelConfig(model_name=name), device=dev, seed=5)
+    bf16 = Enhancer(ModelConfig(model_name=name), f32.model.state_dict(),
+                    device=dev, coeff_bf16=True)
+    if not (bf16.fused and bf16.coeff_bf16):
+      raise AssertionError(f'{name}: the bf16 backbone is not on')
+    torch.cuda.synchronize()
+    downsample.launches = fused.launches = fused.nn_launches = 0
+    got = bf16.process(x4k)
+    torch.cuda.synchronize()
+    if (downsample.launches, fused.launches + fused.nn_launches) != (1, 1):
+      raise AssertionError(f'{name} bf16 launches K2 {downsample.launches}, '
+                           f'K1 + K6 {fused.launches + fused.nn_launches}')
+    want = f32.process(x4k)
+    diff = float((got - want).abs().max())
+    psnr = float(10 * torch.log10(1.0 / ((got - want) ** 2).mean()))
+    if not (diff <= BF16_MAX_ABS and psnr >= BF16_MIN_PSNR):
+      raise AssertionError(f'{name} bf16 vs f32: max abs {diff:.3e}, PSNR '
+                           f'{psnr:.2f} dB')
+    low = downsample.nearest_lowres(x4k, 256)
+    turns = [_time_ms(lambda: f32.process(x4k), 30),
+             _time_ms(lambda: bf16.process(x4k), 30),
+             _time_ms(lambda: bf16.process(x4k), 30),
+             _time_ms(lambda: f32.process(x4k), 30)]
+    bb = [_time_ms(lambda: f32._backbone_grid(low), 30),
+          _time_ms(lambda: bf16._backbone_grid(low), 30),
+          _time_ms(lambda: bf16._backbone_grid(low), 30),
+          _time_ms(lambda: f32._backbone_grid(low), 30)]
+    results[name] = {'max_abs': diff, 'psnr_db': psnr, 'process_ms': turns,
+                     'backbone_ms': bb}
+    print(f'bf16 backbone {name} at 4K f32 b=1 (default widths, seeded): '
+          f'vs float32 max abs {diff:.3e} (<= {BF16_MAX_ABS:.0e}), PSNR '
+          f'{psnr:.2f} dB (>= {BF16_MIN_PSNR:.0f}); timing {tag}, in turns '
+          f'f32 / bf16 / bf16 / f32: process '
+          f'{" / ".join(f"{t:.4f}" for t in turns)} ms, backbone '
+          f'{" / ".join(f"{t:.4f}" for t in bb)} ms', flush=True)
+  return results
+
+
+def _zoo_slice_ops(c, n_in, n_out):
+  """float32 operations a pixel of K3, K4 (both cotangents) and K5 at C
+  grid channels, counted as SLICE_APPLY_OPS, K4_GUIDE_OPS and K5_OPS are
+  for C = 12: K3 the taps and weights (55), 8 corners x C FMA, the
+  n_out x n_in affine; K4 the taps and weights with their derivatives
+  (68), 8 corners x C FMA, the (C + 3)-FMA contraction into d_guide and
+  the n_out x n_in FMA of d_image; K5 the C products, the weights (30)
+  and 4 cells x 2 bins x C FMA."""
+  return {'K3': 55 + 16 * c + 2 * n_out * n_in,
+          'K4': 68 + 16 * c + 2 * (c + 3) + 2 * n_out * n_in,
+          'K5': 30 + 17 * c}
+
+
+def _zoo_slice_levels(gen, dev, tag, full_float32):
+  """K3, K4 (both cotangents, as the feature models' steps run it) and K5
+  at the train_fpyrnn3_cm2.sh shapes: C = 27 (n_in 8, n_out 3), b=4,
+  grid 16x16x8, at 1024^2, 512^2 and 256^2 (the three pyramid levels):
+  held to the plain versions once, then the device time of a call (CUDA
+  events around 20 calls, and in a CUDA graph), its bound, and the plain
+  version's time; K5's plan."""
+  from hdrnet_torch.ops import slice_apply as sa
+  from hdrnet_torch.utils.timing import graph_ms
+  levels = {'K3': {}, 'K4': {}, 'K5': {}}
+  n_in, n_out, b = 8, 3, ZOO_TRAIN_B
+  for n in ZOO_TRAIN_HW[0], ZOO_TRAIN_HW[0] // 2, ZOO_TRAIN_HW[0] // 4:
+    g5, guide, image, ct = _train_inputs(gen, b, (n, n), n_in, dev)
+    c = g5.shape[-1]
+    calls = {
+        'K3': (lambda: sa.slice_apply_fwd(g5, guide, image),
+               lambda: sa.slice_apply_fwd_plain(g5, guide, image)),
+        'K4': (lambda: sa.slice_apply_pix_bwd(g5, guide, image, ct),
+               lambda: sa.slice_apply_pix_bwd_plain(g5, guide, image, ct)),
+        'K5': (lambda: sa.slice_apply_grid_bwd(g5.shape, guide, image, ct),
+               lambda: sa.slice_apply_grid_bwd_plain(g5.shape, guide, image,
+                                                     ct))}
+    with full_float32():
+      got = {k: kern() for k, (kern, _) in calls.items()}
+      want = {k: plain() for k, (_, plain) in calls.items()}
+    what = f'C={c} {n}^2 b={b}'
+    errs = {'K3': _max_err(got['K3'], want['K3'], K3_TOL, f'K3 {what}'),
+            'K4': max(_scaled_err(got['K4'][0], want['K4'][0], K4_GUIDE_REL,
+                                  f'K4 guide {what}'),
+                      _max_err(got['K4'][1], want['K4'][1], K3_TOL,
+                               f'K4 input {what}')),
+            'K5': _scaled_err(got['K5'], want['K5'], K5_REL, f'K5 {what}')}
+    del got, want
+    pixels, grid_bytes = b * n * n, _nbytes(g5)
+    ops = _zoo_slice_ops(c, n_in, n_out)
+    pad_y, pad_x = -(-n // (2 * 16)), -(-n // (2 * 16))
+    padded = b * (n + 2 * pad_y) * (n + 2 * pad_x)
+    bounds = {
+        # grid, guide, image in; output out.
+        'K3': _bound(grid_bytes + pixels * (1 + n_in + n_out) * 4,
+                     pixels * ops['K3']),
+        # grid, guide, image, ct in; d_guide and d_image out.
+        'K4': _bound(grid_bytes + pixels * (1 + n_in + n_out + 1 + n_in) * 4,
+                     pixels * ops['K4']),
+        # guide, image, ct in; the grid cotangent out.
+        'K5': _bound(grid_bytes + pixels * (1 + n_in + n_out) * 4,
+                     padded * ops['K5'])}
+    for kid, (kern, plain) in calls.items():
+      with full_float32():
+        plain_ms = _time_ms(plain, 3, warmup=1)
+      levels[kid][f'fpyrnn3_cm2 C={c} {n}^2 b={b}'] = {
+          'ms': _time_ms(kern, 20), 'graph_ms': graph_ms(kern),
+          'plain_ms': plain_ms, 'bound_ms': bounds[kid][0],
+          'bound_by': bounds[kid][1], 'max_abs_err': errs[kid]}
+    strips, floats, smem = sa.grid_bwd_plan(g5.shape, guide)
+    levels['K5'][f'fpyrnn3_cm2 C={c} {n}^2 b={b}'].update({
+        'strips': strips, 'shared_bytes': smem, 'scratch_bytes': floats * 4})
+    del g5, guide, image, ct, calls
+    torch.cuda.empty_cache()
+  for kid, by_shape in levels.items():
+    print(f'timing {tag}: {kid} at the fpyrnn3_cm2 levels: ' + '; '.join(
+        f'{k} {v["ms"]:.4f} ms (graph {v["graph_ms"]:.4f}, plain '
+        f'{v["plain_ms"]:.4f}, bound {v["bound_ms"]:.4f} {v["bound_by"]}, '
+        f'err {v["max_abs_err"]:.2e})' for k, v in by_shape.items()),
+        flush=True)
+  print('K5 plans at C = 27: ' + '; '.join(
+      f'{k} {v["strips"]} strips, {v["shared_bytes"]} B shared, scratch '
+      f'{v["scratch_bytes"]} B' for k, v in levels['K5'].items()),
+      flush=True)
+  return levels
 
 
 def main():
@@ -1519,8 +2049,26 @@ def main():
   times['K2x'] = (k2x_times[1]['gather'], k2x_times[1]['plain_gather'])
   _check_export(dev, tag, gen, slice_launches)
   _check_fit_grid(dev, tag, slice_launches)
+
+  # 19. The extended zoo and the baselines: train_fpyrnn3_cm2.sh's model
+  # trained at full width and served at 4K through the composite route
+  # (K3/K4/K5 at n_in 8, C = 27), the other new models one step and one
+  # 1080p frame each, then K3/K4/K5 timed at the fpyrnn3_cm2 shapes; the
+  # counts reset just before each path and read just after.
+  zoo_cfg, zoo_weights, _ = _zoo_train_full_width(dev, tag, slice_launches,
+                                                  full_float32)
+  _zoo_serve_4k(dev, tag, zoo_cfg, zoo_weights, slice_launches,
+                full_float32)
+  del zoo_weights
+  torch.cuda.empty_cache()
+  _zoo_others(dev, tag, slice_launches, full_float32)
+  zoo_levels = _zoo_slice_levels(gen, dev, tag, full_float32)
+
+  # 20. The bfloat16 coefficient backbone on the fused route.
+  _bf16_serving(dev, tag, x4k)
   print(f'K3/K4/K5 launches on the paths (train steps, evaluate, export, '
-        f'fit_grid): {slice_launches}', flush=True)
+        f'fit_grid, the zoo\'s steps and frames): {slice_launches}',
+        flush=True)
 
   # The least time each kernel could take at the shapes it was timed at.
   k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)
@@ -1567,7 +2115,8 @@ def main():
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:570',
        slice_launches['K3'], train_errs['K3'], 'K3'),
       ('K4', 'K4 slice_apply_pix_bwd (guide and input cotangents; timed '
-       'with the guide\'s only, as training runs it)',
+       'with the guide\'s only, as the HDRNet models\' training runs it; '
+       'the fpyrnn3_cm2 levels with both, as the feature models\' does)',
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:694',
        slice_launches['K4'], train_errs['K4'], 'K4'),
       ('K5', 'K5 slice_apply_grid_bwd (grid cotangent, deterministic)',
@@ -1583,7 +2132,8 @@ def main():
               'library_ms': None}
              for kid, name, source, replaces, n, err, key in rows]
   for kid in ('K3', 'K4', 'K5'):
-    kernels[[r[0] for r in rows].index(kid)]['levels'] = slice_levels[kid]
+    kernels[[r[0] for r in rows].index(kid)]['levels'] = {
+        **slice_levels[kid], **zoo_levels[kid]}
   kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
       f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
       for r in ('gather', 'mma')}

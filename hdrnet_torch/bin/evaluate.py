@@ -6,12 +6,14 @@ The reference only evaluates inside the training loop
 (bin/train.py:160-174, and due to a bug it actually measured training
 batches); this is the correct standalone equivalent. Without
 ``--serving`` the model's forward (the training graph: K3 on the card)
-computes the output; with it the serving path (``Enhancer``: K1 or K6).
+computes the output; with it the serving path (``Enhancer``: K1 or K6 on
+the fused route, the model's forward and a clip on the composite route;
+``--coeff_bf16`` runs the fused route's backbone in bfloat16).
 ``make_forward`` and ``evaluate_batch`` are the per-batch work, callable
 on in-memory batches; ``main`` reads the checkpoint and the files.
 
-  python -m hdrnet_torch.bin.evaluate ckpt/ data/ [--limit N] [--serving]
-      [--device cuda]
+  python -m hdrnet_torch.bin.evaluate ckpt/ data/ [--limit N] [--serving
+      [--coeff_bf16]] [--device cuda]
 """
 
 from __future__ import annotations
@@ -34,13 +36,20 @@ from hdrnet_torch.training.step import normalize_batch, to_device
 log = logging.getLogger('hdrnet_torch.evaluate')
 
 
-def make_forward(model_cfg, state_dict, device, serving):
+def make_forward(model_cfg, state_dict, device, serving, coeff_bf16=False):
   """The function evaluated, (lowres, fullres) -> output: the serving
-  path (``Enhancer``, unclipped) or the model's forward (the training
-  graph), with the weights of `state_dict` on `device`."""
+  path (``Enhancer``, unclipped; with `coeff_bf16` its bfloat16
+  backbone) or the model's forward (the training graph), with the
+  weights of `state_dict` on `device`. The serving function carries the
+  Enhancer as ``.enhancer``."""
   if serving:
-    enh = Enhancer(model_cfg, state_dict, device=device)
-    return lambda low, full: enh(low, full, clip=False)
+    enh = Enhancer(model_cfg, state_dict, device=device,
+                   coeff_bf16=coeff_bf16)
+
+    def fwd(low, full):
+      return enh(low, full, clip=False)
+    fwd.enhancer = enh
+    return fwd
   model = make_model(model_cfg)
   model.load_state_dict(state_dict)
   return model.to(device).eval()
@@ -73,15 +82,11 @@ def main(argv=None):
                            'kernels) instead of the training graph')
   parser.add_argument('--coeff_bf16', action='store_true',
                       help='with --serving: bfloat16 coefficient backbone '
-                           '(not ported)')
+                           '(the fused route only)')
   parser.add_argument('--device', default='cuda',
                       help="torch device ('cpu' for the plain versions of "
                            'the kernels)')
   args = parser.parse_args(argv)
-  if args.coeff_bf16:
-    raise NotImplementedError(
-        '--coeff_bf16: the port has no bfloat16 coefficient backbone yet '
-        '(ROADMAP.md, section 1 item 6)')
   device = resolve_device(args.device)
 
   config = Config.load(args.checkpoint_dir)
@@ -97,9 +102,11 @@ def main(argv=None):
   eval_cfg.fliplr = eval_cfg.flipud = eval_cfg.rotate = False
   pipeline = make_pipeline(args.data_dir, eval_cfg)
 
-  fwd = make_forward(config.model, payload['model'], device, args.serving)
+  fwd = make_forward(config.model, payload['model'], device, args.serving,
+                     args.coeff_bf16)
   if args.serving:
-    log.info('serving-path eval on %s', device)
+    log.info('serving-path eval on %s (fused route: %s, coeff_bf16: %s)',
+             device, fwd.enhancer.fused, fwd.enhancer.coeff_bf16)
 
   n = min(pipeline.nsamples, args.limit or pipeline.nsamples)
   it = pipeline.batches(seed=0)
@@ -115,7 +122,8 @@ def main(argv=None):
             'mean_psnr_db': float(np.mean(psnrs)),
             'mean_l2': float(np.mean(losses))}
   if args.serving:
-    result['serving'] = {'fused': True, 'coeff_bf16': False}
+    result['serving'] = {'fused': fwd.enhancer.fused,
+                         'coeff_bf16': fwd.enhancer.coeff_bf16}
   log.info('step %d | mean PSNR = %.2f dB | mean L2 = %.5f over %d images',
            result['step'], result['mean_psnr_db'], result['mean_l2'], n)
   print(json.dumps(result))

@@ -12,16 +12,17 @@ eager ``Enhancer``. Produces in the output directory:
 
   * ``coefficients_fn`` -- lowres (1, S, S, n_in) -> the packed grid in
     the reference's deployment layout (c, gd, gh, gw)
-    (freeze_graph.py:69-75);
+    (freeze_graph.py:69-75); not for a model with no top-level grid (the
+    baselines, ``HDRNetStack``);
   * ``enhance_fn`` -- (lowres, fullres) -> the model's forward, clipped;
   * ``serve_fn`` -- (lowres, fullres) -> the fused serving path
-    (``Enhancer.__call__``);
-  * ``stream_fn`` -- a uint8 (1, H, W, 3) frame -> uint8, preview
+    (``Enhancer.__call__``), for the models of the fused route only;
+  * ``stream_fn`` -- a uint8 (1, H, W, n_in) frame -> uint8, preview
     downsample, enhancement and requantization on the device
     (``Enhancer.make_stream_fn``);
   * ``serve_any_fn`` -- ``serve_fn`` with H and W as ``torch.export.Dim``s:
     one graph serves every frame size (the JAX package's padded bucket
-    with a traced true size);
+    with a traced true size); the fused route only;
   * ``guide_*.bin`` -- the guide parameters as raw little-endian float32,
     byte for byte the JAX package's dumps (batch norm folded into conv1
     for the NN guides, freeze_graph.py:127-184), for the reference
@@ -57,7 +58,8 @@ import numpy as np
 import torch
 
 import hdrnet_torch.ops  # noqa: F401  (registers the hdrnet:: ops)
-from hdrnet_torch.inference import Enhancer, full_float32
+from hdrnet_torch.inference import Enhancer
+from hdrnet_torch.models import require_top_level_grid
 from hdrnet_torch.models.layers import BN_EPS
 
 log = logging.getLogger('hdrnet_torch.export')
@@ -138,9 +140,28 @@ class _Function(torch.nn.Module):
     return self.fn(*args)
 
 
+def coefficients_function(enh):
+  """lowres (1, S, S, n_in) -> the packed grid in the deployment layout
+  (c, gd, gh, gw) (freeze_graph.py:69-75); ValueError, with the reason,
+  for a model with no top-level grid."""
+  require_top_level_grid(enh.model, 'coefficients_fn exports the grid')
+
+  def coefficients_fn(lowres):
+    grid = enh._backbone_grid(lowres.permute(0, 3, 1, 2))
+    b, gh, gw, gd, no, ni = grid.shape
+    packed = grid.reshape(b, gh, gw, gd, no * ni)[0]
+    # (gh, gw, gd, c) -> (c, gd, gh, gw).
+    return packed.permute(3, 2, 0, 1)
+  return coefficients_fn
+
+
 def serving_functions(enh, fullres):
   """{name: (function, example inputs, dynamic shapes or None)} of the
-  Enhancer `enh`, with a full resolution of `fullres` (H, W)."""
+  Enhancer `enh`, with a full resolution of `fullres` (H, W).
+  ``enhance_fn`` and ``stream_fn`` for every model; ``coefficients_fn``
+  for a model with a top-level grid; ``serve_fn`` and ``serve_any_fn``
+  on the fused route only (elsewhere they would be ``enhance_fn``), as
+  the JAX export writes them. What is left out is logged."""
   cfg = enh.model_cfg
   s, n_in = cfg.net_input_size, cfg.n_in
   h, w = fullres
@@ -149,30 +170,30 @@ def serving_functions(enh, fullres):
   full = torch.zeros((1, h, w, n_in), device=dev)
   full_u8 = torch.zeros((1, h, w, n_in), dtype=torch.uint8, device=dev)
 
-  def coefficients_fn(lowres):
-    grid = enh._backbone_grid(lowres.permute(0, 3, 1, 2))
-    b, gh, gw, gd, no, ni = grid.shape
-    packed = grid.reshape(b, gh, gw, gd, no * ni)[0]
-    # Deployment layout (freeze_graph.py:69-75): (gh, gw, gd, c) ->
-    # (c, gd, gh, gw).
-    return packed.permute(3, 2, 0, 1)
-
   def enhance_fn(lowres, fullres):
-    with full_float32():
-      return torch.clamp(enh.model(lowres, fullres), 0.0, 1.0)
+    return enh._composite_forward(lowres, fullres, clip=True)
 
   def serve_fn(lowres, fullres):
     return enh(lowres, fullres, clip=True)
 
-  side = dict(min=MIN_SIDE, max=MAX_SIDE)
-  any_hw = {1: torch.export.Dim('H', **side), 2: torch.export.Dim('W', **side)}
-  return {
-      'coefficients_fn': (coefficients_fn, (low,), None),
-      'enhance_fn': (enhance_fn, (low, full), None),
-      'serve_fn': (serve_fn, (low, full), None),
-      'stream_fn': (enh.make_stream_fn((1, h, w, n_in)), (full_u8,), None),
-      'serve_any_fn': (serve_fn, (low, full), (None, any_hw)),
-  }
+  fns = {}
+  try:
+    fns['coefficients_fn'] = (coefficients_function(enh), (low,), None)
+  except ValueError as e:
+    log.info('coefficients_fn not written: %s', e)
+  fns['enhance_fn'] = (enhance_fn, (low, full), None)
+  fns['stream_fn'] = (enh.make_stream_fn((1, h, w, n_in)), (full_u8,), None)
+  if enh.fused:
+    side = dict(min=MIN_SIDE, max=MAX_SIDE)
+    any_hw = {1: torch.export.Dim('H', **side),
+              2: torch.export.Dim('W', **side)}
+    fns['serve_fn'] = (serve_fn, (low, full), None)
+    fns['serve_any_fn'] = (serve_fn, (low, full), (None, any_hw))
+  else:
+    log.info('%s is served by the composite route: no fused serving '
+             'function, serve_fn and serve_any_fn not written',
+             type(enh.model).__name__)
+  return fns
 
 
 def _avals(nodes, names):

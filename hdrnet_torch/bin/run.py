@@ -24,6 +24,7 @@ import torch
 
 from hdrnet_torch.data import hostops, images
 from hdrnet_torch.inference import Enhancer, full_float32
+from hdrnet_torch.models import require_top_level_grid
 from hdrnet_torch.ops.downsample import nearest_lowres
 from hdrnet_torch.training.checkpoint import latest_checkpoint
 
@@ -61,8 +62,9 @@ def enhance_image(enh, image, lowres=None, debug=False):
 
   Returns (the clipped (1, H, W, 3) output on the device, the model's
   intermediates or None). With ``debug`` the output comes from the
-  model's forward, which also gives the grid, guides and pyramid levels;
-  otherwise from ``Enhancer.enhance_any`` and the fused kernels.
+  model's forward, which also gives the grid, guides and pyramid levels
+  (ValueError for a model with no top-level grid); otherwise from
+  ``Enhancer.enhance_any``.
   """
   frame = enh.on_device(image[None])
   if lowres is None:
@@ -72,6 +74,7 @@ def enhance_image(enh, image, lowres=None, debug=False):
     low = enh.on_device(lowres[None])
   if not debug:
     return enh.enhance_any(low, frame), None
+  require_top_level_grid(enh.model, '--debug writes the grid')
   with full_float32():
     out, inter = enh.model.forward_with_intermediates(low, frame)
   return torch.clamp(out, 0.0, 1.0), inter
@@ -86,10 +89,10 @@ def _write_debug(out_dir, fname, im, inter):
   tiled = grid.transpose(0, 2, 1, 4, 3).reshape(gh * gd, gw * ni * no)
   images.imwrite(os.path.join(out_dir, fname + '_coeffs.png'),
                  _normalize01(tiled))
-  for i, g in enumerate(inter['guide_map']):
+  for i, g in enumerate(inter.get('guide_map', [])):
     images.imwrite(os.path.join(out_dir, f'{fname}_guide_{i}.png'),
                    _normalize01(g[0].cpu().numpy()))
-  for i, lvl in enumerate(inter['multiscale']):
+  for i, lvl in enumerate(inter.get('multiscale', [])):
     images.imwrite(os.path.join(out_dir, f'{fname}_ms_{i}.png'),
                    np.clip(lvl[0].cpu().numpy(), 0, 1))
 

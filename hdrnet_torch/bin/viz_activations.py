@@ -20,7 +20,9 @@ import os
 import numpy as np
 import torch
 
+from hdrnet_torch.models.extended import FeatureExtractor
 from hdrnet_torch.models.guides import PointwiseNNGuide
+from hdrnet_torch.models.hdrnet import HDRNetPointwiseNNGuide
 from hdrnet_torch.models.layers import CenterBatchNorm, ConvBlock
 
 log = logging.getLogger('hdrnet_torch.viz')
@@ -53,27 +55,34 @@ def _flax_name(module_name):
 @torch.no_grad()
 def capture_activations(model, lowres, fullres):
   """{Flax intermediate name: (1, h, w, c) numpy array} of every rank-4
-  module output of `model` on NHWC (lowres, fullres), and the pyramid's
-  levels ('multiscale_[i]'), in full float32. `model` is in eval mode, as
-  the Flax model runs with ``train=False``."""
+  module output of `model` on NHWC (lowres, fullres), and the feature
+  maps the model sows ('multiscale_[i]', the pyramid's levels;
+  'fullres_features_[i]', the feature towers'), in full float32. `model`
+  is in eval mode, as the Flax model runs with ``train=False``.
+
+  The convs, batch norms and conv blocks compute NCHW; the feature
+  towers and the stack's stages take and give NHWC tensors."""
   from hdrnet_torch.inference import full_float32
   if model.training:
     raise ValueError('capture_activations takes a model in eval mode')
   captured = {}
   hooks = []
 
-  def keep(name):
+  def keep(name, nchw):
     def hook(module, args, out):
       del module, args
-      if out.ndim == 4:  # NCHW inside the backbone
-        captured[_flax_name(name)] = out.permute(0, 2, 3, 1).cpu().numpy()
+      if isinstance(out, tuple):  # a stage's (output, intermediates)
+        out = out[0]
+      if out.ndim == 4:
+        act = out.permute(0, 2, 3, 1) if nchw else out
+        captured[_flax_name(name)] = act.cpu().numpy()
     return hook
 
   def keep_guide(name):
-    # The guide's forward computes its 1x1 convs as matrix products and
-    # calls no submodule a hook could see: its layers come from its own
-    # forward_with_intermediates, on the same input, and its guide map
-    # must be the one the model used.
+    # The pointwise guide's forward computes its 1x1 convs as matrix
+    # products and calls no submodule a hook could see: its layers come
+    # from its own forward_with_intermediates, on the same input, and its
+    # guide map must be the one the model used.
     def hook(module, args, out):
       guide, layers = module.forward_with_intermediates(args[0])
       if not torch.equal(guide, out):
@@ -83,19 +92,23 @@ def capture_activations(model, lowres, fullres):
     return hook
 
   for name, module in model.named_modules():
+    if not name:
+      continue
     if isinstance(module, PointwiseNNGuide):
       hooks.append(module.register_forward_hook(keep_guide(name)))
-    elif (isinstance(module, (ConvBlock, CenterBatchNorm, torch.nn.Conv2d))
-          and name.startswith('coefficients.')):
-      hooks.append(module.register_forward_hook(keep(name)))
+    elif isinstance(module, (ConvBlock, CenterBatchNorm, torch.nn.Conv2d)):
+      hooks.append(module.register_forward_hook(keep(name, nchw=True)))
+    elif isinstance(module, (FeatureExtractor, HDRNetPointwiseNNGuide)):
+      hooks.append(module.register_forward_hook(keep(name, nchw=False)))
   try:
     with full_float32():
       _, inter = model.forward_with_intermediates(lowres, fullres)
   finally:
     for h in hooks:
       h.remove()
-  for i, level in enumerate(inter['multiscale']):
-    captured[f'multiscale_[{i}]'] = level.cpu().numpy()
+  for key in ('multiscale', 'fullres_features'):
+    for i, act in enumerate(inter.get(key, [])):
+      captured[f'{key}_[{i}]'] = act.cpu().numpy()
   return captured
 
 

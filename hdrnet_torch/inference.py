@@ -1,42 +1,59 @@
 """Serving path of the HDRNet models (counterpart of
 ``hdrnet_tpu.inference.Enhancer``).
 
-Per frame: cut the nearest preview from the frame (kernel K2,
-``ops.downsample``), run the coefficient CNN on it (plain torch convs in
-full float32), and do the guide, slice, affine apply and clip at full
-resolution in one pass (``ops.fused``): kernel K1 for ``HDRNetCurves``'s
-curves guide, K6 for ``HDRNetPointwiseNNGuide``'s NN guide. For
-``HDRNetGaussianPyrNN`` the frame's bilinear pyramid is built in torch,
-K6 runs once a level on its 3-output block of the grid, and the levels
-are upsampled and added coarse to fine before one clip. Frames of any
-size are served at their exact shape (``enhance_any``); a giant frame can
-be cut into H-bands, one a device, each band running K1 or K6 with K7's
-offset arguments (``enhance_sharded``). On a CUDA device the kernels run;
-on the CPU the same sequence runs their plain versions. The device is
-CUDA unless the caller asks for the CPU.
+Two routes. The fused route serves ``HDRNetCurves``,
+``HDRNetPointwiseNNGuide`` and ``HDRNetGaussianPyrNN`` (those classes
+exactly, at 3 channels in and out). Per frame: cut the nearest preview
+from the frame (kernel K2, ``ops.downsample``), run the coefficient CNN
+on it (plain torch convs in full float32, or a bfloat16 copy with
+``coeff_bf16``), and do the guide, slice, affine apply and clip at full
+resolution in one pass (``ops.fused``): kernel K1 for the curves guide,
+K6 for the NN guide. For the pyramid the frame's bilinear pyramid is
+built in torch, K6 runs once a level on its 3-output block of the grid,
+and the levels are upsampled and added coarse to fine before one clip.
+A giant frame can be cut into H-bands, one a device, each band running
+K1 or K6 with K7's offset arguments (``enhance_sharded``).
+
+The composite route serves every other model (the extended zoo, the
+baselines, the style models at 6 channels): K2's preview, then the
+model's own forward in full float32 with gradients off (its slice-apply
+is kernel K3), then the clip, as the JAX package's composite path
+serves them.
+
+Frames of any size are served at their exact shape (``enhance_any``).
+On a CUDA device the kernels run; on the CPU the same sequence runs
+their plain versions. The device is CUDA unless the caller asks for the
+CPU.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import logging
 
 import numpy as np
 import torch
 
 from hdrnet_torch.config import Config, ModelConfig
 from hdrnet_torch.models import make_model
-from hdrnet_torch.models.hdrnet import (HDRNetGaussianPyrNN, gaussian_pyramid,
-                                        upsample_add)
+from hdrnet_torch.models.hdrnet import (HDRNetCurves, HDRNetGaussianPyrNN,
+                                        HDRNetPointwiseNNGuide,
+                                        gaussian_pyramid, upsample_add)
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 
-__all__ = ['Enhancer', 'ModelConfig', 'SERVED_MODELS', 'full_float32',
+__all__ = ['Enhancer', 'FUSED_MODELS', 'ModelConfig', 'full_float32',
            'resolve_device']
 
-SERVED_MODELS = ('HDRNetCurves', 'HDRNetPointwiseNNGuide',
-                 'HDRNetGaussianPyrNN')
+log = logging.getLogger('hdrnet_torch.inference')
+
+# The classes the fused kernels serve, matched exactly: a subclass with
+# another guide (HDRNet3x3NNGuide is an HDRNetCurves) takes the composite
+# route.
+FUSED_MODELS = (HDRNetCurves, HDRNetPointwiseNNGuide, HDRNetGaussianPyrNN)
 
 
 @contextlib.contextmanager
@@ -70,21 +87,23 @@ def resolve_device(device):
 
 
 class Enhancer:
-  """Serves full-resolution enhancement with one of ``SERVED_MODELS``.
+  """Serves full-resolution enhancement with any model of the registry.
 
   config: the ``ModelConfig``. state_dict: converted weights
   (``hdrnet_torch.convert``); without them the model is initialised from
   ``seed``. device: where the model lives and frames must be; CUDA by
   default (raises without it), ``'cpu'`` for the plain versions.
+  coeff_bf16: run the fused route's coefficient backbone as a bfloat16
+  copy on a bfloat16 preview, the grid cast back to float32 (serving
+  only; the composite route stays float32 and logs a warning).
+
+  ``fused`` and ``coeff_bf16`` say what the Enhancer runs: the fused
+  route for the three classes of ``FUSED_MODELS`` at 3 channels in and
+  out, the composite route otherwise.
   """
 
   def __init__(self, config: ModelConfig, state_dict=None, *, device='cuda',
-               seed=0):
-    if config.model_name not in SERVED_MODELS:
-      raise ValueError(f'the port serves {SERVED_MODELS}, got '
-                       f'{config.model_name!r}')
-    if (config.n_in, config.n_out) != (3, 3):
-      raise ValueError('the fused kernel serves 3-channel in and out')
+               seed=0, coeff_bf16=False):
     device = resolve_device(device)
     self.model_cfg = config
     model = make_model(config, generator=torch.Generator().manual_seed(seed))
@@ -92,7 +111,16 @@ class Enhancer:
       model.load_state_dict(state_dict)
     self.model = model.to(device).eval()
     self.device = next(self.model.parameters()).device
-    self.pyramid = isinstance(model, HDRNetGaussianPyrNN)
+    self.fused = (type(model) in FUSED_MODELS
+                  and (config.n_in, config.n_out) == (3, 3))
+    if coeff_bf16 and not self.fused:
+      log.warning('Enhancer: coeff_bf16 applies to the fused route only; '
+                  '%s is served by the composite route in float32',
+                  type(model).__name__)
+    self.coeff_bf16 = bool(coeff_bf16) and self.fused
+    if not self.fused:
+      return
+    self.pyramid = type(model) is HDRNetGaussianPyrNN
     # Packed guide parameters, one vector a guide (BN folded for the NN
     # guides); for the pyramid one a level, finest first.
     if self.pyramid:
@@ -101,16 +129,22 @@ class Enhancer:
     else:
       self.guide_mode = model.guide.guide_mode
       self.guide_params = model.guide.packed_params()
+    if self.coeff_bf16:
+      # Every floating parameter and buffer cast, BN statistics included,
+      # as the JAX package casts the backbone's variables.
+      self.bf16_coefficients = copy.deepcopy(model.coefficients).to(
+          torch.bfloat16)
 
   @classmethod
-  def from_checkpoint(cls, checkpoint_dir, device='cuda'):
+  def from_checkpoint(cls, checkpoint_dir, device='cuda', coeff_bf16=False):
     """Serves the newest step that ``hdrnet_torch.training`` saved in
     `checkpoint_dir`, with the architecture of its ``config.json``."""
     path = latest_checkpoint(checkpoint_dir)
     if path is None:
       raise FileNotFoundError(f'no checkpoint in {checkpoint_dir}')
     config = Config.load(checkpoint_dir)
-    return cls(config.model, load(path)['model'], device=device)
+    return cls(config.model, load(path)['model'], device=device,
+               coeff_bf16=coeff_bf16)
 
   def _check_frame(self, frame):
     if frame.device != self.device:
@@ -126,11 +160,25 @@ class Enhancer:
 
   @torch.no_grad()
   def _backbone_grid(self, lowres):
-    """NCHW preview (b, n_in, s, s) -> rank-6 grid, in full float32. The
-    preview is made contiguous, so a permuted NHWC one takes the same
-    convolution algorithms as K2's output."""
+    """NCHW preview (b, n_in, s, s) -> rank-6 grid, in full float32, or
+    with ``coeff_bf16`` through the bfloat16 backbone on a bfloat16
+    preview, cast back to float32. The preview is made contiguous, so a
+    permuted NHWC one takes the same convolution algorithms as K2's
+    output."""
+    if self.coeff_bf16:
+      return self.bf16_coefficients(
+          lowres.contiguous().to(torch.bfloat16)).to(torch.float32)
     with full_float32():
       return self.model.coefficients(lowres.contiguous())
+
+  @torch.no_grad()
+  def _composite_forward(self, lowres, fullres, clip):
+    """The composite route: the model's forward on the NHWC preview and
+    frame in full float32 (K3 for its slice-apply on the card), then the
+    clip."""
+    with full_float32():
+      out = self.model(lowres, fullres)
+    return torch.clamp(out, 0.0, 1.0) if clip else out
 
   def _fused_forward(self, lowres, frame, clip, u8_output=False):
     """Backbone on the NCHW preview, then K1 or K6 on the NHWC frame; for
@@ -152,9 +200,11 @@ class Enhancer:
     return torch.clamp(current, 0.0, 1.0) if clip else current
 
   def __call__(self, lowres, fullres, clip=True):
-    """Enhance with a given NHWC preview: (b, s, s, 3), (b, H, W, 3)."""
+    """Enhance with a given NHWC preview: (b, s, s, n_in), (b, H, W, n_in)."""
     self._check_frame(lowres)
     self._check_frame(fullres)
+    if not self.fused:
+      return self._composite_forward(lowres, fullres, clip)
     return self._fused_forward(lowres.permute(0, 3, 1, 2), fullres, clip)
 
   def enhance_any(self, lowres, fullres, clip=True):
@@ -193,6 +243,12 @@ class Enhancer:
     that level's offsets. Copies between distinct cards are plain tensor
     copies; no test here runs more than one card.
     """
+    if not self.fused:
+      raise ValueError(
+          f'enhance_sharded cuts the frame into bands for the fused '
+          f'kernel, which does not serve {type(self.model).__name__} at '
+          f'{self.model_cfg.n_in} -> {self.model_cfg.n_out} channels; use '
+          f'process or enhance_any')
     devices = [torch.device(d) for d in devices]
     kinds = {d.type for d in devices}
     if not devices or len(kinds) != 1 or not kinds <= {'cpu', 'cuda'}:
@@ -222,20 +278,23 @@ class Enhancer:
     return torch.clamp(current, 0.0, 1.0) if clip else current
 
   def process(self, frame, clip=True):
-    """Enhance one (B, H, W, 3) float32 frame end to end: preview
+    """Enhance one (B, H, W, n_in) float32 frame end to end: preview
     downsample, coefficients, guide + slice + apply (per level for the
-    pyramid)."""
+    pyramid); on the composite route the model's forward on K2's
+    preview."""
     self._check_frame(frame)
     low = nearest_lowres(frame, self.model_cfg.net_input_size)
+    if not self.fused:
+      return self._composite_forward(low.permute(0, 2, 3, 1), frame, clip)
     return self._fused_forward(low, frame, clip)
 
   def make_stream_fn(self, full_shape):
     """uint8-in, uint8-out pipeline step for frames of `full_shape`
-    (B, H, W, 3) on the device: K2 and K1 (K6) dequantize in the kernel
-    and K1 (K6) requantizes the clipped result, so the frame stays uint8.
-    The pyramid dequantizes the frame to float32, runs, clips and
-    requantizes as trunc(x * 255 + 0.5) in torch, as the JAX package's
-    fallback does."""
+    (B, H, W, n_in) on the device: K2 and K1 (K6) dequantize in the
+    kernel and K1 (K6) requantizes the clipped result, so the frame stays
+    uint8. The pyramid and the composite route dequantize the frame to
+    float32 (exact /255), run, clip and requantize as trunc(x * 255 +
+    0.5) in torch, as the JAX package's composite stream does."""
     full_shape = tuple(full_shape)
     s = self.model_cfg.net_input_size
 
@@ -245,9 +304,13 @@ class Enhancer:
                          f'{frame_u8.dtype} {tuple(frame_u8.shape)}')
       self._check_frame(frame_u8)
       low = nearest_lowres(frame_u8, s)
-      if not self.pyramid:
+      if not self.fused:
+        out = self._composite_forward(low.permute(0, 2, 3, 1),
+                                      to_unit(frame_u8), clip=True)
+      elif not self.pyramid:
         return self._fused_forward(low, frame_u8, clip=True, u8_output=True)
-      out = self._fused_forward(low, to_unit(frame_u8), clip=True)
+      else:
+        out = self._fused_forward(low, to_unit(frame_u8), clip=True)
       # Two roundings (the product, then the sum), then truncation.
       return (out * 255.0 + 0.5).to(torch.int32).to(torch.uint8)
     return fn

@@ -4,6 +4,9 @@
     piecewise-linear curve -> channel mix -> clip to [0, 1].
   * PointwiseNNGuide: 1x1 conv (center-only BN, ReLU) -> 1x1 conv ->
     sigmoid.
+  * Guide3x3NN: the same with a 3x3 first conv (``HDRNet3x3NNGuide``).
+  * SimpleGuide: one 1x1 conv -> sigmoid (the feature pyramid's simple
+    guide).
 
 Parameter names and shapes are the Flax modules', so converted weights
 load by name. ``guide_mode`` names the fused serving kernel's mode and
@@ -76,7 +79,7 @@ class PointwiseNNGuide(nn.Module):
     super().__init__()
     self.conv1 = ConvBlock(n_chans, guide_complexity, 1, batch_norm=True,
                            generator=generator)
-    self.conv2 = ConvBlock(guide_complexity, 1, 1, relu=False,
+    self.conv2 = ConvBlock(guide_complexity, 1, 1, activation=None,
                            generator=generator)
 
   def forward(self, x):
@@ -112,3 +115,35 @@ class PointwiseNNGuide(nn.Module):
     w2_ext = torch.cat([self.conv2.conv.weight.reshape(-1),
                         self.conv2.conv.bias.reshape(-1)])
     return pack_nn_params(w1_ext, w2_ext)
+
+
+class Guide3x3NN(nn.Module):
+  """Guide map (b, h, w) from an NHWC image (b, h, w, n_chans) whose first
+  conv sees a 3x3 neighborhood: a 3x3 conv (SAME) to ``guide_complexity``
+  channels, center-only batch norm (always, as the Flax module's), ReLU,
+  a 1x1 conv to one channel, sigmoid. Real convolutions on the NCHW view
+  of the frame, in full float32 under ``full_float32`` (the Flax module
+  uses precision 'highest'); no serving kernel takes this guide."""
+
+  def __init__(self, n_chans=3, guide_complexity=16, generator=None):
+    super().__init__()
+    self.conv1 = ConvBlock(n_chans, guide_complexity, 3, batch_norm=True,
+                           generator=generator)
+    self.conv2 = ConvBlock(guide_complexity, 1, 1, activation='sigmoid',
+                           generator=generator)
+
+  def forward(self, x):
+    return self.conv2(self.conv1(x.permute(0, 3, 1, 2)))[:, 0]
+
+
+class SimpleGuide(nn.Module):
+  """Guide map (b, h, w) from an NHWC image: one 1x1 conv with a bias to
+  one channel, sigmoid (a real convolution, as in ``Guide3x3NN``)."""
+
+  def __init__(self, n_chans=3, generator=None):
+    super().__init__()
+    self.conv = ConvBlock(n_chans, 1, 1, activation='sigmoid',
+                          generator=generator)
+
+  def forward(self, x):
+    return self.conv(x.permute(0, 3, 1, 2))[:, 0]

@@ -63,11 +63,11 @@ class CoefficientBackbone(nn.Module):
     # Local path: conv + linear bias-free conv.
     self.local_conv1 = ConvBlock(ch, 8 * cm * gd, 3, batch_norm=bn, **kw)
     self.local_conv2 = ConvBlock(8 * cm * gd, 8 * cm * gd, 3, use_bias=False,
-                                 relu=False, **kw)
+                                 activation=None, **kw)
 
     # Prediction: linear 1x1 conv to gd * n_out * n_in_tot channels.
     self.prediction_conv = ConvBlock(8 * cm * gd, gd * n_out * n_in_tot, 1,
-                                     relu=False, **kw)
+                                     activation=None, **kw)
 
   def forward(self, lowres):
     x = lowres
@@ -96,10 +96,10 @@ class HDRNetCurves(nn.Module):
   ``forward(lowres, fullres)`` takes NHWC tensors, like the Flax model,
   and is differentiable: on the card the slice-apply runs kernel K3 and
   its backward K4 and K5; on the CPU their plain versions
-  (:mod:`hdrnet_torch.ops.slice_ops`). ``return_guide=True`` also returns
-  the guide map, which the guide regularizer reads (the Flax model sows
-  it as ``intermediates/guide_map``). Serving goes through the fused
-  kernel of ``hdrnet_torch.inference`` instead.
+  (:mod:`hdrnet_torch.ops.slice_ops`). ``forward_with_intermediates``
+  also gives the guide map, which the guide regularizer reads (the Flax
+  model sows it as ``intermediates/guide_map``). Serving goes through
+  the fused kernel of ``hdrnet_torch.inference`` instead.
   """
 
   def __init__(self, cfg: ModelConfig, generator=None):
@@ -115,20 +115,22 @@ class HDRNetCurves(nn.Module):
   def make_guide(cfg, generator):
     return CurveGuide(cfg.n_in, generator=generator)
 
-  def forward(self, lowres, fullres, return_guide=False):
+  def forward(self, lowres, fullres, return_intermediates=False):
+    """The output; with ``return_intermediates`` also
+    ``forward_with_intermediates``'s dict (through ``__call__``, so that
+    forward hooks see a stage of ``HDRNetStack``)."""
     out, inter = self.forward_with_intermediates(lowres, fullres)
-    return (out, inter['guide_map'][0]) if return_guide else out
+    return (out, inter) if return_intermediates else out
 
   def forward_with_intermediates(self, lowres, fullres):
-    """The forward and what the Flax model sows as intermediates: the grid
-    ('bilateral_coefficients'), the guide maps ('guide_map', a list) and
-    the pyramid's levels ('multiscale', empty here); ``bin/run.py
-    --debug`` writes them."""
+    """The forward and what the Flax model sows at top level as
+    intermediates: the grid ('bilateral_coefficients') and the guide maps
+    ('guide_map', a list); ``bin/run.py --debug`` writes them and the
+    guide regularizer reads the guide maps."""
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     guide = self.guide(fullres)
     out = bilateral_slice_apply(grid, guide, fullres, has_offset=True)
-    return out, {'bilateral_coefficients': grid, 'guide_map': [guide],
-                 'multiscale': []}
+    return out, {'bilateral_coefficients': grid, 'guide_map': [guide]}
 
 
 class HDRNetPointwiseNNGuide(HDRNetCurves):
@@ -158,6 +160,21 @@ def upsample_add(current, level_out):
                          align_corners=True) + level_out
 
 
+def pyramid_slice_apply(grid, guides, images):
+  """The pyramid's coarse-to-fine sum: level l (finest first) sliced by
+  guides[l] from its 3-output block of the grid, block il = n - 1 - l
+  (channels 3 il .. 3 il + 2), applied to images[l] and added to the
+  bilinear upsampling of the coarser levels' sum. The block is a view of
+  the grid: the slice-apply copies it, and its gradient lands in the
+  grid's block."""
+  current = None
+  for il, (guide, image) in enumerate(zip(guides[::-1], images[::-1])):
+    out = bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
+                                image, has_offset=True)
+    current = out if current is None else upsample_add(current, out)
+  return current
+
+
 class HDRNetGaussianPyrNN(nn.Module):
   """Multi-scale variant: a 3-level bilinear Gaussian pyramid of the
   full-res input, one NN guide (``guide_level_{l}``, finest first) and
@@ -165,9 +182,9 @@ class HDRNetGaussianPyrNN(nn.Module):
 
   The backbone predicts ``n_out = 3 * n_scales`` outputs; grid output
   block ``il`` (channels 3 il .. 3 il + 2) belongs to the il-th
-  *coarsest* level. ``forward(lowres, fullres, return_guide=False)``
-  takes NHWC tensors; ``return_guide=True`` also returns the list of
-  level guides, finest first (the order the Flax model sows them).
+  *coarsest* level. ``forward(lowres, fullres)`` takes NHWC tensors;
+  ``forward_with_intermediates`` also gives the list of level guides,
+  finest first (the order the Flax model sows them).
   """
 
   n_scales = 3
@@ -180,15 +197,19 @@ class HDRNetGaussianPyrNN(nn.Module):
     self.coefficients = CoefficientBackbone(cfg, self.n_out, self.n_in_tot,
                                             generator)
     for il in range(self.n_scales):
-      self.add_module(f'guide_level_{il}', PointwiseNNGuide(
-          cfg.n_in, cfg.guide_complexity, generator=generator))
+      self.add_module(f'guide_level_{il}',
+                      self.make_level_guide(cfg, generator))
+
+  @staticmethod
+  def make_level_guide(cfg, generator):
+    return PointwiseNNGuide(cfg.n_in, cfg.guide_complexity,
+                            generator=generator)
 
   def level_guides(self):
     return [getattr(self, f'guide_level_{il}') for il in range(self.n_scales)]
 
-  def forward(self, lowres, fullres, return_guide=False):
-    out, inter = self.forward_with_intermediates(lowres, fullres)
-    return (out, inter['guide_map']) if return_guide else out
+  def forward(self, lowres, fullres):
+    return self.forward_with_intermediates(lowres, fullres)[0]
 
   def forward_with_intermediates(self, lowres, fullres):
     """As ``HDRNetCurves.forward_with_intermediates``: the level guides
@@ -196,10 +217,6 @@ class HDRNetGaussianPyrNN(nn.Module):
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     levels = gaussian_pyramid(fullres, self.n_scales)
     guides = [g(lvl) for g, lvl in zip(self.level_guides(), levels)]
-    current = None
-    for il, (lvl, guide) in enumerate(zip(levels[::-1], guides[::-1])):
-      out = bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
-                                  lvl, has_offset=True)
-      current = out if current is None else upsample_add(current, out)
-    return current, {'bilateral_coefficients': grid, 'guide_map': guides,
-                     'multiscale': levels}
+    out = pyramid_slice_apply(grid, guides, levels)
+    return out, {'bilateral_coefficients': grid, 'guide_map': guides,
+                 'multiscale': levels}

@@ -26,11 +26,13 @@ def he_normal_(weight, fan_in, generator=None):
                                  generator=generator)
 
 
-def same_padding(size, kernel_size, stride):
-  """(lo, hi) padding of XLA's SAME for one spatial axis. A stride-2 3x3
-  conv on an even extent pads (0, 1), where torch's padding=1 pads (1, 1)."""
+def same_padding(size, kernel_size, stride, rate=1):
+  """(lo, hi) padding of XLA's SAME for one spatial axis, the kernel
+  dilated by `rate` (it spans rate * (k - 1) + 1). A stride-2 3x3 conv on
+  an even extent pads (0, 1), where torch's padding=1 pads (1, 1)."""
   out = -(-size // stride)
-  total = max((out - 1) * stride + kernel_size - size, 0)
+  span = rate * (kernel_size - 1) + 1
+  total = max((out - 1) * stride + span - size, 0)
   return total // 2, total - total // 2
 
 
@@ -66,23 +68,30 @@ class CenterBatchNorm(nn.Module):
     return y + self.bias.reshape(shape)
 
 
+_ACTIVATIONS = {'relu': F.relu, 'sigmoid': torch.sigmoid, None: None}
+
+
 class ConvBlock(nn.Module):
-  """Conv2d (SAME) + optional center-only BN + optional ReLU."""
+  """Conv2d (SAME, dilated by `rate`) + optional center-only BN + an
+  activation: 'relu', 'sigmoid' or None."""
 
   def __init__(self, in_channels, features, kernel_size=3, stride=1,
-               use_bias=True, batch_norm=False, relu=True, generator=None):
+               use_bias=True, batch_norm=False, activation='relu', rate=1,
+               generator=None):
     super().__init__()
     if kernel_size % 2 == 0:
       raise ValueError('SAME padding here assumes an odd kernel size')
     self.kernel_size = kernel_size
     self.stride = stride
-    self.relu = relu
-    # SAME at stride 1 with an odd kernel is symmetric, so the conv pads;
-    # at stride 2 it depends on the extent's parity and forward pads.
+    self.rate = rate
+    self.activation = _ACTIVATIONS[activation]
+    # SAME at stride 1 with an odd kernel is symmetric, rate * (k - 1) / 2
+    # a side, so the conv pads; at stride 2 it depends on the extent's
+    # parity and forward pads.
     self.conv = nn.utils.skip_init(
         nn.Conv2d, in_channels, features, kernel_size, stride=stride,
-        padding=(kernel_size - 1) // 2 if stride == 1 else 0,
-        bias=use_bias and not batch_norm)
+        padding=rate * (kernel_size - 1) // 2 if stride == 1 else 0,
+        dilation=rate, bias=use_bias and not batch_norm)
     he_normal_(self.conv.weight, kernel_size * kernel_size * in_channels,
                generator)
     if self.conv.bias is not None:
@@ -90,15 +99,15 @@ class ConvBlock(nn.Module):
     self.bn = CenterBatchNorm(features) if batch_norm else None
 
   def forward(self, x):
-    k, s = self.kernel_size, self.stride
+    k, s, r = self.kernel_size, self.stride, self.rate
     if s != 1:
-      top, bottom = same_padding(x.shape[-2], k, s)
-      left, right = same_padding(x.shape[-1], k, s)
+      top, bottom = same_padding(x.shape[-2], k, s, r)
+      left, right = same_padding(x.shape[-1], k, s, r)
       x = F.pad(x, (left, right, top, bottom))
     x = self.conv(x)
     if self.bn is not None:
       x = self.bn(x)
-    return F.relu(x) if self.relu else x
+    return x if self.activation is None else self.activation(x)
 
 
 class DenseBlock(nn.Module):

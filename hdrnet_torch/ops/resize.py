@@ -34,13 +34,23 @@ def nearest_index_tensor(n_in, n_out, device):
                          device=device)
 
 
+def _traceable_index(n_in, n_out, device):
+  """The floor table; while ``torch.export`` traces, a new tensor (the
+  graph's own constant), since one made under tracing is a fake tensor
+  that the cache would hand to the next trace."""
+  if torch.compiler.is_compiling():
+    return torch.as_tensor(_nearest_indices(n_in, n_out).astype(np.int32),
+                           device=device)
+  return nearest_index_tensor(n_in, n_out, device)
+
+
 def resize_nearest(x, size):
   """Legacy TF1 nearest-neighbor resize on the (-3, -2) axes."""
   h, w = size
   if x.shape[-3] == h and x.shape[-2] == w:
     return x
-  iy = nearest_index_tensor(x.shape[-3], h, x.device)
-  ix = nearest_index_tensor(x.shape[-2], w, x.device)
+  iy = _traceable_index(x.shape[-3], h, x.device)
+  ix = _traceable_index(x.shape[-2], w, x.device)
   x = torch.index_select(x, x.ndim - 3, iy)
   return torch.index_select(x, x.ndim - 2, ix)
 

@@ -89,6 +89,19 @@ def guide_range_hinge(guide, target):
   return torch.mean(torch.relu(target - std) ** 2)
 
 
+def top_level_guides(model, intermediates):
+  """The guide maps a model sows at top level (one, or one a pyramid
+  level); raises ValueError, naming the model, for one that sows none
+  (the baselines, ``HDRNetGaussianPyr``, ``HDRNetStack``), where the JAX
+  step fails with a KeyError."""
+  guides = intermediates.get('guide_map')
+  if not guides:
+    raise ValueError(
+        f'guide_reg > 0: {type(model).__name__} has no top-level guide '
+        f'map to regularize; train it with guide_reg 0')
+  return guides
+
+
 def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
   """Returns step(state, batch) -> (state, metrics dict of 0-dim tensors).
 
@@ -97,7 +110,9 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
   are normalized on the device. guide_reg > 0 adds the guide-range hinge
   guide_reg * relu(guide_reg_target - std(guide))^2 to the loss; for a
   model with several guide maps (the pyramid's levels), the mean of the
-  maps' hinges, as the JAX step takes it.
+  maps' hinges, as the JAX step takes it. It reads the guide maps the
+  model sows at top level (``top_level_guides``), so a model with none
+  raises ValueError.
   """
 
   def step(state, batch):
@@ -106,14 +121,17 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
     model.train()
     set_learning_rates(state)
     with full_float32():
-      out, guide = model(batch['lowres_input'], batch['image_input'],
-                         return_guide=True)
       target = batch['image_output']
-      loss = metrics.l2_loss(target, out)
       if guide_reg > 0.0:
-        guides = guide if isinstance(guide, (list, tuple)) else [guide]
+        out, inter = model.forward_with_intermediates(
+            batch['lowres_input'], batch['image_input'])
+        guides = top_level_guides(model, inter)
         hinges = [guide_range_hinge(g, guide_reg_target) for g in guides]
-        loss = loss + guide_reg * sum(hinges) / len(hinges)
+        loss = (metrics.l2_loss(target, out)
+                + guide_reg * sum(hinges) / len(hinges))
+      else:
+        out = model(batch['lowres_input'], batch['image_input'])
+        loss = metrics.l2_loss(target, out)
       opt.zero_grad(set_to_none=True)
       loss.backward()
       opt.step()

@@ -171,14 +171,14 @@ def test_run_function_preview_is_the_nearest_table():
   assert inter is None and torch.equal(got, want)
   dbg, inter = run_cli.enhance_image(port, im, debug=True)
   np.testing.assert_allclose(dbg.numpy(), got.numpy(), rtol=0, atol=1e-4)
-  assert sorted(inter) == ['bilateral_coefficients', 'guide_map',
-                           'multiscale']
+  # What the Flax model sows at top level: no pyramid levels here.
+  assert sorted(inter) == ['bilateral_coefficients', 'guide_map']
 
 
 def test_evaluate_cli(checkpoint, tmp_path, capsys):
   """Mean PSNR / L2 as JSON; the serving path (the fused kernels' plain
   versions here) agrees with the training graph (tests/test_train.py's
-  evaluate test); the bf16 backbone is refused."""
+  evaluate test); the bf16 backbone runs and is reported."""
   ckpt, data = checkpoint
   evaluate_cli.main([str(ckpt), str(data), '--limit', '2', '--device',
                      'cpu'])
@@ -194,6 +194,8 @@ def test_evaluate_cli(checkpoint, tmp_path, capsys):
   assert json.loads(json_out.read_text()) == srv
   np.testing.assert_allclose(srv['mean_psnr_db'], result['mean_psnr_db'],
                              rtol=1e-5)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    evaluate_cli.main([str(ckpt), str(data), '--serving', '--coeff_bf16',
-                       '--device', 'cpu'])
+  evaluate_cli.main([str(ckpt), str(data), '--limit', '2', '--serving',
+                     '--coeff_bf16', '--device', 'cpu'])
+  bf16 = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+  assert bf16['serving'] == {'fused': True, 'coeff_bf16': True}
+  assert abs(bf16['mean_psnr_db'] - srv['mean_psnr_db']) < 0.5

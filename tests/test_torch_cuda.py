@@ -811,3 +811,98 @@ def test_export_tf32_outside_load_artifact(cuda, tmp_path, record_property):
   record_property('tf32_max_abs_diff', diff)
   print(f'reloaded serve_fn with cudnn.allow_tf32 on: {seen} '
         f'(max |diff| {diff:.3e})')
+
+
+@pytest.mark.parametrize('name,cm,n_in', [
+    ('HDRNetFullresFeatures', 1, 3),     # K3/K4 at n_in 4, C = 15
+    ('StyleTransferNN', 1, 6),           # n_in 6, C = 21 (input grads on)
+    ('HDRNetFeaturesPyrNN', 2, 3)])      # n_in 8, C = 27, three levels
+def test_zoo_model_backward_on_card_matches_plain(cuda, name, cm, n_in):
+  """A zoo model's forward and backward on the card (K3, K4 with the
+  input's cotangent, K5) against the same on the plain versions: K4's
+  d_image at n_in 4, 6 and 8 reaches the feature towers (or the frame),
+  and every gradient, the frame's included, agrees to 1e-4 of its max."""
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.inference import full_float32
+  cfg = ModelConfig(model_name=name, net_input_size=64, spatial_bin=8,
+                    luma_bins=8, channel_multiplier=cm, guide_complexity=8,
+                    n_in=n_in)
+  rng = np.random.RandomState(11)
+  low = torch.from_numpy(rng.rand(2, 64, 64, n_in).astype(np.float32))
+  full = torch.from_numpy(rng.rand(2, 130, 98, n_in).astype(np.float32))
+  target = torch.from_numpy(rng.rand(2, 130, 98, 3).astype(np.float32))
+  model = make_model(cfg, generator=torch.Generator().manual_seed(3))
+  runs = []
+  for dev, plain in ((cuda, False), (cuda, True)):
+    m = model.to(dev).train()
+    x = full.to(dev).requires_grad_()
+    saved = (slice_apply.slice_apply_fwd, slice_apply.slice_apply_pix_bwd,
+             slice_apply.slice_apply_grid_bwd)
+    flags = []
+
+    def pix_bwd(*args, need_input=True, **kw):
+      flags.append(need_input)
+      return saved[1](*args, need_input=need_input, **kw)
+    if plain:
+      slice_apply.slice_apply_fwd = slice_apply.slice_apply_fwd_plain
+      slice_apply.slice_apply_grid_bwd = slice_apply.slice_apply_grid_bwd_plain
+      pix_bwd = slice_apply.slice_apply_pix_bwd_plain
+    slice_apply.slice_apply_pix_bwd = pix_bwd
+    k4 = slice_apply.pix_bwd_launches
+    try:
+      with full_float32():
+        out = m(low.to(dev), x)
+        loss = ((out - target.to(dev)) ** 2).mean()
+        grads = torch.autograd.grad(loss, [x] + list(m.parameters()))
+    finally:
+      (slice_apply.slice_apply_fwd, slice_apply.slice_apply_pix_bwd,
+       slice_apply.slice_apply_grid_bwd) = saved
+    if not plain:
+      n = 3 if 'Pyr' in name else 1
+      assert slice_apply.pix_bwd_launches == k4 + n and flags == [True] * n
+    runs.append([g.cpu() for g in grads])
+  for got, want in zip(*runs):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_grid_bwd_plan_at_the_fpyrnn3_cm2_shape(cuda):
+  """K5 plans train_fpyrnn3_cm2.sh's finest level (C = 27, gd 8, 16x16
+  cells, 1024^2, b=4) within a block's shared memory, and its cotangent
+  there agrees with the plain version's to 2e-4 of the max."""
+  grid, guide, image, ct = _train_inputs(12, 4, 1024, 1024, 8, cuda)
+  assert grid.shape == (4, 16, 16, 8, 27)
+  strips, floats, smem = slice_apply.grid_bwd_plan(grid.shape, guide)
+  assert strips >= 1 and 0 < smem <= 227 * 1024
+  assert floats == 4 * 17 * 17 * strips * 4 * 8 * 27  # a partial a block
+  got = slice_apply.slice_apply_grid_bwd(grid.shape, guide, image, ct)
+  want = slice_apply.slice_apply_grid_bwd_plain(grid.shape, guide, image,
+                                                ct)
+  _scaled_close(got, want, 2e-4)
+
+
+@pytest.mark.parametrize('name', ['HDRNetFeaturesPyrNN3', 'UNet',
+                                  'StyleTransferCurves'])
+def test_composite_serving_on_card_matches_plain(cuda, name):
+  """Enhancer.process of a composite model on the card (K2, and K3 for
+  each slice-apply; no K1 or K6) against the same Enhancer on the plain
+  chain, to 1e-4."""
+  import hdrnet_torch.inference as inference
+  n_in = 6 if name.startswith('Style') else 3
+  cfg = ModelConfig(model_name=name, n_in=n_in, channel_multiplier=2)
+  enh = Enhancer(cfg, device=cuda, seed=4)
+  frame = torch.rand((1, 540, 964, n_in), device=cuda)
+  k2, k1, k6 = downsample.launches, fused.launches, fused.nn_launches
+  got = enh.process(frame)
+  torch.cuda.synchronize()
+  assert not enh.fused and downsample.launches == k2 + 1
+  assert (fused.launches, fused.nn_launches) == (k1, k6)
+  saved = slice_apply.slice_apply_fwd, inference.nearest_lowres
+  slice_apply.slice_apply_fwd = slice_apply.slice_apply_fwd_plain
+  inference.nearest_lowres = downsample.nearest_lowres_plain
+  try:
+    want = enh.process(frame)
+  finally:
+    slice_apply.slice_apply_fwd, inference.nearest_lowres = saved
+  assert got.shape == (1, 540, 964, 3)
+  torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

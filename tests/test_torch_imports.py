@@ -2,7 +2,8 @@
 
 The machine with the card has no JAX, so the port must import, serve
 (all three HDRNet models), run ``bin/run.py``'s per-image function,
-train, and run the tools (``bin/export.py``, ``bin/fit_grid.py``,
+train, build, serve and train a feature model, a baseline and a style
+model of the zoo, and run the tools (``bin/export.py``, ``bin/fit_grid.py``,
 ``bin/viz_activations.py``) without it: no module under ``hdrnet_torch/`` (nor
 ``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
 module, even one that does not import JAX: the port keeps its own copy
@@ -99,6 +100,32 @@ loaded = sorted(m for m in sys.modules
 assert not loaded, loaded
 print('trained without jax')
 
+# A feature model, a baseline and a style model: built, served by the
+# composite route, one train step each.
+for name, n_in in (('HDRNetFeaturesPyrNN3', 3), ('UNet', 3),
+                   ('StyleTransferNN', 6)):
+  zcfg = ModelConfig(model_name=name, n_in=n_in, net_input_size=64,
+                     spatial_bin=8, luma_bins=4, guide_complexity=4,
+                     depth=3, width=8)
+  zenh = Enhancer(zcfg, device='cpu')
+  out = zenh.process(torch.rand(1, 33, 41, n_in))
+  assert not zenh.fused and out.shape == (1, 33, 41, 3), (name, out.shape)
+  zmodel = make_model(zcfg, generator=torch.Generator().manual_seed(1))
+  zstate = step.create_state(zmodel,
+                             loop.make_optimizer(zmodel, TrainConfig()))
+  zbatch = {{'lowres_input': torch.randint(0, 256, (2, 64, 64, n_in),
+                                           dtype=torch.uint8),
+            'image_input': torch.randint(0, 256, (2, 32, 40, n_in),
+                                         dtype=torch.uint8),
+            'image_output': torch.randint(0, 256, (2, 32, 40, 3),
+                                          dtype=torch.uint8)}}
+  zstate, zm = step.make_train_step()(zstate, zbatch)
+  assert zstate.step == 1 and torch.isfinite(zm['loss']), (name, zm)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
+assert not loaded, loaded
+print('zoo without jax')
+
 import os, shutil, tempfile
 from hdrnet_torch.bin import export, fit_grid, viz_activations
 from hdrnet_torch.config import Config
@@ -139,6 +166,7 @@ def test_package_serves_with_jax_refused():
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert 'served without jax' in proc.stdout
   assert 'trained without jax' in proc.stdout
+  assert 'zoo without jax' in proc.stdout
   assert 'tools without jax' in proc.stdout
 
 

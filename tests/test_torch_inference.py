@@ -93,7 +93,27 @@ def test_cpu_serving_launches_no_kernel(enhancers):
 
 
 def test_enhancer_serves_only_curves():
-  """The Enhancer serves the three HDRNet models and refuses any model
-  the port does not have, such as the UNet baseline."""
-  with pytest.raises(ValueError, match='HDRNetCurves'):
-    Enhancer(ModelConfig(model_name='UNet'))
+  """The fused route is taken for the three HDRNet classes only; every
+  other model, such as the UNet baseline (refused before the port had
+  it), is served by the composite route: K2's preview, the model's
+  forward, the clip."""
+  from hdrnet_torch.config import ModelConfig as PortModelConfig
+  from hdrnet_torch.models import MODELS
+  small = dict(net_input_size=64, spatial_bin=8, luma_bins=4,
+               guide_complexity=4, depth=3, width=8)
+  fused_names = {'HDRNetCurves', 'HDRNetPointwiseNNGuide',
+                 'HDRNetGaussianPyrNN'}
+  for name in MODELS:
+    n_in = 6 if name.startswith('StyleTransfer') else 3
+    enh = Enhancer(PortModelConfig(model_name=name, n_in=n_in, **small),
+                   device='cpu')
+    assert enh.fused == (name in fused_names), name
+  unet = Enhancer(PortModelConfig(model_name='UNet', **small), device='cpu')
+  frame = torch.rand(1, 40, 56, 3)
+  k2 = downsample.launches
+  got = unet.process(frame)
+  with torch.no_grad():
+    want = torch.clamp(unet.model(
+        downsample.nearest_lowres_plain(frame, 64).permute(0, 2, 3, 1),
+        frame), 0.0, 1.0)
+  assert torch.equal(got, want) and downsample.launches == k2

@@ -90,13 +90,12 @@ def test_forward_matches_flax(name, batch_norm, gc, full_hw):
                                     mutable=['intermediates']))
   want, inter = apply(variables, jnp.asarray(lowres), jnp.asarray(fullres))
   with torch.no_grad():
-    got, guides = port(torch.from_numpy(lowres), torch.from_numpy(fullres),
-                       return_guide=True)
+    got, got_inter = port.forward_with_intermediates(
+        torch.from_numpy(lowres), torch.from_numpy(fullres))
   assert got.shape == (1, *full_hw, 3)
   np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
   want_guides = inter['intermediates']['guide_map']
-  if name == NN:
-    guides = [guides]
+  guides = got_inter['guide_map']
   assert len(guides) == len(want_guides)
   for g, wg in zip(guides, want_guides):
     assert g.shape == wg.shape

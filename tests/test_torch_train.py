@@ -337,9 +337,15 @@ def test_cli_builds_the_jax_config():
                ['ckpt', 'data', '--learning_rate', '1e-4', '--batch_size',
                 '1', '--nobatch_norm', '--output_resolution', '2048', '2048',
                 '--lr_schedule', 'cosine', '--lr_decay_steps', '1000',
-                '--guide_reg', '0.01', '--guide_lr_scale', '0.1']):
+                '--guide_reg', '0.01', '--guide_lr_scale', '0.1'],
+               ['ckpt', 'data', '--model_name', 'UNet', '--depth', '7',
+                '--width', '16', '--batch_norm']):
     want = jax_cli.config_from_args(jax_cli.build_parser().parse_args(argv))
     got = cli.config_from_args(cli.build_parser().parse_args(argv))
     assert got.to_json() == want.to_json()
-  with pytest.raises(SystemExit):
-    cli.build_parser().parse_args(['ckpt', 'data', '--model_name', 'UNet'])
+  assert got.model.model_name == 'UNet'
+
+  def model_choices(parser):
+    return next(a.choices for a in parser._actions if a.dest == 'model_name')
+  assert sorted(model_choices(cli.build_parser())) == sorted(
+      model_choices(jax_cli.build_parser()))

@@ -68,6 +68,21 @@ sizes (2048^2, 1024^2, 512^2), K5 with its scratch memory. The K3, K4
 and K5 rows count their launches on every path that runs them: the
 curves and pyramid train steps, evaluate, export and fit_grid.
 
+The quality workload, ``scripts/ll/quality_run.sh``'s path: the
+local-Laplacian set built on the card at 1024^2 by
+``hdrnet_torch.scripts.make_ll_dataset`` (16 train and 4 test images;
+the first held to the same functions on the CPU), ``HDRNetCurves``
+trained through ``bin/train.py``'s ``main`` with its flags and
+``--device_data`` for QUALITY_STEPS steps from device memory (the
+device route asserted, one gathered batch held bit for bit to the
+CPU), a step timed with and without ``--device_data``
+in turns, ``bin/evaluate.py`` (training graph: K3; serving: K1) at step
+0 and at the end, whose PSNR must rise, and ``bin/fit_grid.py`` on the
+test split; then the usm workload (targets synthesized on the card
+held to the host pipeline's, ``make_usm_dataset``) and the
+style-transfer one (``make_st_dataset``, ``StyleTransferCurves`` at
+n_in 6) with ``--device_data``.
+
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
 object describing each kernel (its launches on the path that runs it,
@@ -161,6 +176,47 @@ STACK_GUIDE_REL = 1e-3
 # dB, and holds them to these limits.
 BF16_MAX_ABS = 6e-2
 BF16_MIN_PSNR = 44.0
+
+# The quality workload, scripts/ll/quality_run.sh, at its widths and size
+# (HDRNetCurves l8/s16/cm1, 256^2 preview, gc 16, 1024^2, b=4) with its
+# flags; cut for the time limit: 16 train and 4 test images (it builds
+# 220 and 24), QUALITY_STEPS steps (it trains 120000), fit_grid --limit 4
+# (it fits 8). The usm workload (scripts/usm/train_std.sh) and the style
+# transfer one (scripts/st/nst_curves.sh, 512^2 crops) on the same images,
+# SIDE_STEPS steps each.
+QUALITY_DIR = 'build/chip_smoke_quality'
+QUALITY_SIZE = 1024
+QUALITY_IMAGES = (16, 4)
+QUALITY_STEPS = 1500
+QUALITY_FLAGS = [
+    '--batch_size', '4', '--output_resolution', '1024', '1024',
+    '--fliplr', '--flipud', '--rotate', '--norandom_crop',
+    '--cache_images', '--device_normalize', '--device_data',
+    '--learning_rate', '1e-4', '--lr_schedule', 'cosine', '--lr_end', '1e-6',
+    '--lr_warmup_steps', '500']
+USM_FLAGS = [
+    '--data_pipeline', 'UnsharpMaskDataPipeline', '--blur_sigma', '4',
+    '--sharpen', '1', '--learning_rate', '1e-4', '--batch_size', '1',
+    '--model_name', 'HDRNetCurves', '--nobatch_norm',
+    '--output_resolution', '1024', '1024', '--device_data']
+ST_FLAGS = [
+    '--data_pipeline', 'StyleTransferDataPipeline', '--learning_rate', '1e-4',
+    '--batch_size', '4', '--model_name', 'StyleTransferCurves',
+    '--nobatch_norm', '--output_resolution', '512', '512', '--random_crop',
+    '--luma_bins', '8', '--spatial_bin', '16', '--device_data']
+SIDE_STEPS = 10
+# Steps a timing turn takes, and the first ones left out of its median
+# (the host pipeline decodes every image once in its first epoch).
+TURN_STEPS, TURN_WARMUP = 60, 20
+# The generator on the card against the same function on the CPU, before
+# quantization (CUDA's pow, cos and division by a scalar round otherwise;
+# the operator gets the same luminance and remap gammas on both, since
+# its remap amplifies an ulp there), the JAX test's operator tolerance;
+# the PNGs to U8_MAX_SHARE.
+LL_TOL = 1e-4
+# The JAX package's trained number, for its scale only: 220 images,
+# 120000 steps (results/round4_quality.json).
+JAX_QUALITY_PSNR = 29.95
 
 # The least time the card could take (H100 SXM data sheet at 700 W): the
 # larger of the bytes a kernel must move over the memory rate and its
@@ -408,18 +464,32 @@ def _slice_levels(gen, dev, tag):
   return levels
 
 
+# (b, (h, w), grid, input channel counts) at which K3, K4 and K5 are held
+# to their plain versions: the training shape, an odd one and one whose
+# tile windows K3/K4 read from device memory, each with 3 input channels,
+# none (the plain slice) and 8 (the zoo's feature models); then the
+# quality workload's shapes (K5's plan is keyed on the batch, size and
+# channels): its 1024^2 b=4 steps, the usm steps, evaluate and fit_grid at
+# 1024^2 b=1, and the style-transfer steps at 512^2 b=4, n_in 6.
+TRAIN_KERNEL_CASES = [
+    (1, TRAIN_HW, (16, 16, 8), (3, 0, 8)),
+    (2, (101, 60), (16, 16, 8), (3, 0, 8)),
+    (1, (20, 70), (128, 128, 8), (3, 0, 8)),
+    (4, (1024, 1024), (16, 16, 8), (3,)),
+    (1, (1024, 1024), (16, 16, 8), (3,)),
+    (4, (512, 512), (16, 16, 8), (6,)),
+]
+
+
 def _check_train_kernels(gen, dev, full_float32):
   """K3, K4 and K5 against their plain versions (under full float32) at
-  the training shape, an odd one and one whose tile windows K3/K4 read
-  from device memory (a 128 x 128 x 8 grid over 20 x 70), with 3 input
-  channels, none (the plain slice) and 8 (the zoo's feature models: K3
-  and K4's looped path, K5's C = 27); K5 twice must give the same bits,
-  and K4 without the input's cotangent the same d_guide bits."""
+  TRAIN_KERNEL_CASES (n_in 8: K3 and K4's looped path, K5's C = 27); K5
+  twice must give the same bits, and K4 without the input's cotangent the
+  same d_guide bits."""
   from hdrnet_torch.ops import slice_apply as sa
   errs = {'K3': 0.0, 'K4': 0.0, 'K5': 0.0}
-  for b, hw, grid in [(1, TRAIN_HW, (16, 16, 8)), (2, (101, 60), (16, 16, 8)),
-                      (1, (20, 70), (128, 128, 8))]:
-    for n_in in (3, 0, 8):
+  for b, hw, grid, n_ins in TRAIN_KERNEL_CASES:
+    for n_in in n_ins:
       g5, guide, image, ct = _train_inputs(gen, b, hw, n_in, dev,
                                            n_out=3 if n_in else 12, grid=grid)
       what = f'b={b} {hw} grid {grid} n_in={n_in}'
@@ -454,8 +524,9 @@ def _check_train_kernels(gen, dev, full_float32):
         f'of its max, input <= {K3_TOL:.0e}), K5 {errs["K5"]:.3e} (<= '
         f'{K5_REL:.0e} of its max), at 2048^2 b=1, 101x60 b=2 and 20x70 '
         f'under a 128x128x8 grid (K3/K4 windows in device memory), n_in 3, '
-        f'0 and 8; K5 bit-identical across runs, K4\'s d_guide the same '
-        f'bits without d_image', flush=True)
+        f'0 and 8, and the quality workload\'s 1024^2 b=4 and b=1 (n_in 3) '
+        f'and 512^2 b=4 (n_in 6); K5 bit-identical across runs, K4\'s '
+        f'd_guide the same bits without d_image', flush=True)
   return errs
 
 
@@ -1560,6 +1631,350 @@ def _zoo_slice_levels(gen, dev, tag, full_float32):
   return levels
 
 
+# --- the quality workload: dataset generators and device-resident data --------
+
+@contextlib.contextmanager
+def _step_clock():
+  """Inside the block every train step that training.loop makes records
+  time.perf_counter() when it returns, into the list yielded."""
+  from hdrnet_torch.training import loop
+  clock, make = [], loop.make_train_step
+
+  def timed_make(**kwargs):
+    train_step = make(**kwargs)
+
+    def timed(state, batch):
+      out = train_step(state, batch)
+      clock.append(time.perf_counter())
+      return out
+    return timed
+
+  loop.make_train_step = timed_make
+  try:
+    yield clock
+  finally:
+    loop.make_train_step = make
+
+
+def _step_ms(clock, warmup):
+  """Median host-clock spacing of a train() call's steps after `warmup`
+  steps, in ms (the loop's runahead bound paces the host by the device
+  once steady)."""
+  return float(np.median(np.diff(clock[warmup:]))) * 1e3
+
+
+def _launch_counts():
+  from hdrnet_torch.ops import downsample, fused
+  return {'K1': fused.launches, 'K2': downsample.launches, **_slice_counts()}
+
+
+def _reset_launch_counts():
+  from hdrnet_torch.ops import downsample, fused
+  fused.launches = fused.nn_launches = fused.band_launches = 0
+  downsample.launches = 0
+  _reset_slice_counts()
+
+
+def _counted(fn):
+  """(fn(), the kernels' launches during it), the counts reset just
+  before and read just after."""
+  torch.cuda.synchronize()
+  _reset_launch_counts()
+  out = fn()
+  torch.cuda.synchronize()
+  return out, _launch_counts()
+
+
+def _expect_launches(got, want, what):
+  got = {k: v for k, v in got.items() if v}
+  if got != want:
+    raise AssertionError(f'{what}: launches {got}; expected {want}')
+
+
+def _check_ll_generator(dev, tag, data):
+  """scripts/make_ll_dataset.py's counterpart on the card at the quality
+  workload's size: the train and test splits, ms an image of the
+  synthesis and of the operator, and the first training image held to
+  the same functions on the CPU (float values, then the PNG files)."""
+  from hdrnet_torch.data import images
+  from hdrnet_torch.scripts import make_ll_dataset as ll
+  n_train, n_test = QUALITY_IMAGES
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  ll.main([data, '--n_train', str(n_train), '--n_test', str(n_test),
+           '--size', str(QUALITY_SIZE), '--device', str(dev)])
+  build_s = time.perf_counter() - t0
+  op = dict(sigma=0.35, alpha=0.2, levels=5)  # make_ll_dataset's defaults
+  rng = np.random.RandomState(99)
+  synth_ms = _time_ms(lambda: ll.synth_photo(rng, QUALITY_SIZE, dev), 5,
+                      warmup=1)
+  img = ll.synth_photo(np.random.RandomState(0), QUALITY_SIZE, dev)
+  op_ms = _time_ms(lambda: ll.enhance(img, **op), 5, warmup=1)
+  img_cpu = ll.synth_photo(np.random.RandomState(0), QUALITY_SIZE, 'cpu')
+  synth_err = _max_err(img.cpu(), img_cpu, LL_TOL, 'll synthesis card vs cpu')
+  tgt = ll.enhance(img, **op).cpu()
+  op_err = _max_err(tgt, ll.enhance(img.cpu(), **op), LL_TOL,
+                    'll operator card vs cpu')
+  tgt_cpu = ll.enhance(img_cpu, **op)
+  files = [_u8_check(
+      torch.from_numpy(np.array(images.imread(
+          f'{data}/train/{sub}/im0000.png'))),
+      torch.from_numpy(ll.to_u8(want)), f'll {sub} PNG card vs cpu')
+      for sub, want in (('input', img_cpu), ('output', tgt_cpu))]
+  mean_change = float((tgt - img.cpu()).abs().mean())
+  if not 1e-3 < mean_change < 0.2:
+    raise AssertionError(f'll operator: mean |target - input| '
+                         f'{mean_change}')
+  print(f'make_ll_dataset on the card: {n_train} + {n_test} images at '
+        f'{QUALITY_SIZE}^2 (cut from 220 + 24) in {build_s:.2f} s with the '
+        f'PNG files; timing {tag} synthesis {synth_ms:.4f} ms an image, '
+        f'operator (8 gammas, 5 levels) {op_ms:.4f} ms an image (events); '
+        f'first train image vs the CPU: synthesis max abs err '
+        f'{synth_err:.3e}, operator on the same input {op_err:.3e} (<= '
+        f'{LL_TOL:.0e}); PNGs of the card\'s build vs the CPU\'s (max '
+        f'codes, share differing) input {files[0]}, target {files[1]}; '
+        f'mean |target - input| {mean_change:.4f}', flush=True)
+
+
+def _check_device_batch(dev, data, args, full_float32):
+  """The quality run's first batch gathered and augmented on the card
+  (the training loop's augment_batch) against the same on the CPU, bit
+  for bit, then the first step's every gradient on it (the run's model
+  from its seed) against the plain path, GRAD_REL of each leaf's max.
+  Returns the batch's parameters and the worst gradient ratio. (uint16
+  data on the card: tests/test_torch_cuda.py.)"""
+  from hdrnet_torch.bin import train
+  from hdrnet_torch.data import make_pipeline
+  from hdrnet_torch.data.device import (DeviceDataset, load_pairs,
+                                        make_device_augment)
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.training import loop, metrics, step
+  cfg = train.config_from_args(train.build_parser().parse_args(args))
+  pairs = load_pairs(make_pipeline(f'{data}/train', cfg.data))
+  aug = make_device_augment(cfg.data.output_resolution,
+                            cfg.data.net_input_size, cfg.data.rotate)
+  sets = [DeviceDataset(pairs, cfg.data, d) for d in (dev, 'cpu')]
+  params = next(sets[0].param_stream(cfg.train.seed, cfg.data.batch_size))
+  got, want = (loop.augment_batch(aug, s.inputs, s.outputs, params)
+               for s in sets)
+  for k in want:
+    if not torch.equal(got[k].cpu(), want[k]):
+      raise AssertionError(f'device batch {k}: card and cpu differ')
+  del sets, want
+  batch = step.normalize_batch(got)
+  seed = cfg.train.seed
+  want_loss, want_grads = _plain_first_grads(cfg.model, seed, batch, dev,
+                                             full_float32)
+  model = make_model(cfg.model, generator=torch.Generator().manual_seed(
+      seed)).to(dev).train()
+  with full_float32():
+    loss = metrics.l2_loss(batch['image_output'],
+                           model(batch['lowres_input'], batch['image_input']))
+    loss.backward()
+  worst, failures = _hold_grads(model, want_grads, 'quality run first step')
+  if abs(float(loss) - want_loss) > 1e-5 * abs(want_loss):
+    failures.append(f'quality run first loss {float(loss)} vs plain '
+                    f'{want_loss}')
+  if failures:
+    raise AssertionError('; '.join(failures))
+  return params, worst
+
+
+def _check_usm(dev, data, root):
+  """The usm workload on the built train split: targets synthesized on
+  the card against the host pipeline's (two images), SIDE_STEPS steps
+  with --device_data (the route asserted), and make_usm_dataset on the
+  test split (its mean identity PSNR)."""
+  from hdrnet_torch.bin import train
+  from hdrnet_torch.data import make_pipeline
+  from hdrnet_torch.data.device import load_usm_dataset
+  from hdrnet_torch.scripts import make_usm_dataset
+  cfg = train.config_from_args(train.build_parser().parse_args(
+      ['unused', f'{data}/train', *USM_FLAGS]))
+  pipe = make_pipeline(f'{data}/train', cfg.data)
+  dds = load_usm_dataset(pipe, cfg.data, dev)
+  worst = 0
+  for i in range(2):
+    _, host = pipe._load(pipe.specs[i], None)
+    want = np.floor(host * 255.0 + 0.5).astype(np.int64)
+    d = np.abs(dds.outputs[i].cpu().numpy().astype(np.int64) - want)
+    worst = max(worst, int(d.max()))
+  if worst > 1:
+    raise AssertionError(f'usm targets card vs host: {worst} codes')
+  del dds
+  state, counts = _counted(lambda: train.main(
+      [f'{root}/usm', f'{data}/train', '--eval_data_dir', f'{data}/test',
+       *USM_FLAGS, '--max_steps', str(SIDE_STEPS)]))
+  if (state.data_route, state.eval_data_route) != ('device', 'device'):
+    raise AssertionError(f'usm: routes {state.data_route}, '
+                         f'{state.eval_data_route}')
+  _expect_launches(counts, {k: SIDE_STEPS for k in ('K3', 'K4', 'K5')},
+                   'usm training')
+  identity = make_usm_dataset.main([f'{data}/test', f'{root}/data_usm/test',
+                                    '--blur_sigma', '4', '--sharpen', '1'])
+  print(f'usm (blur 4, sharpen 1) on the built train split: targets '
+        f'synthesized on the card vs the host pipeline\'s, max {worst} code '
+        f'(<= 1); {SIDE_STEPS} steps with --device_data, route '
+        f'{state.data_route} (eval {state.eval_data_route}), resident '
+        f'{state.resident_bytes / 1e6:.1f} MB, EMA loss '
+        f'{float(state.ema_loss):.6f}; launches {counts}; make_usm_dataset '
+        f'on the test split: mean identity PSNR {identity:.4f} dB', flush=True)
+  return counts
+
+
+def _check_st(dev, data, root):
+  """The style-transfer workload on the built tree: make_st_dataset, the
+  resident 6-channel samples on the card equal to the CPU loader's, and
+  SIDE_STEPS steps of nst_curves.sh's StyleTransferCurves with
+  --device_data (K3/K4/K5 at n_in 6)."""
+  from hdrnet_torch.bin import train
+  from hdrnet_torch.data import make_pipeline
+  from hdrnet_torch.data.device import load_st_dataset
+  from hdrnet_torch.scripts import make_st_dataset
+  st = f'{root}/data_st/train'
+  make_st_dataset.main([f'{data}/train', st])
+  cfg = train.config_from_args(train.build_parser().parse_args(
+      ['unused', st, *ST_FLAGS]))
+  pipe = make_pipeline(st, cfg.data)
+  card, cpu = (load_st_dataset(pipe, cfg.data, d) for d in (dev, 'cpu'))
+  if not (torch.equal(card.inputs.cpu(), cpu.inputs)
+          and torch.equal(card.outputs.cpu(), cpu.outputs)):
+    raise AssertionError('style transfer: resident samples differ from the '
+                         'cpu loader\'s')
+  shape = tuple(card.inputs.shape)
+  del card, cpu
+  state, counts = _counted(lambda: train.main(
+      [f'{root}/st', st, *ST_FLAGS, '--max_steps', str(SIDE_STEPS)]))
+  if state.data_route != 'device':
+    raise AssertionError(f'style transfer: route {state.data_route}')
+  _expect_launches(counts, {k: SIDE_STEPS for k in ('K3', 'K4', 'K5')},
+                   'style transfer training')
+  print(f'style transfer (nst_curves.sh: StyleTransferCurves, 512^2 random '
+        f'crops, b=4) on make_st_dataset\'s tree: resident samples {shape} '
+        f'uint8, equal to the cpu loader\'s; {SIDE_STEPS} steps with '
+        f'--device_data, route {state.data_route}, EMA loss '
+        f'{float(state.ema_loss):.6f}; launches {counts}', flush=True)
+  return counts
+
+
+def _quality_workload(dev, tag, slice_launches, full_float32):
+  """scripts/ll/quality_run.sh's path on the card: build the
+  local-Laplacian set, train HDRNetCurves with --device_data from device
+  memory (the route asserted; one gathered batch held to the CPU and the
+  first step's gradients on it to the plain path), time
+  a step with and without --device_data in turns, evaluate step 0 and
+  step QUALITY_STEPS (training graph and serving path) and fit the
+  per-image oracle grids; then the usm and style-transfer workloads.
+  Adds the K3/K4/K5 launches to slice_launches and returns the K1
+  launches."""
+  import shutil
+  from hdrnet_torch.bin import evaluate, fit_grid, train
+  shutil.rmtree(QUALITY_DIR, ignore_errors=True)
+  root, data = QUALITY_DIR, f'{QUALITY_DIR}/data_ll'
+  _check_ll_generator(dev, tag, data)
+
+  # Train: the step-0 checkpoint (the same seed's initial weights; the
+  # schedule's length given, as max_steps is 0), then the run.
+  n = QUALITY_STEPS
+  train.main([f'{root}/ckpt_0', f'{data}/train', *QUALITY_FLAGS,
+              '--max_steps', '0', '--lr_decay_steps', str(n)])
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  with _step_clock() as clock:
+    state, counts = _counted(lambda: train.main(
+        [f'{root}/ckpt', f'{data}/train', '--eval_data_dir', f'{data}/test',
+         *QUALITY_FLAGS, '--max_steps', str(n)]))
+  train_s = time.perf_counter() - t0
+  peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+  if (state.step, state.data_route, state.eval_data_route) != (
+      n, 'device', 'device'):
+    raise AssertionError(f'quality run: step {state.step}, routes '
+                         f'{state.data_route}, {state.eval_data_route}')
+  _expect_launches(counts, {k: n for k in ('K3', 'K4', 'K5')},
+                   'quality training')
+  totals = dict(counts)
+  params, grad_worst = _check_device_batch(dev, data, [
+      'unused', f'{data}/train', *QUALITY_FLAGS], full_float32)
+  print(f'quality run (scripts/ll/quality_run.sh: HDRNetCurves l8/s16/cm1, '
+        f'256^2, gc 16, 1024^2 b=4, cosine 1e-4 -> 1e-6, warmup 500) '
+        f'{n} steps with --device_data in {train_s:.2f} s: route '
+        f'{state.data_route} (eval {state.eval_data_route}); resident '
+        f'{state.resident_bytes / 1e6:.1f} MB (train split); peak memory '
+        f'allocated {peak_mib:.1f} MiB; {_step_ms(clock, 100):.4f} ms a step '
+        f'(median after 100); EMA loss {float(state.ema_loss):.6f}, PSNR '
+        f'{float(state.ema_psnr):.4f} dB; launches {counts}; the first '
+        f'batch (idx {params["idx"].tolist()}, fliplr '
+        f'{params["fliplr"].tolist()}, flipud {params["flipud"].tolist()}, '
+        f'rot_k {params["rot_k"].tolist()}) gathered on the card bit for bit '
+        f'with the cpu; the first step\'s gradients on it worst '
+        f'{grad_worst:.3e} of the leaf max vs plain (<= {GRAD_REL:.0e}) '
+        f'{tag}', flush=True)
+
+  # The device-resident step against the host pipeline's, in turns.
+  base = [f for f in QUALITY_FLAGS if f != '--device_data']
+  turns = []
+  for device_data in (True, False, False, True):
+    shutil.rmtree(f'{root}/turn', ignore_errors=True)
+    flag = '--device_data' if device_data else '--nodevice_data'
+    with _step_clock() as clock:
+      st, counts = _counted(lambda: train.main(
+          [f'{root}/turn', f'{data}/train', *base, flag,
+           '--max_steps', str(TURN_STEPS)]))
+    if st.data_route != ('device' if device_data else 'host'):
+      raise AssertionError(f'timing turn {flag}: route {st.data_route}')
+    for k in ('K3', 'K4', 'K5'):
+      totals[k] += counts[k]
+    turns.append(_step_ms(clock, TURN_WARMUP))
+  print(f'timing {tag}: quality run step (1024^2 b=4), median of steps '
+        f'{TURN_WARMUP + 1}-{TURN_STEPS} (host clock), in turns device data '
+        f'/ host pipeline / host pipeline / device data: '
+        f'{" / ".join(f"{t:.4f}" for t in turns)} ms', flush=True)
+
+  # Evaluate step 0 and step n (training graph: K3; serving: K1, on the
+  # pipeline's own nearest preview, so no K2), then the per-image oracle.
+  n_test = QUALITY_IMAGES[1]
+  psnr = {}
+  for label, ckpt in (('0', f'{root}/ckpt_0'), (str(n), f'{root}/ckpt')):
+    for serving in (False, True):
+      res, counts = _counted(lambda: evaluate.main(
+          [ckpt, f'{data}/test'] + (['--serving'] if serving else [])))
+      _expect_launches(counts, {'K1' if serving else 'K3': n_test},
+                       f'evaluate step {label}')
+      for k in counts:
+        totals[k] += counts[k]
+      psnr[label, serving] = res['mean_psnr_db']
+  oracle, counts = _counted(lambda: fit_grid.main([f'{data}/test',
+                                                   '--limit', '4']))
+  # fit_grid's default: 400 steps and one more forward a fit; the luma
+  # guide is fixed, so no guide cotangent (K4).
+  steps = 400 * n_test
+  _expect_launches(counts, {'K3': steps + n_test, 'K5': steps}, 'fit_grid')
+  for k in ('K3', 'K4', 'K5'):
+    totals[k] += counts[k]
+  for serving in (False, True):
+    a, b = psnr['0', serving], psnr[str(n), serving]
+    if not (np.isfinite(b) and b > a):
+      raise AssertionError(f'evaluate (serving {serving}): PSNR at step {n} '
+                           f'{b} not above step 0 {a}')
+  print(f'quality run evaluated on the {n_test} test images: PSNR step 0 '
+        f'{psnr["0", False]:.4f} dB (serving {psnr["0", True]:.4f}), step '
+        f'{n} {psnr[str(n), False]:.4f} dB (serving '
+        f'{psnr[str(n), True]:.4f}); fit_grid oracle (luma guide, 400 '
+        f'steps) {oracle["mean_oracle_psnr"]:.4f} dB, identity '
+        f'{oracle["mean_identity_psnr"]:.4f} dB. Not comparable with the '
+        f'JAX package\'s {JAX_QUALITY_PSNR} dB (220 images, 120000 steps). '
+        f'launches {totals}', flush=True)
+
+  for counts in (_check_usm(dev, data, root),
+                 _check_st(dev, data, root)):
+    for k in ('K3', 'K4', 'K5'):
+      totals[k] += counts[k]
+  _tally_slice(slice_launches, totals['K3'], totals['K4'], totals['K5'])
+  shutil.rmtree(QUALITY_DIR, ignore_errors=True)
+  return totals['K1']
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this check runs on the GPU only',
@@ -2066,9 +2481,18 @@ def main():
 
   # 20. The bfloat16 coefficient backbone on the fused route.
   _bf16_serving(dev, tag, x4k)
+  torch.cuda.empty_cache()
+
+  # 21. The quality workload (scripts/ll/quality_run.sh) on the card: the
+  # dataset built there, training from device memory, evaluate and
+  # fit_grid; the usm and style-transfer workloads. Its evaluate calls
+  # add to the K1 row.
+  quality = _quality_workload(dev, tag, slice_launches, full_float32)
+  launches['K1'] += quality
   print(f'K3/K4/K5 launches on the paths (train steps, evaluate, export, '
-        f'fit_grid, the zoo\'s steps and frames): {slice_launches}',
-        flush=True)
+        f'fit_grid, the zoo\'s steps and frames, the quality, usm and '
+        f'style-transfer workloads): {slice_launches}; K1 and K2 with the '
+        f'quality run\'s evaluate (K1 only): {launches}', flush=True)
 
   # The least time each kernel could take at the shapes it was timed at.
   k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)

@@ -130,6 +130,7 @@ def main(argv=None):
   if args.json_out:
     with open(args.json_out, 'w') as f:
       json.dump(result, f, indent=2)
+  return result
 
 
 if __name__ == '__main__':

@@ -7,6 +7,9 @@ bin/train.py:187-246); the model names are the port's. Trains on
 ``--device``: CUDA by default, and it raises without a CUDA device;
 ``--device cpu`` trains on the plain versions of the kernels.
 
+``main`` returns the final ``TrainState``; its ``data_route`` says
+whether ``--device_data`` took the device-resident route.
+
 Example:
   python -m hdrnet_torch.bin.train ckpt/ data/train/filelist.txt \\
       --model_name HDRNetCurves --batch_size 1 --nobatch_norm \\
@@ -153,8 +156,8 @@ def main(argv=None):
              '%(lineno)s | %(message)s', level=logging.INFO)
   args = build_parser().parse_args(argv)
   from hdrnet_torch.training.loop import train
-  train(config_from_args(args), args.checkpoint_dir, args.data_dir,
-        eval_data_dir=args.eval_data_dir, device=args.device)
+  return train(config_from_args(args), args.checkpoint_dir, args.data_dir,
+               eval_data_dir=args.eval_data_dir, device=args.device)
 
 
 if __name__ == '__main__':

@@ -74,13 +74,14 @@ class DataConfig:
   # non-dtype white levels and stay on the float path).
   device_normalize: bool = False
   # Keep the ENTIRE decoded dataset resident in device memory and run
-  # the augmentation chain inside the jitted train step (data/device.py)
-  # — per-step host->device traffic drops to a few int32 draws. Needs
-  # uniform image shapes and a dataset that fits HBM; implies
-  # normalize-on-device. ImageFilesDataPipeline and
-  # UnsharpMaskDataPipeline (targets synthesized on device at upload,
-  # data/device.py load_usm_dataset); other pipelines and non-uniform
-  # datasets fall back to the host pipeline.
+  # the augmentation chain on the device, as index gathers
+  # (data/device.py): a step's host work drops to a few integer draws.
+  # Needs uniform image shapes and a dataset that fits device memory;
+  # implies normalize-on-device. ImageFilesDataPipeline,
+  # UnsharpMaskDataPipeline (targets synthesized on the device at
+  # upload, data/device.py load_usm_dataset) and
+  # StyleTransferDataPipeline; other pipelines and non-uniform datasets
+  # fall back to the host pipeline.
   device_data: bool = False
   # UnsharpMask synthetic pipeline knobs (scripts/usm/*.sh).
   blur_sigma: float = 4.0

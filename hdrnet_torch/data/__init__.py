@@ -1,5 +1,7 @@
-"""The port's host input pipeline (its own copy of ``hdrnet_tpu.data``,
-with numpy image operations in place of the JAX package's C++ library)."""
+"""The port's input pipelines (its own copy of ``hdrnet_tpu.data``): the
+host pipeline, with numpy image operations in place of the JAX package's
+C++ library, and the device-resident dataset in
+:mod:`hdrnet_torch.data.device`."""
 
 from hdrnet_torch.data.pipeline import (
     PIPELINES,

@@ -9,9 +9,16 @@ checkpoint if there is one; then steps, with time-interval logging,
 ``summaries.jsonl`` records in the JAX package's format, checkpoints and
 evaluation, and a final save on exit or interrupt.
 
-Not ported here, and refused rather than replaced: the device-resident
-data path (``data.device_data``) and multi-device meshes (``mesh_shape``
-other than None or [1, 1]).
+With ``data.device_data`` the whole dataset is uploaded once and each
+step gathers and augments its batch on the device
+(``hdrnet_torch.data.device``) for the file, unsharp-mask and
+style-transfer pipelines; any other pipeline, or a dataset that does not
+qualify, takes the host pipeline with a warning, as in the JAX package.
+The returned state's ``data_route`` and ``eval_data_route`` say which
+route ran.
+
+Not ported here, and refused rather than replaced: multi-device meshes
+(``mesh_shape`` other than None or [1, 1]; ROADMAP M6).
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ import numpy as np
 import torch
 
 from hdrnet_torch.config import Config
-from hdrnet_torch.data import make_pipeline
+from hdrnet_torch.data import (ImageFilesDataPipeline,
+                               StyleTransferDataPipeline,
+                               UnsharpMaskDataPipeline, make_pipeline)
 from hdrnet_torch.inference import resolve_device
 from hdrnet_torch.models import make_model
 from hdrnet_torch.training.checkpoint import Checkpointer
@@ -117,19 +126,82 @@ def _eval_config(config):
   return cfg
 
 
+def _try_device_dataset(pipeline, data_cfg, device):
+  """(DeviceDataset, augment) when the dataset qualifies for device
+  residency (``hdrnet_torch.data.device``), else (None, None) with the
+  reason logged as a warning."""
+  from hdrnet_torch.data.device import (DeviceDataset, load_pairs,
+                                        load_st_dataset, load_usm_dataset,
+                                        make_device_augment)
+  try:
+    if type(pipeline) is ImageFilesDataPipeline:
+      dds = DeviceDataset(load_pairs(pipeline), data_cfg, device)
+    elif type(pipeline) is UnsharpMaskDataPipeline:
+      # Raw inputs resident, the targets synthesized on the device once
+      # (the host path blurs every sample every epoch).
+      dds = load_usm_dataset(pipeline, data_cfg, device)
+    elif type(pipeline) is StyleTransferDataPipeline:
+      # Six resident channels: the photo and its resized exemplar.
+      dds = load_st_dataset(pipeline, data_cfg, device)
+    else:
+      log.warning('device_data: %s has no device-resident loader; using '
+                  'the host pipeline', type(pipeline).__name__)
+      return None, None
+    augment = make_device_augment(data_cfg.output_resolution,
+                                  data_cfg.net_input_size,
+                                  data_cfg.rotate)
+    return dds, augment
+  except ValueError as e:
+    log.warning('device_data unavailable (%s); using the host pipeline',
+                e)
+    return None, None
+
+
+def augment_batch(augment, ins, outs, params):
+  """Gather (the samples `params['idx']` of the resident arrays) and
+  augment one batch on the device."""
+  idx = params['idx']
+  return augment([ins[int(i)] for i in idx], [outs[int(i)] for i in idx],
+                 params)
+
+
+def _host_batches(pipeline, seed, device):
+  """The host pipeline's batches on `device`; closing this generator
+  stops the pipeline's worker threads."""
+  raw = pipeline.prefetching_batches(seed=seed)
+  try:
+    for batch in raw:
+      yield to_device(batch, device)
+  finally:
+    raw.close()
+
+
+def _batch_source(pipeline, data_cfg, device, seed, host_batches):
+  """(route, samples, batches, resident bytes): with ``device_data`` and
+  a dataset that qualifies, the device route, whose ``batches()`` gathers
+  and augments each batch on the device; else the host route,
+  ``host_batches``."""
+  dds = None
+  if data_cfg.device_data:
+    dds, augment = _try_device_dataset(pipeline, data_cfg, device)
+  if dds is None:
+    return 'host', pipeline.nsamples, host_batches, 0
+
+  def batches():
+    for p in dds.param_stream(seed, data_cfg.batch_size):
+      yield augment_batch(augment, dds.inputs, dds.outputs, p)
+  return 'device', dds.nsamples, batches, dds.nbytes
+
+
 def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
           max_steps=None, device='cuda'):
   """Trains on one device and returns the final TrainState. device: CUDA
   by default (raises without it); ``'cpu'`` runs the plain versions."""
   tc = config.train
-  if config.data.device_data:
-    raise NotImplementedError(
-        'data.device_data: the device-resident data path is not ported '
-        '(ROADMAP item 8); train with the host pipeline')
   if tc.mesh_shape is not None and list(tc.mesh_shape) != [1, 1]:
     raise NotImplementedError(
         f'mesh_shape {tc.mesh_shape}: multi-GPU training is not ported '
-        '(ROADMAP item 12); the port trains on one device')
+        '(ROADMAP M6); the port trains on one device')
   device = resolve_device(device)
   config.save(checkpoint_dir)
 
@@ -145,14 +217,22 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
   pipeline = make_pipeline(data_dir, config.data)
   log.info('training on %d samples from %s on %s', pipeline.nsamples,
            data_dir, device)
-  batches = pipeline.prefetching_batches(seed=tc.seed)
+  state.data_route, _, batches, state.resident_bytes = _batch_source(
+      pipeline, config.data, device, tc.seed,
+      lambda: _host_batches(pipeline, tc.seed, device))
+  batches = batches()
   train_step = make_train_step(guide_reg=tc.guide_reg,
                                guide_reg_target=tc.guide_reg_target)
 
-  eval_step = eval_pipeline = None
+  eval_step = eval_batches = None
   if eval_data_dir:
-    eval_pipeline = make_pipeline(eval_data_dir, _eval_config(config))
+    eval_cfg = _eval_config(config)
+    eval_pipeline = make_pipeline(eval_data_dir, eval_cfg)
     eval_step = make_eval_step()
+    state.eval_data_route, eval_n, eval_batches, _ = _batch_source(
+        eval_pipeline, eval_cfg, device, 0,
+        lambda: (to_device(raw, device)
+                 for raw in eval_pipeline.batches(seed=0)))
 
   summaries = SummaryWriter(checkpoint_dir)
   last_log = last_summary = last_eval = time.time()
@@ -160,9 +240,9 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
   limit = max_steps if max_steps is not None else tc.max_steps
 
   def run_eval(step_no):
-    it = eval_pipeline.batches(seed=0)
-    psnrs = [float(eval_step(state, to_device(next(it), device))['psnr'])
-             for _ in range(eval_pipeline.nsamples)]
+    it = eval_batches()
+    psnrs = [float(eval_step(state, next(it))['psnr'])
+             for _ in range(eval_n)]
     p = float(np.mean(psnrs))
     summaries.write(step_no, eval_psnr=p)
     log.info('  Evaluation PSNR = %.1f dB (%d images)', p, len(psnrs))
@@ -171,12 +251,12 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
   runahead = collections.deque()
   profiler = None
   try:
-    for raw in batches:
+    for batch in batches:
       if limit is not None and state.step >= limit:
         break
       if tc.profile_dir and state.step == 10 and profiler is None:
         profiler = _start_profiler(device)
-      state, m = train_step(state, to_device(raw, device))
+      state, m = train_step(state, batch)
       runahead.append(m['loss'])
       if len(runahead) >= RUNAHEAD:
         runahead.popleft().item()

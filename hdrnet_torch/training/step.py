@@ -34,6 +34,12 @@ class TrainState:
   # lr at optimizer step `count`, before any per-group scale; None holds
   # each group's lr constant.
   schedule: object = None
+  # Where train() took its batches from: 'device' (the resident dataset,
+  # hdrnet_torch.data.device) or 'host' (the host pipeline); the eval
+  # batches' route, None without evaluation; the resident dataset's bytes.
+  data_route: str = 'host'
+  eval_data_route: str = None
+  resident_bytes: int = 0
 
 
 def create_state(model, optimizer, schedule=None):

@@ -906,3 +906,95 @@ def test_composite_serving_on_card_matches_plain(cuda, name):
     slice_apply.slice_apply_fwd, inference.nearest_lowres = saved
   assert got.shape == (1, 540, 964, 3)
   torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# --- device-resident data and the dataset generator ---------------------------
+
+@pytest.mark.parametrize('dtype', [np.uint8, np.uint16])
+def test_device_augment_on_card_matches_cpu(cuda, dtype):
+  """The device augmentation (index gathers; uint16 through an int16
+  view, since CUDA has no uint16 indexing) and the step's normalization,
+  bit for bit with the CPU for every rotation and flip."""
+  from hdrnet_torch.data import device as dd
+  from hdrnet_torch.training.loop import augment_batch
+  from hdrnet_torch.training.step import normalize_batch
+  rng = np.random.RandomState(5)
+  hi = np.iinfo(dtype).max + 1
+  ins = rng.randint(0, hi, (3, 40, 56, 3)).astype(dtype)
+  outs = rng.randint(0, hi, (3, 40, 56, 3)).astype(dtype)
+  aug = dd.make_device_augment([32, 32], 16, True)
+  tensors = {d: (dd._upload(ins, d), dd._upload(outs, d))
+             for d in (cuda, 'cpu')}
+  for fl in (0, 1):
+    for fu in (0, 1):
+      for k in range(4):
+        params = {'idx': np.array([2, 0], np.int32),
+                  'y0': np.array([2, 8], np.int32),
+                  'x0': np.array([24, 3], np.int32),
+                  'fliplr': np.array([fl, 1 - fl], np.int32),
+                  'flipud': np.array([fu, 1 - fu], np.int32),
+                  'rot_k': np.array([k, 3 - k], np.int32)}
+        got, want = (normalize_batch(augment_batch(aug, i, o, params))
+                     for i, o in tensors.values())
+        for key in want:
+          assert torch.equal(got[key].cpu(), want[key]), (key, fl, fu, k)
+
+
+@pytest.mark.parametrize('dtype', [np.uint8, np.uint16])
+def test_usm_synth_on_card_matches_cpu(cuda, dtype):
+  from hdrnet_torch.data import device as dd
+  rng = np.random.RandomState(6)
+  raw = rng.randint(0, np.iinfo(dtype).max + 1, (3, 64, 80, 3)).astype(dtype)
+  synth = dd.make_usm_synth(4.0, 1.0)
+  got, want = (synth(dd._upload(raw, d)).cpu() for d in (cuda, 'cpu'))
+  assert got.dtype == want.dtype
+
+  def codes(t):
+    return (t.view(torch.int16).int() & 0xFFFF if t.dtype == torch.uint16
+            else t.int())
+  assert int((codes(got) - codes(want)).abs().max()) <= 1
+
+
+def test_ll_generator_on_card_matches_cpu(cuda):
+  """The local-Laplacian synthesis and operator at 256^2, card vs CPU,
+  1e-4 before quantization (chip_smoke.py holds 1024^2). The operator
+  sees the same luminance and remap gammas on both
+  (``make_ll_dataset.luminance`` and ``_linspace``)."""
+  from hdrnet_torch.scripts import make_ll_dataset as ll
+  op = dict(sigma=0.35, alpha=0.2, levels=5)
+  img = ll.synth_photo(np.random.RandomState(2), 256, cuda)
+  img_cpu = ll.synth_photo(np.random.RandomState(2), 256, 'cpu')
+  assert float((img.cpu() - img_cpu).abs().max()) <= 1e-4
+  tgt = ll.enhance(img, **op).cpu()
+  assert float((tgt - ll.enhance(img.cpu(), **op)).abs().max()) <= 1e-4
+
+
+def test_train_device_data_on_card(cuda, tmp_path):
+  """train() with device_data on the card: the device route, one K3, K4
+  and K5 a step."""
+  from PIL import Image
+  from hdrnet_torch.config import Config, DataConfig, TrainConfig
+  from hdrnet_torch.training import loop
+  rng = np.random.RandomState(0)
+  for sub in ('input', 'output'):
+    (tmp_path / sub).mkdir()
+    for i in range(3):
+      Image.fromarray((rng.rand(80, 96, 3) * 255).astype(np.uint8)).save(
+          tmp_path / sub / f'im{i}.png')
+  (tmp_path / 'filelist.txt').write_text('im0.png\nim1.png\nim2.png\n')
+  cfg = Config(
+      model=ModelConfig(net_input_size=32, spatial_bin=8, luma_bins=4),
+      data=DataConfig(batch_size=2, output_resolution=[64, 64],
+                      net_input_size=32, device_data=True, rotate=True,
+                      fliplr=True, device_normalize=True),
+      train=TrainConfig(max_steps=4))
+  before = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
+            slice_apply.grid_bwd_launches)
+  state = loop.train(cfg, str(tmp_path / 'ckpt'), str(tmp_path),
+                     device=cuda)
+  torch.cuda.synchronize()
+  after = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
+           slice_apply.grid_bwd_launches)
+  assert (state.step, state.data_route) == (4, 'device')
+  assert [a - b for a, b in zip(after, before)] == [4, 4, 4]
+  assert torch.isfinite(state.ema_loss)

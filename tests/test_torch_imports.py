@@ -3,8 +3,9 @@
 The machine with the card has no JAX, so the port must import, serve
 (all three HDRNet models), run ``bin/run.py``'s per-image function,
 train, build, serve and train a feature model, a baseline and a style
-model of the zoo, and run the tools (``bin/export.py``, ``bin/fit_grid.py``,
-``bin/viz_activations.py``) without it: no module under ``hdrnet_torch/`` (nor
+model of the zoo, run the tools (``bin/export.py``, ``bin/fit_grid.py``,
+``bin/viz_activations.py``), and build a local-Laplacian set and train
+on it from device memory without it: no module under ``hdrnet_torch/`` (nor
 ``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
 module, even one that does not import JAX: the port keeps its own copy
 of what it needs (config, data pipeline, flag mapping).
@@ -156,6 +157,29 @@ loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
 assert not loaded, loaded
 print('tools without jax')
+
+# The quality workload's data: a tiny local-Laplacian set built, then
+# trained on from device memory (the device route on the CPU).
+from hdrnet_torch.bin import train
+from hdrnet_torch.scripts import make_ll_dataset
+work = tempfile.mkdtemp()
+try:
+  make_ll_dataset.main([work, '--n_train', '2', '--n_test', '1', '--size',
+                        '64', '--device', 'cpu'])
+  state = train.main([os.path.join(work, 'ckpt'),
+                      os.path.join(work, 'train'), '--batch_size', '2',
+                      '--output_resolution', '64', '64', '--net_input_size',
+                      '32', '--spatial_bin', '8', '--luma_bins', '4',
+                      '--fliplr', '--rotate', '--device_normalize',
+                      '--device_data', '--max_steps', '2', '--device',
+                      'cpu'])
+  assert (state.step, state.data_route) == (2, 'device'), state.data_route
+finally:
+  shutil.rmtree(work, ignore_errors=True)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
+assert not loaded, loaded
+print('device data without jax')
 '''
 
 
@@ -168,6 +192,7 @@ def test_package_serves_with_jax_refused():
   assert 'trained without jax' in proc.stdout
   assert 'zoo without jax' in proc.stdout
   assert 'tools without jax' in proc.stdout
+  assert 'device data without jax' in proc.stdout
 
 
 def test_entry_points_refuse_a_missing_card():

@@ -288,13 +288,15 @@ def test_normalize_batch_matches_jax():
 
 
 def test_train_refuses_what_is_not_ported(dataset, tmp_path):
+  """Multi-device meshes are refused (ROADMAP M6); the device-resident
+  data path is ported and trains (tests/test_torch_device_data.py)."""
   cfg = _config(1)
   cfg.data.device_data = True
-  with pytest.raises(NotImplementedError, match='item 8'):
-    loop.train(cfg, str(tmp_path / 'a'), str(dataset), device='cpu')
+  state = loop.train(cfg, str(tmp_path / 'a'), str(dataset), device='cpu')
+  assert (state.step, state.data_route) == (1, 'device')
   cfg = _config(1)
   cfg.train.mesh_shape = [2, 1]
-  with pytest.raises(NotImplementedError, match='item 12'):
+  with pytest.raises(NotImplementedError, match='M6'):
     loop.train(cfg, str(tmp_path / 'b'), str(dataset), device='cpu')
 
 

@@ -83,6 +83,22 @@ held to the host pipeline's, ``make_usm_dataset``) and the
 style-transfer one (``make_st_dataset``, ``StyleTransferCurves`` at
 n_in 6) with ``--device_data``.
 
+Training on a ('data', 'spatial') mesh (``hdrnet_torch.parallel.mesh``),
+on the quality workload's set: K3, K4 and K5 on 2 and 4 H-bands of its
+1024^2 b=4 frames (their band arguments: K3's and K4's bands bit for bit
+the whole frame's rows, K5's shares summed to the frame's, each band
+against its plain version; timed over 4 bands in turns with the whole
+frame); ``bin/train.py``'s ``main`` on four gloo ranks sharing the card
+(NCCL refuses two ranks on one device) at (4, 1), (2, 2) twice and
+(1, 4) for ``HDRNetCurves`` and at (2, 2) for ``HDRNetPointwiseNNGuide``,
+each held to the (1, 1) run of this process and its ranks to each other
+bit for bit, the two (2, 2) runs bit for bit under cudnn.deterministic;
+a step on one NCCL rank under torchrun in turns with the step with no
+process group; and ``python -m torch.distributed.run --nproc_per_node 1
+-m hdrnet_torch.bin.train ... --mesh_shape 1 1`` on NCCL. The ranks are
+this script in its worker mode (``chip_smoke.py --mesh_worker SPEC``,
+started by torchrun), with the kernels built by this process first.
+
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
 object describing each kernel (its launches on the path that runs it,
@@ -100,7 +116,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -217,6 +235,28 @@ LL_TOL = 1e-4
 # The JAX package's trained number, for its scale only: 220 images,
 # 120000 steps (results/round4_quality.json).
 JAX_QUALITY_PSNR = 29.95
+
+# The ('data', 'spatial') mesh phase: the quality workload's widths and
+# set, at its peak lr held constant (its schedule warms up from 0 over 500
+# steps, which would leave a few steps nothing to compare), MESH_STEPS
+# steps a run, on four gloo ranks sharing the card (NCCL refuses two ranks
+# on one device) and on one NCCL rank under torchrun; the (1, 1)
+# reference in this process, with no process group. A layout is held to
+# it at tests/test_parallel.py's tolerances (the JAX package's (4, 2)
+# against (8, 1)); the band kernels at 1024^2 b=4 to the whole frame.
+MESH_DIR = 'build/chip_smoke_mesh'
+MESH_FLAGS = QUALITY_FLAGS[:QUALITY_FLAGS.index('--learning_rate')] + [
+    '--learning_rate', '1e-4']
+MESH_STEPS, MESH_WARMUP = 6, 2
+MESH_LAYOUTS = [('curves_4x1', 'HDRNetCurves', (4, 1)),
+                ('curves_2x2', 'HDRNetCurves', (2, 2)),
+                ('curves_2x2_again', 'HDRNetCurves', (2, 2)),
+                ('curves_1x4', 'HDRNetCurves', (1, 4)),
+                ('nn_2x2', NN, (2, 2))]
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 1e-3, 2e-4
+MESH_LOSS_RTOL = 1e-5
+BAND_SHARE_REL = 1e-5  # K5's band shares summed, of the frame's max
+MESH_TIMEOUT_S = 300
 
 # The least time the card could take (H100 SXM data sheet at 700 W): the
 # larger of the bytes a kernel must move over the memory rate and its
@@ -1643,8 +1683,8 @@ def _step_clock():
   def timed_make(**kwargs):
     train_step = make(**kwargs)
 
-    def timed(state, batch):
-      out = train_step(state, batch)
+    def timed(state, *batch_and_band):
+      out = train_step(state, *batch_and_band)
       clock.append(time.perf_counter())
       return out
     return timed
@@ -1866,7 +1906,7 @@ def _quality_workload(dev, tag, slice_launches, full_float32):
   step QUALITY_STEPS (training graph and serving path) and fit the
   per-image oracle grids; then the usm and style-transfer workloads.
   Adds the K3/K4/K5 launches to slice_launches and returns the K1
-  launches."""
+  launches; leaves the set in QUALITY_DIR for the mesh phase."""
   import shutil
   from hdrnet_torch.bin import evaluate, fit_grid, train
   shutil.rmtree(QUALITY_DIR, ignore_errors=True)
@@ -1971,8 +2011,308 @@ def _quality_workload(dev, tag, slice_launches, full_float32):
     for k in ('K3', 'K4', 'K5'):
       totals[k] += counts[k]
   _tally_slice(slice_launches, totals['K3'], totals['K4'], totals['K5'])
-  shutil.rmtree(QUALITY_DIR, ignore_errors=True)
   return totals['K1']
+
+
+def _band_kernels(gen, dev, tag, full_float32):
+  """K3, K4 and K5 on H-bands of a 1024^2 b=4 frame (the quality
+  workload's), in 2 and 4 bands: K3's output and K4's cotangents
+  bit-identical to the whole frame's rows, K5's shares summed within
+  BAND_SHARE_REL of the frame's; each band launch against its plain
+  version; then each kernel over 4 bands timed in turns with one whole
+  frame. Comparison launches: none counts. Returns the times."""
+  from hdrnet_torch.ops import slice_apply as sa
+  g5, guide, image, ct = _train_inputs(gen, 4, (QUALITY_SIZE,) * 2, 3, dev)
+  h = QUALITY_SIZE
+  whole_out = sa.slice_apply_fwd(g5, guide, image)
+  whole_dg, whole_di = sa.slice_apply_pix_bwd(g5, guide, image, ct)
+  whole_grid = sa.slice_apply_grid_bwd(g5.shape, guide, image, ct)
+  errs = {'K3': 0.0, 'K4': 0.0, 'K5': 0.0}
+  share_err = {}
+
+  def bands(n):
+    per = h // n
+    for i in range(n):
+      rows = slice(i * per, (i + 1) * per)
+      yield rows, (rows.start, h), [t[:, rows].contiguous()
+                                    for t in (guide, image, ct)]
+
+  for n in (2, 4):
+    total = torch.zeros_like(whole_grid)
+    for rows, band, (gb, ib, cb) in bands(n):
+      what = f'band {band} of {n}'
+      out = sa.slice_apply_fwd(g5, gb, ib, band=band)
+      dg, di = sa.slice_apply_pix_bwd(g5, gb, ib, cb, band=band)
+      dg_only, _ = sa.slice_apply_pix_bwd(g5, gb, ib, cb, need_input=False,
+                                          band=band)
+      share = sa.slice_apply_grid_bwd(g5.shape, gb, ib, cb, band=band)
+      for got, want, name in ((out, whole_out[:, rows], 'K3'),
+                              (dg, whole_dg[:, rows], 'K4 guide'),
+                              (dg_only, whole_dg[:, rows], 'K4 guide only'),
+                              (di, whole_di[:, rows], 'K4 input')):
+        if not torch.equal(got, want):
+          raise AssertionError(f'{name} {what}: not bit-identical to the '
+                               f'whole frame\'s rows')
+      if not torch.equal(share, sa.slice_apply_grid_bwd(
+          g5.shape, gb, ib, cb, band=band)):
+        raise AssertionError(f'K5 {what}: two runs differ')
+      with full_float32():
+        errs['K3'] = max(errs['K3'], _max_err(
+            out, sa.slice_apply_fwd_plain(g5, gb, ib, band=band), K3_TOL,
+            f'K3 {what} vs plain'))
+        want_dg, want_di = sa.slice_apply_pix_bwd_plain(g5, gb, ib, cb,
+                                                        band=band)
+        errs['K4'] = max(errs['K4'], _scaled_err(
+            dg, want_dg, K4_GUIDE_REL, f'K4 guide {what} vs plain'), _max_err(
+                di, want_di, K3_TOL, f'K4 input {what} vs plain'))
+        errs['K5'] = max(errs['K5'], _scaled_err(
+            share, sa.slice_apply_grid_bwd_plain(g5.shape, gb, ib, cb,
+                                                 band=band), K3_TOL,
+            f'K5 {what} vs plain'))
+      total += share
+    share_err[n] = _scaled_err(total, whole_grid, BAND_SHARE_REL,
+                               f'K5 shares of {n} bands vs the frame')
+  four = list(bands(4))
+  calls = {
+      'K3': (lambda: sa.slice_apply_fwd(g5, guide, image),
+             lambda: [sa.slice_apply_fwd(g5, b[0], b[1], band=band)
+                      for _, band, b in four]),
+      'K4': (lambda: sa.slice_apply_pix_bwd(g5, guide, image, ct,
+                                            need_input=False),
+             lambda: [sa.slice_apply_pix_bwd(g5, *b, need_input=False,
+                                             band=band)
+                      for _, band, b in four]),
+      'K5': (lambda: sa.slice_apply_grid_bwd(g5.shape, guide, image, ct),
+             lambda: [sa.slice_apply_grid_bwd(g5.shape, *b, band=band)
+                      for _, band, b in four]),
+  }
+  from hdrnet_torch.utils.timing import graph_ms
+  times = {}
+  for k, (whole, banded) in calls.items():
+    turns = [_time_ms(whole, 20), _time_ms(banded, 20), _time_ms(banded, 20),
+             _time_ms(whole, 20)]
+    # Graphs: the device time, with no host gaps between the band calls.
+    times[k] = {'whole_ms': (turns[0] + turns[3]) / 2,
+                'four_bands_ms': (turns[1] + turns[2]) / 2, 'turns': turns,
+                'whole_graph_ms': graph_ms(whole),
+                'four_bands_graph_ms': graph_ms(banded)}
+  torch.cuda.synchronize()
+  print(f'band kernels at {h}^2 b=4 (the quality run\'s frames; K4 with and '
+        f'without the input\'s cotangent), 2 and 4 H-bands: K3 and K4 '
+        f'bit-identical to the whole frame\'s rows, K5 bit-identical across '
+        f'runs and its shares summed within {share_err[2]:.3e} (2 bands) '
+        f'and {share_err[4]:.3e} (4) of the frame\'s (<= {BAND_SHARE_REL:.0e}'
+        f' of its max); against the plain bands max abs err K3 '
+        f'{errs["K3"]:.3e}, K4 {errs["K4"]:.3e}, K5 {errs["K5"]:.3e} (<= '
+        f'{K3_TOL:.0e}, K4 guide and K5 of their max); timing {tag}, whole '
+        f'frame / 4 bands / 4 bands / whole frame (events; graphs whole, 4 '
+        f'bands): ' + '; '.join(
+            f'{k} {" / ".join(f"{t:.4f}" for t in v["turns"])} ms '
+            f'({v["whole_graph_ms"]:.4f}, {v["four_bands_graph_ms"]:.4f})'
+            for k, v in times.items()), flush=True)
+  return times
+
+
+def _run_ranks(nproc, args, what):
+  """torchrun (standalone, nproc ranks on this machine) of `args`, in a
+  process group of its own that is killed whole at MESH_TIMEOUT_S;
+  raises on a nonzero exit. Returns the ranks' output."""
+  cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+         '--nproc_per_node', str(nproc), *args]
+  env = dict(os.environ, PYTHONPATH=os.getcwd())
+  proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, env=env,
+                          start_new_session=True)
+  try:
+    out, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+  except subprocess.TimeoutExpired:
+    os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+    raise AssertionError(f'{what}: no end in {MESH_TIMEOUT_S} s') from None
+  if proc.returncode:
+    raise AssertionError(f'{what}: rc {proc.returncode}\n{out[-6000:]}')
+  return out
+
+
+def _mesh_runs(nproc, backend, runs, what):
+  """Runs `runs` ((name, bin/train.py argv, deterministic, warmup)) on
+  nproc ranks of `backend` (None: NCCL) through this script's worker
+  mode; returns each run's ranks' results."""
+  spec = {'backend': backend, 'runs': [
+      {'argv': argv, 'deterministic': det, 'warmup': warmup,
+       'out': f'{MESH_DIR}/{name}'} for name, argv, det, warmup in runs]}
+  path = f'{MESH_DIR}/{what.replace(" ", "_")}.json'
+  with open(path, 'w') as f:
+    json.dump(spec, f)
+  _run_ranks(nproc, [os.path.abspath(__file__), '--mesh_worker', path], what)
+  return {name: [torch.load(f'{MESH_DIR}/{name}.rank{r}.pt',
+                            weights_only=True) for r in range(nproc)]
+          for name, *_ in runs}
+
+
+def _mesh_worker(path):
+  """One rank of the mesh phase (``chip_smoke.py --mesh_worker SPEC``,
+  under torchrun): joins the process group, runs each of the spec's
+  bin/train.py runs with the launch counts reset before and read after
+  and the step clock on, and writes what this rank ended with."""
+  import torch.distributed as dist
+  from hdrnet_torch.bin import train
+  from hdrnet_torch.parallel import mesh as pm
+  with open(path) as f:
+    spec = json.load(f)
+  pm.initialize_distributed(spec['backend'])
+  rank = dist.get_rank()
+  for run in spec['runs']:
+    guard = (_cudnn_deterministic() if run['deterministic']
+             else contextlib.nullcontext())
+    with guard, _step_clock() as clock:
+      state, counts = _counted(lambda: train.main(run['argv']))
+    torch.save({'state_dict': {k: v.cpu() for k, v in
+                               state.model.state_dict().items()},
+                'ema_loss': float(state.ema_loss), 'step': state.step,
+                'launches': counts, 'backend': dist.get_backend(),
+                'step_ms': _step_ms(clock, run['warmup'])},
+               f'{run["out"]}.rank{rank}.pt')
+  dist.destroy_process_group()
+  return 0
+
+
+def _hold_layout(got, want, what):
+  """A mesh run's ranks against each other (bit for bit) and rank 0
+  against the (1, 1) run: parameters and statistics to MESH_PARAM_RTOL /
+  MESH_PARAM_ATOL, the EMA loss to MESH_LOSS_RTOL. Returns the worst
+  parameter error over its tolerance."""
+  for r, res in enumerate(got[1:], 1):
+    for k, v in res['state_dict'].items():
+      if not torch.equal(v, got[0]['state_dict'][k]):
+        raise AssertionError(f'{what}: rank {r} differs from rank 0 at {k}')
+  if got[0]['step'] != MESH_STEPS:
+    raise AssertionError(f'{what}: step {got[0]["step"]}')
+  worst = 0.0
+  for k, v in want.items():
+    g = got[0]['state_dict'][k]
+    err = float(((g - v).abs() / (MESH_PARAM_ATOL + MESH_PARAM_RTOL *
+                                  v.abs())).max())
+    if not err <= 1.0:
+      raise AssertionError(f'{what}: {k} beyond rtol {MESH_PARAM_RTOL} / '
+                           f'atol {MESH_PARAM_ATOL} of the (1, 1) run '
+                           f'({err:.3f} of it)')
+    worst = max(worst, err)
+  return worst
+
+
+def _mesh_phase(dev, tag, data, slice_launches, gen, full_float32):
+  """Mesh training on the card (hdrnet_torch.parallel.mesh): the band
+  kernels; the quality workload's model on four gloo ranks at (4, 1),
+  (2, 2) twice and (1, 4), and the NN guide at (2, 2), each held to the
+  (1, 1) run of this process (no process group) and its ranks to each
+  other; the two (2, 2) runs bit for bit under cudnn.deterministic; a
+  step on one NCCL rank under torchrun against the step with no process
+  group, in turns; bin/train.py itself under torchrun on NCCL. Adds the
+  K3/K4/K5 launches to slice_launches; returns the band times."""
+  import shutil
+  from hdrnet_torch.bin import train
+  shutil.rmtree(MESH_DIR, ignore_errors=True)
+  os.makedirs(MESH_DIR)
+  t_phase = time.perf_counter()
+  band_times = _band_kernels(gen, dev, tag, full_float32)
+
+  def argv(name, model, steps, mesh=None):
+    return ([f'{MESH_DIR}/{name}', f'{data}/train', *MESH_FLAGS,
+             '--model_name', model, '--max_steps', str(steps)]
+            + ([] if mesh is None else ['--mesh_shape', *map(str, mesh)]))
+
+  per_run = {k: MESH_STEPS for k in ('K3', 'K4', 'K5')}
+  refs = {}
+  with _cudnn_deterministic():
+    for model in ('HDRNetCurves', NN):
+      state, counts = _counted(lambda: train.main(argv(f'ref_{model}', model,
+                                                       MESH_STEPS)))
+      _expect_launches(counts, per_run, f'(1, 1) {model}')
+      _tally_slice(slice_launches, *(counts[k] for k in ('K3', 'K4', 'K5')))
+      refs[model] = ({k: v.cpu() for k, v in
+                      state.model.state_dict().items()},
+                     float(state.ema_loss))
+  results = _mesh_runs(4, 'gloo', [
+      (name, argv(name, model, MESH_STEPS, mesh), True, MESH_WARMUP)
+      for name, model, mesh in MESH_LAYOUTS], 'gloo mesh')
+  worst, losses = {}, {}
+  for name, model, mesh in MESH_LAYOUTS:
+    got = results[name]
+    for r, res in enumerate(got):
+      _expect_launches(res['launches'], per_run, f'{name} rank {r}')
+      _tally_slice(slice_launches,
+                   *(res['launches'][k] for k in ('K3', 'K4', 'K5')))
+      if res['backend'] != 'gloo':
+        raise AssertionError(f'{name}: backend {res["backend"]}')
+    want_sd, want_loss = refs[model]
+    worst[name] = _hold_layout(got, want_sd, name)
+    loss = got[0]['ema_loss']
+    if not abs(loss - want_loss) <= MESH_LOSS_RTOL * abs(want_loss):
+      raise AssertionError(f'{name}: EMA loss {loss} vs the (1, 1) run\'s '
+                           f'{want_loss}')
+    losses[name] = loss
+  a, b = results['curves_2x2'][0], results['curves_2x2_again'][0]
+  for k, v in a['state_dict'].items():
+    if not torch.equal(v, b['state_dict'][k]):
+      raise AssertionError(f'two (2, 2) runs differ at {k}')
+  if a['ema_loss'] != b['ema_loss']:
+    raise AssertionError('two (2, 2) runs: EMA losses differ')
+  gloo_ms = b['step_ms']
+  print(f'mesh training on one card (four gloo ranks; quality_run.sh\'s '
+        f'widths and set, 1024^2 b=4, Adam 1e-4 constant, {MESH_STEPS} '
+        f'steps, cudnn.deterministic): every layout\'s ranks bit-identical, '
+        f'held to the (1, 1) run of this process (params rtol '
+        f'{MESH_PARAM_RTOL:.0e} / atol {MESH_PARAM_ATOL:.0e}, worst share of '
+        f'it {json.dumps({k: round(v, 4) for k, v in worst.items()})}; EMA '
+        f'loss rtol {MESH_LOSS_RTOL:.0e}: '
+        f'{json.dumps(losses)} vs curves {refs["HDRNetCurves"][1]}, NN '
+        f'{refs[NN][1]}); the two (2, 2) runs bit-identical; timing {tag}: '
+        f'(2, 2) gloo step {gloo_ms:.4f} ms (host clock, median after '
+        f'{MESH_WARMUP}; gloo reduces through the host: no speed figure); '
+        f'launches a rank a run {per_run}', flush=True)
+
+  # One NCCL rank under torchrun against no process group, in turns: no
+  # group / NCCL / NCCL / no group, the two NCCL runs in one launch.
+  def no_group(name):
+    with _step_clock() as clock:
+      _, counts = _counted(lambda: train.main(argv(name, 'HDRNetCurves',
+                                                   TURN_STEPS)))
+    return {'launches': counts, 'step_ms': _step_ms(clock, TURN_WARMUP),
+            'backend': None}
+
+  first = no_group('turn0')
+  nccl = _mesh_runs(1, None, [
+      (name, argv(name, 'HDRNetCurves', TURN_STEPS, (1, 1)), False,
+       TURN_WARMUP) for name in ('turn1', 'turn2')], 'nccl turns')
+  turn_results = [first, nccl['turn1'][0], nccl['turn2'][0],
+                  no_group('turn3')]
+  for i, res in enumerate(turn_results):
+    _expect_launches(res['launches'],
+                     {k: TURN_STEPS for k in ('K3', 'K4', 'K5')},
+                     f'timing turn {i}')
+    _tally_slice(slice_launches,
+                 *(res['launches'][k] for k in ('K3', 'K4', 'K5')))
+  turns = [res['step_ms'] for res in turn_results]
+  backends = [res['backend'] for res in turn_results]
+  if backends != [None, 'nccl', 'nccl', None]:
+    raise AssertionError(f'torchrun world of one: backends {backends}')
+  out = _run_ranks(1, ['-m', 'hdrnet_torch.bin.train',
+                       *argv('cli', 'HDRNetCurves', 2, (1, 1))],
+                   'torchrun bin/train.py')
+  if 'over nccl' not in out or not os.path.isfile(f'{MESH_DIR}/cli/'
+                                                  'ckpt_2.pt'):
+    raise AssertionError(f'torchrun bin/train.py: no NCCL mesh run or no '
+                         f'step-2 checkpoint\n{out[-3000:]}')
+  print(f'timing {tag}: quality run step (1024^2 b=4), median of steps '
+        f'{TURN_WARMUP + 1}-{TURN_STEPS} (host clock), in turns no process '
+        f'group / torchrun NCCL world 1 mesh (1, 1) / NCCL / no group: '
+        f'{" / ".join(f"{t:.4f}" for t in turns)} ms; python -m '
+        f'torch.distributed.run --nproc_per_node 1 -m hdrnet_torch.bin.train '
+        f'--mesh_shape 1 1 trained 2 steps over NCCL; mesh phase '
+        f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+  shutil.rmtree(MESH_DIR, ignore_errors=True)
+  return band_times
 
 
 def main():
@@ -1980,6 +2320,8 @@ def main():
     print('chip_smoke: no CUDA device; this check runs on the GPU only',
           file=sys.stderr)
     return 1
+  if sys.argv[1:2] == ['--mesh_worker']:
+    return _mesh_worker(sys.argv[2])
   from hdrnet_torch.inference import Enhancer, ModelConfig, full_float32
   from hdrnet_torch.ops import _build, downsample, fused
 
@@ -2489,10 +2831,18 @@ def main():
   # add to the K1 row.
   quality = _quality_workload(dev, tag, slice_launches, full_float32)
   launches['K1'] += quality
+
+  # 22. Mesh training on the quality workload's set: the band kernels,
+  # four gloo ranks on the card, one NCCL rank under torchrun.
+  band_times = _mesh_phase(dev, tag, f'{QUALITY_DIR}/data_ll',
+                           slice_launches, gen, full_float32)
+  import shutil
+  shutil.rmtree(QUALITY_DIR, ignore_errors=True)
   print(f'K3/K4/K5 launches on the paths (train steps, evaluate, export, '
         f'fit_grid, the zoo\'s steps and frames, the quality, usm and '
-        f'style-transfer workloads): {slice_launches}; K1 and K2 with the '
-        f'quality run\'s evaluate (K1 only): {launches}', flush=True)
+        f'style-transfer workloads, the mesh runs of every rank): '
+        f'{slice_launches}; K1 and K2 with the quality run\'s evaluate (K1 '
+        f'only): {launches}', flush=True)
 
   # The least time each kernel could take at the shapes it was timed at.
   k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)
@@ -2558,6 +2908,8 @@ def main():
   for kid in ('K3', 'K4', 'K5'):
     kernels[[r[0] for r in rows].index(kid)]['levels'] = {
         **slice_levels[kid], **zoo_levels[kid]}
+    kernels[[r[0] for r in rows].index(kid)]['bands'] = {
+        f'{QUALITY_SIZE}^2 b=4, 4 bands': band_times[kid]}
   kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
       f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
       for r in ('gather', 'mma')}

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Train a model with the PyTorch / CUDA port on one device.
+"""Train a model with the PyTorch / CUDA port.
 
 The flags and the ``Config`` they build are those of
 ``hdrnet_tpu.bin.train`` (CLI parity with the reference
@@ -7,19 +7,29 @@ bin/train.py:187-246); the model names are the port's. Trains on
 ``--device``: CUDA by default, and it raises without a CUDA device;
 ``--device cpu`` trains on the plain versions of the kernels.
 
+Under torchrun (RANK and WORLD_SIZE set) each process joins the process
+group (NCCL on CUDA, gloo with ``--device cpu``) and trains on the
+('data', 'spatial') mesh of ``--mesh_shape d s``, as the JAX CLI's flag
+lays out its devices; by default every rank on 'data'
+(``hdrnet_torch.training.loop``).
+
 ``main`` returns the final ``TrainState``; its ``data_route`` says
 whether ``--device_data`` took the device-resident route.
 
-Example:
+Examples:
   python -m hdrnet_torch.bin.train ckpt/ data/train/filelist.txt \\
       --model_name HDRNetCurves --batch_size 1 --nobatch_norm \\
       --output_resolution 2048 2048
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m hdrnet_torch.bin.train ckpt/ data/train --batch_size 4 \\
+      --output_resolution 1024 1024 --mesh_shape 2 2
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from hdrnet_torch.data import PIPELINES
@@ -57,7 +67,8 @@ def build_parser():
   t.add_argument('--eval_interval', type=float, default=3600)
   t.add_argument('--seed', type=int, default=1234)
   t.add_argument('--mesh_shape', type=int, nargs=2, default=None,
-                 help='(data, spatial) mesh; the port takes only 1 1')
+                 help='(data, spatial) mesh of the torchrun ranks; default '
+                      'all ranks on data')
   t.add_argument('--profile_dir', default=None,
                  help='write a torch.profiler trace of steps 10-15 here')
   t.add_argument('--device', default='cuda',
@@ -156,6 +167,11 @@ def main(argv=None):
              '%(lineno)s | %(message)s', level=logging.INFO)
   args = build_parser().parse_args(argv)
   from hdrnet_torch.training.loop import train
+  if 'RANK' in os.environ and 'WORLD_SIZE' in os.environ:
+    from hdrnet_torch.parallel.mesh import initialize_distributed
+    import torch
+    initialize_distributed(
+        'gloo' if torch.device(args.device).type == 'cpu' else None)
   return train(config_from_args(args), args.checkpoint_dir, args.data_dir,
                eval_data_dir=args.eval_data_dir, device=args.device)
 

@@ -512,15 +512,17 @@ int dispatch(const void* grid, const void* frame, int u8_in,
 namespace hdrnet {
 
 // K3 at n_in = n_out = 3 with an offset: slice, apply, no clip, with the
-// guide loaded (one launch of K1's kernel; its window, tiles and bands).
+// guide loaded (one launch of K1's kernel; its window, tiles and bands,
+// and K7's row offset for a band of a frame).
 cudaError_t slice_apply_fwd_fixed(const float* grid, const float* guide,
                                   const float* image, float* out, int b,
                                   int h, int w, int gh, int gw, int gd,
-                                  float sy, float sx, cudaStream_t stream) {
+                                  int y_off, float sy, float sx,
+                                  cudaStream_t stream) {
   const LoadedGuide loaded{guide, w % kPix == 0 && aligned16(guide)};
   return launch<LoadedGuide, float, float>(grid, image, nullptr, loaded, out,
-                                           0, b, h, w, gh, gw, gd, 0, 0, sy,
-                                           sx, stream);
+                                           0, b, h, w, gh, gw, gd, y_off, 0,
+                                           sy, sx, stream);
 }
 
 }  // namespace hdrnet

@@ -106,12 +106,20 @@
 //     sum depends on the order in which blocks run, so two runs give the
 //     same bits.
 //   The mirror is done in the index, with no padded copies.
+//   * A band (rows y_off .. of a frame of h_total rows, a rank's share on
+//     a 'spatial' mesh axis) splats its share of the frame's padded
+//     rows: its own, and the frame's top or bottom mirror rows when it
+//     holds that end. Its regions are the frame's, cut to those rows;
+//     only the region rows that they reach are launched (band_regions),
+//     and the reduce skips the others. A whole frame is the band at 0 of
+//     h rows: all gh + 1 region rows, its sums in the same order.
 //
 // None of the TPU tile planner (cell windows, strips, z strategies) is
 // carried over: K3/K4's windows follow from their tiles' taps, and K5's
 // regions from the grid alone.
 
 #include <algorithm>
+#include <cmath>
 #include <mutex>
 #include <vector>
 
@@ -139,7 +147,11 @@ constexpr int kThreads = hdrnet::kTileThreads;
 struct Geometry {
   int b, h, w, gh, gw, gd;
   int n_in, n_out, ni_tot, has_offset;
-  float sy, sx;  // gh / h, gw / w
+  float sy, sx;  // gh / h_total, gw / w
+  // K5's band: rows y_off .. y_off + h - 1 of a frame of h_total rows, and
+  // the region rows ry0 .. ry0 + n_ry - 1 that its share of the padded
+  // frame can reach (0 .. gh for a whole frame).
+  int y_off, h_total, ry0, n_ry;
 };
 
 // ---- K4 at 3 -> 3 with an offset ------------------------------------------
@@ -648,7 +660,10 @@ struct Raw {
   float img[kI];
 };
 
-// One block: strip s of region (ry, rx) of image bb. Dynamic shared
+// One block: strip s of region (ry0 + ry, rx) of image bb, over the padded
+// rows of the region that are the band's: its own rows, with the frame's
+// top mirror rows when it starts the frame and the bottom ones when it
+// ends it (a whole frame takes them all). Dynamic shared
 // memory (GridBwdLayout): records rec_f (T, cs) | rec_w (T, 8): weights of
 // the 4 cells at bin lo, then at lo + 1 | rec_lo (T) | slots (gd, 4, T) |
 // warp counts and bucket starts. The partial out: (4 cells, gd, C).
@@ -677,14 +692,19 @@ __global__ void __launch_bounds__(kThreads)
   blk /= strips;
   const int rx = blk % (g.gw + 1);
   blk /= g.gw + 1;
-  const int ry = blk % (g.gh + 1);
-  const long long bb = blk / (g.gh + 1);
+  const int ry = g.ry0 + blk % g.n_ry;
+  const long long bb = blk / g.n_ry;
   const int ay = ry - 1, ax = rx - 1;  // the region's lower cells
   const int t = threadIdx.x;
   const int warp = t >> 5, lane = t & 31;
 
-  const int y0 = first_at(ay, g.sy, g.h, pad_y);
-  const int ny = first_at(ay + 1, g.sy, g.h, pad_y) - y0;
+  // The band's padded rows [lo, hi) in frame coordinates.
+  const int lo = g.y_off == 0 ? -pad_y : g.y_off;
+  const int hi = g.y_off + g.h == g.h_total ? g.h_total + pad_y
+                                            : g.y_off + g.h;
+  const int y0 = max(first_at(ay, g.sy, g.h_total, pad_y), lo);
+  const int ny =
+      max(min(first_at(ay + 1, g.sy, g.h_total, pad_y), hi) - y0, 0);
   const int x0 = first_at(ax, g.sx, g.w, pad_x);
   const int nx = first_at(ax + 1, g.sx, g.w, pad_x) - x0;
   const int sy0 = y0 + static_cast<int>(static_cast<long long>(ny) * s /
@@ -706,7 +726,9 @@ __global__ void __launch_bounds__(kThreads)
     if (q >= n_pix) return;
     r->yp = sy0 + q / nx;
     r->xp = x0 + q % nx;
-    r->pix = bb * plane + static_cast<long long>(mirror(r->yp, g.h)) * g.w +
+    r->pix = bb * plane +
+             static_cast<long long>(mirror(r->yp, g.h_total) - g.y_off) *
+                 g.w +
              mirror(r->xp, g.w);
     r->guide = __ldg(guide + r->pix);
     if constexpr (kFixed) {
@@ -883,7 +905,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out[bb, cy, cx, k, c]: the partials of the 2 x 2 regions that hold cell
-// (cy, cx), each over its strips, in (dy, dx, strip) order.
+// (cy, cx), each over its strips, in (dy, dx, strip) order; a region row
+// outside the band's holds none of its pixels.
 __global__ void __launch_bounds__(kThreads)
     grid_bwd_reduce_kernel(Geometry g, int strips,
                            const float* __restrict__ partial,
@@ -903,11 +926,13 @@ __global__ void __launch_bounds__(kThreads)
   const long long per_block = 4LL * g.gd * c_n;
   float v = 0.0f;
   for (int dy = 0; dy < 2; ++dy) {
+    const int ry = cy + 1 - dy - g.ry0;
+    if (ry < 0 || ry >= g.n_ry) continue;
     for (int dx = 0; dx < 2; ++dx) {
       // Region (cy + 1 - dy, cx + 1 - dx) holds cell (cy, cx) as its
       // cell (dy, dx).
       const long long region =
-          (bb * (g.gh + 1) + (cy + 1 - dy)) * (g.gw + 1) + (cx + 1 - dx);
+          (bb * g.n_ry + ry) * (g.gw + 1) + (cx + 1 - dx);
       const float* src = partial + region * strips * per_block +
                          (dy * 2 + dx) * g.gd * c_n + kc;
       for (int s = 0; s < strips; ++s) v += __ldg(src + s * per_block);
@@ -919,8 +944,9 @@ __global__ void __launch_bounds__(kThreads)
 Geometry make_geometry(int b, int h, int w, int gh, int gw, int gd,
                        int n_in, int n_out, int has_offset, float sy,
                        float sx) {
-  return Geometry{b, h, w, gh, gw, gd, n_in, n_out,
-                  n_in + (has_offset ? 1 : 0), has_offset, sy, sx};
+  return Geometry{b,  h,  w,  gh, gw, gd, n_in, n_out,
+                  n_in + (has_offset ? 1 : 0), has_offset, sy, sx, 0, h,
+                  0,  gh + 1};
 }
 
 // The kernels of the models' 3 -> 3 with an offset read the grid as
@@ -932,8 +958,8 @@ bool fixed_channels(const void* grid, int n_in, int n_out, int has_offset) {
 cudaError_t pix_bwd_fixed(const float* grid, const float* guide,
                           const float* image, const float* ct,
                           float* d_guide, float* d_image, int b, int h,
-                          int w, int gh, int gw, int gd, float sy, float sx,
-                          cudaStream_t st) {
+                          int w, int gh, int gw, int gd, int y_off, float sy,
+                          float sx, cudaStream_t st) {
   const long long want =
       hdrnet::window_bytes(h, w, sy, sx, gh, gw, gd, kNC3);
   const bool staged = want <= hdrnet::kMaxWindowBytes;
@@ -958,8 +984,8 @@ cudaError_t pix_bwd_fixed(const float* grid, const float* guide,
                     aligned16(c) && aligned16(dg) &&
                     (di == nullptr || aligned16(di));
     kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
-        grid + i * cells, g, in, c, dg, di, vec, nh, w, gh, gw, gd, y0, sy,
-        sx);
+        grid + i * cells, g, in, c, dg, di, vec, nh, w, gh, gw, gd,
+        y_off + y0, sy, sx);
     return cudaGetLastError();
   });
 }
@@ -988,13 +1014,32 @@ cudaError_t launch_generic(const Channels& ch, int b, int h, int w, int gh,
 
 // Shapes are checked by the Python wrappers (hdrnet_torch/ops/
 // slice_apply.py); each launcher returns cudaGetLastError(), or
-// cudaErrorInvalidValue without a launch for a row of 2^31 values.
+// cudaErrorInvalidValue without a launch for a row of 2^31 values or a
+// band outside the frame.
+//
+// The band: the h rows are rows y_off .. y_off + h - 1 of a frame of
+// h_total rows (a rank's share of a frame split along H; 0 and h for a
+// whole frame), and sy = gh / h_total, so each row takes the taps it
+// has in the whole frame. K3 and K4 add y_off to the row offset of each
+// launch (the fused kernel's K7 argument); K5 splats the band's share of
+// the mirror-padded frame.
+
+namespace {
+
+bool band_ok(int h, int y_off, int h_total) {
+  return y_off >= 0 && h <= h_total - y_off;
+}
+
+}  // namespace
 
 extern "C" int hdrnet_slice_apply_fwd(const void* grid, const void* guide,
                                       const void* image, void* out, int b,
                                       int h, int w, int gh, int gw, int gd,
                                       int n_in, int n_out, int has_offset,
-                                      float sy, float sx, void* stream) {
+                                      int y_off, int h_total, float sy,
+                                      float sx, void* stream) {
+  if (!band_ok(h, y_off, h_total))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(b) * h * w == 0)
     return static_cast<int>(cudaGetLastError());
   const auto st = static_cast<cudaStream_t>(stream);
@@ -1004,7 +1049,8 @@ extern "C" int hdrnet_slice_apply_fwd(const void* grid, const void* guide,
   auto* out_p = static_cast<float*>(out);
   if (fixed_channels(grid, n_in, n_out, has_offset)) {
     return static_cast<int>(hdrnet::slice_apply_fwd_fixed(
-        grid_p, guide_p, image_p, out_p, b, h, w, gh, gw, gd, sy, sx, st));
+        grid_p, guide_p, image_p, out_p, b, h, w, gh, gw, gd, y_off, sy, sx,
+        st));
   }
   const Channels ch = channels(n_in, n_out, has_offset);
   const long long cells = static_cast<long long>(gh) * gw * gd * ch.c;
@@ -1024,7 +1070,7 @@ extern "C" int hdrnet_slice_apply_fwd(const void* grid, const void* guide,
         const int vec = ch.c % 4 == 0 && aligned16(o);
         kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
             ch, grid_p + i * cells, guide_p + px, image_p + px * n_in, o, vec,
-            nh, w, gh, gw, gd, y0, sy, sx);
+            nh, w, gh, gw, gd, y_off + y0, sy, sx);
         return cudaGetLastError();
       }));
 }
@@ -1032,8 +1078,10 @@ extern "C" int hdrnet_slice_apply_fwd(const void* grid, const void* guide,
 extern "C" int hdrnet_slice_apply_pix_bwd(
     const void* grid, const void* guide, const void* image, const void* ct,
     void* d_guide, void* d_image, int b, int h, int w, int gh, int gw,
-    int gd, int n_in, int n_out, int has_offset, float sy, float sx,
-    void* stream) {
+    int gd, int n_in, int n_out, int has_offset, int y_off, int h_total,
+    float sy, float sx, void* stream) {
+  if (!band_ok(h, y_off, h_total))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(b) * h * w == 0)
     return static_cast<int>(cudaGetLastError());
   const auto st = static_cast<cudaStream_t>(stream);
@@ -1045,8 +1093,8 @@ extern "C" int hdrnet_slice_apply_pix_bwd(
   auto* di_p = static_cast<float*>(d_image);
   if (fixed_channels(grid, n_in, n_out, has_offset)) {
     return static_cast<int>(pix_bwd_fixed(grid_p, guide_p, image_p, ct_p,
-                                          dg_p, di_p, b, h, w, gh, gw, gd, sy,
-                                          sx, st));
+                                          dg_p, di_p, b, h, w, gh, gw, gd,
+                                          y_off, sy, sx, st));
   }
   const Channels ch = channels(n_in, n_out, has_offset);
   const long long cells = static_cast<long long>(gh) * gw * gd * ch.c;
@@ -1067,7 +1115,7 @@ extern "C" int hdrnet_slice_apply_pix_bwd(
         kernel<<<hdrnet::tile_blocks(w, nh, nb), kThreads, win_bytes, st>>>(
             ch, grid_p + i * cells, guide_p + px, image_p + px * n_in, c,
             dg_p + px, di_p != nullptr ? di_p + px * n_in : nullptr, vec, nh,
-            w, gh, gw, gd, y0, sy, sx);
+            w, gh, gw, gd, y_off + y0, sy, sx);
         return cudaGetLastError();
       }));
 }
@@ -1130,19 +1178,50 @@ cudaError_t prepare(PartialKernel kernel, int smem) {
 
 }  // namespace
 
-// K5's plan for C channels and gd bins: its dynamic shared memory in
-// bytes (returned), and through the pointers the strips a region is cut
-// into and the floats of the partials' scratch. The strips give at least
-// two waves of resident blocks on this card, the last nearly full (about
-// as many blocks at every size), capped by the rows of a region. A C above
-// the block's threads is refused as 0 bytes; a size above the card's limit
-// is the caller's to refuse.
+namespace {
+
+// Region row of padded frame row v: 1 + its lower cell, in [0, gh].
+int region_row(int v, float sy, int gh) {
+  const int a = static_cast<int>(
+      std::floor((static_cast<float>(v) + 0.5f) * sy - 0.5f));
+  return std::min(std::max(a + 1, 0), gh);
+}
+
+// The region rows [ry0, ry0 + n_ry) that the band's padded rows reach,
+// one row wider on each side than the host's rounding could miss (a row
+// with none of the band's pixels adds zeros); all gh + 1 for a whole
+// frame. pad_y is the frame's mirror padding.
+void band_regions(int h, int gh, int y_off, int h_total, int pad_y,
+                  int* ry0, int* n_ry) {
+  const float sy = static_cast<float>(gh) / static_cast<float>(h_total);
+  const int lo = y_off == 0 ? -pad_y : y_off;
+  const int hi = y_off + h == h_total ? h_total + pad_y : y_off + h;
+  const int r0 = std::max(region_row(lo, sy, gh) - 1, 0);
+  const int r1 = std::min(region_row(hi - 1, sy, gh) + 1, gh);
+  *ry0 = lo == -pad_y ? 0 : r0;
+  *n_ry = (hi == h_total + pad_y ? gh : r1) - *ry0 + 1;
+}
+
+}  // namespace
+
+// K5's plan for C channels and gd bins over a band of h rows at y_off of
+// a frame of h_total rows (0 and h for a whole frame), mirror-padded by
+// pad_y: its dynamic shared memory in bytes (returned), and through the
+// pointers the strips a region is cut into and the floats of the
+// partials' scratch. The strips give at least two waves of resident
+// blocks on this card, the last nearly full (about as many blocks at every
+// size), capped by the rows of a region. A C above the block's threads is
+// refused as 0 bytes; a size above the card's limit is the caller's to
+// refuse.
 extern "C" int hdrnet_slice_apply_grid_bwd_plan(int b, int h, int gh, int gw,
-                                                int gd, int c_n, int* strips,
+                                                int gd, int c_n, int y_off,
+                                                int h_total, int pad_y,
+                                                int* strips,
                                                 long long* scratch_floats) {
   *strips = 0;
   *scratch_floats = 0;
-  if (c_n < 1 || c_n > kThreads || gd < 1) return 0;
+  if (c_n < 1 || c_n > kThreads || gd < 1 || !band_ok(h, y_off, h_total))
+    return 0;
   const int smem = static_cast<int>(sizeof(float)) *
                    GridBwdLayout(c_n, gd).n_floats;
   // Both instantiations take the same resources; ask for the generic one.
@@ -1157,10 +1236,13 @@ extern "C" int hdrnet_slice_apply_grid_bwd_plan(int b, int h, int gh, int gw,
     cudaGetLastError();  // the size is refused; clear the sticky error
     return smem;
   }
-  const long long regions = static_cast<long long>(b) * (gh + 1) * (gw + 1);
+  int ry0 = 0, n_ry = 0;
+  band_regions(h, gh, y_off, h_total, pad_y, &ry0, &n_ry);
+  const long long regions = static_cast<long long>(b) * n_ry * (gw + 1);
   const long long slots =
       static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const long long max_s = h / gh > 1 ? h / gh : 1;
+  // A region's rows in the band: about h_total / gh, at most h.
+  const long long max_s = std::max(1, std::min(h_total / gh, h));
   // At least two waves of blocks, and a last wave at least 90% full: the
   // regions of a frame are near one size, so blocks run in whole waves,
   // and a wave a fifth full costs as much as a full one. Else the fullest
@@ -1187,10 +1269,15 @@ extern "C" int hdrnet_slice_apply_grid_bwd_plan(int b, int h, int gh, int gw,
 extern "C" int hdrnet_slice_apply_grid_bwd(
     const void* guide, const void* image, const void* ct, void* scratch,
     void* out, int b, int h, int w, int gh, int gw, int gd, int n_in,
-    int n_out, int has_offset, float sy, float sx, int pad_y, int pad_x,
-    int strips, void* stream) {
-  const Geometry g =
+    int n_out, int has_offset, int y_off, int h_total, float sy, float sx,
+    int pad_y, int pad_x, int strips, void* stream) {
+  if (!band_ok(h, y_off, h_total) || h < pad_y)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geometry g =
       make_geometry(b, h, w, gh, gw, gd, n_in, n_out, has_offset, sy, sx);
+  g.y_off = y_off;
+  g.h_total = h_total;
+  band_regions(h, gh, y_off, h_total, pad_y, &g.ry0, &g.n_ry);
   const int c_n = n_out * g.ni_tot;
   const int smem = static_cast<int>(sizeof(float)) *
                    GridBwdLayout(c_n, gd).n_floats;
@@ -1198,7 +1285,7 @@ extern "C" int hdrnet_slice_apply_grid_bwd(
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
-  const long long blocks = static_cast<long long>(b) * (gh + 1) * (gw + 1) *
+  const long long blocks = static_cast<long long>(b) * g.n_ry * (gw + 1) *
                            strips;
   auto* part = static_cast<float*>(scratch);
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(

@@ -186,11 +186,13 @@ __device__ __forceinline__ void add_cell(float sliced[kNC3], float w,
 }
 
 // K3 at n_in = n_out = 3 with an offset, on K1's kernel (defined in
-// fused_slice_apply.cu): the grid 16-byte aligned. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a row of 2^31 values.
+// fused_slice_apply.cu): the grid 16-byte aligned; y_off the rows' offset
+// in their frame (K7's). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a row of 2^31 values.
 cudaError_t slice_apply_fwd_fixed(const float* grid, const float* guide,
                                   const float* image, float* out, int b,
                                   int h, int w, int gh, int gw, int gd,
-                                  float sy, float sx, cudaStream_t stream);
+                                  int y_off, float sy, float sx,
+                                  cudaStream_t stream);
 
 }  // namespace hdrnet

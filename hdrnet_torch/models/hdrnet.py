@@ -115,21 +115,29 @@ class HDRNetCurves(nn.Module):
   def make_guide(cfg, generator):
     return CurveGuide(cfg.n_in, generator=generator)
 
-  def forward(self, lowres, fullres, return_intermediates=False):
+  def forward(self, lowres, fullres, band=None, return_intermediates=False):
     """The output; with ``return_intermediates`` also
     ``forward_with_intermediates``'s dict (through ``__call__``, so that
     forward hooks see a stage of ``HDRNetStack``)."""
-    out, inter = self.forward_with_intermediates(lowres, fullres)
+    out, inter = self.forward_with_intermediates(lowres, fullres, band)
     return (out, inter) if return_intermediates else out
 
-  def forward_with_intermediates(self, lowres, fullres):
+  def forward_with_intermediates(self, lowres, fullres, band=None):
     """The forward and what the Flax model sows at top level as
     intermediates: the grid ('bilateral_coefficients') and the guide maps
     ('guide_map', a list); ``bin/run.py --debug`` writes them and the
-    guide regularizer reads the guide maps."""
+    guide regularizer reads the guide maps.
+
+    band: None, or (y_off, h_total) when `fullres` holds rows y_off ..
+    of a frame of h_total rows (an H-band of mesh training): the output
+    and the guide are the band's rows of the whole frame's
+    (``check_band``)."""
+    if band is not None:
+      check_band(self)
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
     guide = self.guide(fullres)
-    out = bilateral_slice_apply(grid, guide, fullres, has_offset=True)
+    out = bilateral_slice_apply(grid, guide, fullres, has_offset=True,
+                                band=band)
     return out, {'bilateral_coefficients': grid, 'guide_map': [guide]}
 
 
@@ -140,6 +148,21 @@ class HDRNetPointwiseNNGuide(HDRNetCurves):
   def make_guide(cfg, generator):
     return PointwiseNNGuide(cfg.n_in, cfg.guide_complexity,
                             generator=generator)
+
+
+def check_band(model):
+  """Raises ValueError, with the reason, unless `model` trains on H-bands
+  of its frames (a 'spatial' mesh degree above 1): only ``HDRNetCurves``
+  and ``HDRNetPointwiseNNGuide``, whose full-resolution path (a pointwise
+  guide, the slice-apply) reads no pixel of another band."""
+  if type(model) not in (HDRNetCurves, HDRNetPointwiseNNGuide):
+    raise ValueError(
+        f'{type(model).__name__} cannot train on H-bands (spatial mesh '
+        'degree > 1): its full-resolution path (resizes, 3x3 convolutions '
+        'or feature towers) needs rows of the neighbouring bands (halos), '
+        'which nothing here exchanges; only HDRNetCurves and '
+        "HDRNetPointwiseNNGuide train on a 'spatial' axis: use a (d, 1) "
+        'mesh')
 
 
 def gaussian_pyramid(x, n_scales):

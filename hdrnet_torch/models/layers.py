@@ -11,8 +11,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from hdrnet_torch.parallel.collectives import all_reduce
 
 BN_EPS = 1e-3  # tf.contrib.layers.batch_norm default
 BN_DECAY = 0.999  # Flax BatchNorm momentum: the running stats' decay
@@ -44,6 +47,12 @@ class CenterBatchNorm(nn.Module):
   0), and move the running statistics as
   ``running = 0.999 * running + 0.001 * batch`` for both. Eval mode
   normalizes with the running statistics.
+
+  ``process_group`` (None: this process's batch alone) is set by mesh
+  training (``parallel.mesh.replicate``): the sums of x and x^2 are then
+  summed over the group's ranks, differentiably, and divided by the
+  group's count, so that the statistics are those of the global batch
+  (each rank holds an equal share) and the same on every rank.
   """
 
   def __init__(self, features):
@@ -51,6 +60,7 @@ class CenterBatchNorm(nn.Module):
     self.bias = nn.Parameter(torch.zeros(features))
     self.register_buffer('running_mean', torch.zeros(features))
     self.register_buffer('running_var', torch.ones(features))
+    self.process_group = None
 
   def forward(self, x):
     if not self.training:
@@ -58,8 +68,16 @@ class CenterBatchNorm(nn.Module):
                           self.bias, False, 0.0, BN_EPS)
     # Features on axis 1 (NCHW or NC): reduce over every other axis.
     axes = [0] + list(range(2, x.ndim))
-    mean = x.mean(axes)
-    var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+    if self.process_group is None:
+      mean = x.mean(axes)
+      mean_sq = (x * x).mean(axes)
+    else:
+      count = x.numel() // x.shape[1] * dist.get_world_size(
+          self.process_group)
+      sums = all_reduce(torch.stack([x.sum(axes), (x * x).sum(axes)]),
+                        self.process_group)
+      mean, mean_sq = sums[0] / count, sums[1] / count
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
     with torch.no_grad():
       self.running_mean.mul_(BN_DECAY).add_((1 - BN_DECAY) * mean)
       self.running_var.mul_(BN_DECAY).add_((1 - BN_DECAY) * var)

@@ -48,20 +48,21 @@ _SIGNATURES = {
     'hdrnet_enhance_fused_nn': (_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # grid, guide, image, out, b, h, w, gh, gw, gd, n_in, n_out,
-    # has_offset, sy, sx, stream
+    # has_offset, y_off, h_total, sy, sx, stream
     'hdrnet_slice_apply_fwd': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _F, _P),
+                               _I, _I, _I, _I, _F, _F, _P),
     # grid, guide, image, ct, d_guide, d_image, b, h, w, gh, gw, gd, n_in,
-    # n_out, has_offset, sy, sx, stream
+    # n_out, has_offset, y_off, h_total, sy, sx, stream
     'hdrnet_slice_apply_pix_bwd': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _I, _F, _F, _P),
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # guide, image, ct, scratch, out, b, h, w, gh, gw, gd, n_in, n_out,
-    # has_offset, sy, sx, pad_y, pad_x, strips, stream
+    # has_offset, y_off, h_total, sy, sx, pad_y, pad_x, strips, stream
     'hdrnet_slice_apply_grid_bwd': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _F, _F, _I, _I, _I, _P),
-    # b, h, gh, gw, gd, channels, &strips, &scratch floats -> dynamic
-    # shared bytes
-    'hdrnet_slice_apply_grid_bwd_plan': (_I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                                    _I, _P),
+    # b, h, gh, gw, gd, channels, y_off, h_total, pad_y, &strips, &scratch
+    # floats -> dynamic shared bytes
+    'hdrnet_slice_apply_grid_bwd_plan': (_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                          ctypes.POINTER(_I),
                                          ctypes.POINTER(ctypes.c_longlong)),
 }

@@ -150,28 +150,46 @@ def bilateral_slice_apply(grid, guide, image, has_offset=True, band=None):
 # ---------------------------------------------------------------------------
 
 
+def mirror_pad(extent, grid_extent):
+  """The grid VJP's mirror padding of an axis: half a cell."""
+  return math.ceil(0.5 * extent / grid_extent)
+
+
 def pad_amounts(h, w, gh, gw):
   """Mirror padding (rows, cols) that lets a plain splat cover the
   reference's gather-with-mirror-boundary grid gradient."""
-  return math.ceil(0.5 * h / gh), math.ceil(0.5 * w / gw)
+  return mirror_pad(h, gh), mirror_pad(w, gw)
 
 
-def _sym_pad(x, pad_y, pad_x):
-  """numpy 'symmetric' pad of axes 1 and 2 of (b, h, w, ...): padded row
-  -1 reads row 0, -2 reads row 1, h reads h-1."""
-  _, h, w = x.shape[:3]
-  dev = x.device
-  iy = mirror_boundary(torch.arange(-pad_y, h + pad_y, device=dev), h)
-  ix = mirror_boundary(torch.arange(-pad_x, w + pad_x, device=dev), w)
-  return x.index_select(1, iy).index_select(2, ix)
+def _padded_share(extent, grid_extent, offset, total, axis):
+  """A band's share of the mirror-padded axis: the padded frame
+  coordinates it splats, and the band's pixel each reads.
+
+  The band is pixels offset .. offset + extent - 1 of an axis of `total`
+  pixels, padded by ``pad_amounts`` (half a cell) at each end. It owns its
+  own pixels, and the mirror pixels at an end of the frame when it holds
+  that end (a whole axis owns them all), so the shares of bands that tile
+  the axis partition the padded axis. The mirror pixels read the band's
+  own edge pixels, so a band shorter than the padding raises.
+  Returns (coords, index), int64 tensors of one length.
+  """
+  pad = mirror_pad(total, grid_extent)
+  if extent < pad:
+    raise ValueError(
+        f'a band of {extent} pixels along {axis} is shorter than the grid '
+        f'VJP\'s mirror padding of {pad} (half a cell of {total} / '
+        f'{grid_extent}): cut the frame into fewer bands')
+  lo = -pad if offset == 0 else offset
+  hi = total + pad if offset + extent == total else offset + extent
+  coords = torch.arange(lo, hi)
+  return coords, mirror_boundary(coords, total) - offset
 
 
-def _grid_grad_spatial_weights(extent, grid_extent, pad, device, dtype):
-  """(extent + 2*pad, grid_extent) direct tent weights of every padded
-  pixel (offset by -pad) against every grid cell (cc:110-117)."""
-  scale = grid_extent / extent
-  coords = torch.arange(-pad, extent + pad, dtype=dtype, device=device)
-  gf = (coords + 0.5) * scale
+def _grid_grad_spatial_weights(coords, grid_extent, total, device, dtype):
+  """(len(coords), grid_extent) direct tent weights of every padded pixel
+  (at frame coordinate coords) against every grid cell (cc:110-117)."""
+  scale = grid_extent / total
+  gf = (coords.to(device=device, dtype=dtype) + 0.5) * scale
   cells = torch.arange(grid_extent, dtype=dtype, device=device) + 0.5
   return lerp_weight(cells[None, :], gf[:, None])
 
@@ -190,7 +208,7 @@ def _grid_grad_depth_weights(guide_padded, grid_depth):
 
 
 def bilateral_slice_apply_grid_vjp(guide, image, ct, grid_shape,
-                                   has_offset=True):
+                                   has_offset=True, band=None):
   """Grid cotangent, independent of the grid's values.
 
   guide (b, h, w), image (b, h, w, n_in), ct (b, h, w, no);
@@ -198,16 +216,28 @@ def bilateral_slice_apply_grid_vjp(guide, image, ct, grid_shape,
   the sum over padded pixels of wy * wx * wz[k] * ct[i] * in_ext[j].
   Contracted one depth bin at a time, x then y, so that no (h', w', gd,
   C) array is materialized.
+
+  band: None for a whole frame, else (y_offset, x_offset, h_total,
+  w_total) as in ``_slice_channels``: the band's share of the whole
+  frame's cotangent (``_padded_share``), the padding that of the whole
+  frame. The shares of bands that tile a frame sum to its cotangent.
   """
   gh, gw, gd, no, ni_tot = grid_shape
   b, h, w = guide.shape
-  pad_y, pad_x = pad_amounts(h, w, gh, gw)
+  y_off, x_off, h_total, w_total = band or (0, 0, h, w)
   dev, dt = guide.device, guide.dtype
-  w_y = _grid_grad_spatial_weights(h, gh, pad_y, dev, dt)   # (h', gh)
-  w_x = _grid_grad_spatial_weights(w, gw, pad_x, dev, dt)   # (w', gw)
-  w_k = _grid_grad_depth_weights(_sym_pad(guide, pad_y, pad_x), gd)
+  ys, iy = _padded_share(h, gh, y_off, h_total, 'H')
+  xs, ix = _padded_share(w, gw, x_off, w_total, 'W')
+  iy, ix = iy.to(dev), ix.to(dev)
+  w_y = _grid_grad_spatial_weights(ys, gh, h_total, dev, dt)  # (h', gh)
+  w_x = _grid_grad_spatial_weights(xs, gw, w_total, dev, dt)  # (w', gw)
+
+  def sym_pad(x):
+    return x.index_select(1, iy).index_select(2, ix)
+
+  w_k = _grid_grad_depth_weights(sym_pad(guide), gd)
   image_ext = _extend_image(image, has_offset)
-  f = _sym_pad(ct[..., :, None] * image_ext[..., None, :], pad_y, pad_x)
+  f = sym_pad(ct[..., :, None] * image_ext[..., None, :])
   f = f.reshape(f.shape[:3] + (no * ni_tot,))               # (b, h', w', C)
   out = []
   for k in range(gd):

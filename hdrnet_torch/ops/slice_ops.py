@@ -30,10 +30,11 @@ class _SliceApply(torch.autograd.Function):
   """Packed-grid slice-apply whose backward is the reference VJP."""
 
   @staticmethod
-  def forward(ctx, grid5, guide, image, has_offset):
+  def forward(ctx, grid5, guide, image, has_offset, band):
     ctx.has_offset = has_offset
+    ctx.band = band
     ctx.save_for_backward(grid5, guide, image)
-    return sa.slice_apply_fwd(grid5, guide, image, has_offset)
+    return sa.slice_apply_fwd(grid5, guide, image, has_offset, band)
 
   @staticmethod
   def backward(ctx, ct):
@@ -43,17 +44,23 @@ class _SliceApply(torch.autograd.Function):
     d_grid = d_guide = d_image = None
     if need_guide or need_image:
       d_guide, d_image = sa.slice_apply_pix_bwd(
-          grid5, guide, image, ct, ctx.has_offset, need_input=need_image)
+          grid5, guide, image, ct, ctx.has_offset, need_input=need_image,
+          band=ctx.band)
     if need_grid:
       d_grid = sa.slice_apply_grid_bwd(grid5.shape, guide, image, ct,
-                                       ctx.has_offset)
-    return d_grid, d_guide, d_image, None
+                                       ctx.has_offset, ctx.band)
+    return d_grid, d_guide, d_image, None, None
 
 
-def bilateral_slice_apply(grid, guide, image, has_offset=True):
+def bilateral_slice_apply(grid, guide, image, has_offset=True, band=None):
   """Bilateral slice + per-pixel affine apply. Differentiable.
 
-  Returns (b, h, w, no).
+  Returns (b, h, w, no). band: None for a whole frame, else (y_off,
+  h_total): the h rows are rows y_off .. y_off + h - 1 of a frame of
+  h_total rows (a rank's H-band on a ``spatial`` mesh axis). The output
+  and the guide and input cotangents are the band's rows of the whole
+  frame's; the grid cotangent is the band's share of the frame's, so
+  the shares of a frame's bands sum to it.
   """
   n_in = image.shape[-1]
   ni_tot = n_in + 1 if has_offset else n_in
@@ -67,7 +74,8 @@ def bilateral_slice_apply(grid, guide, image, has_offset=True):
     raise ValueError(
         f'packed grid channels {grid.shape[-1]} not divisible by {ni_tot}')
   return _SliceApply.apply(grid.contiguous(), guide.contiguous(),
-                           image.contiguous(), bool(has_offset))
+                           image.contiguous(), bool(has_offset),
+                           None if band is None else tuple(band))
 
 
 def bilateral_slice(grid, guide):

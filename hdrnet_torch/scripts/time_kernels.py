@@ -66,10 +66,11 @@ def k5_call(lib, guide, image, ct, grid_shape):
   n_in, n_out = image.shape[-1], ct.shape[-1]
   pad_y, pad_x = ref.pad_amounts(h, w, gh, gw)
   out = torch.empty(grid_shape, device=guide.device)
-  dims = (b, h, w, gh, gw, gd, n_in, n_out, 1, gh / h, gw / w, pad_y, pad_x)
+  dims = (b, h, w, gh, gw, gd, n_in, n_out, 1, 0, h, gh / h, gw / w, pad_y,
+          pad_x)
   ptrs = (guide.data_ptr(), image.data_ptr(), ct.data_ptr())
   strips, floats = ctypes.c_int(), ctypes.c_longlong()
-  lib.hdrnet_slice_apply_grid_bwd_plan(b, h, gh, gw, gd, c,
+  lib.hdrnet_slice_apply_grid_bwd_plan(b, h, gh, gw, gd, c, 0, h, pad_y,
                                        ctypes.byref(strips),
                                        ctypes.byref(floats))
   scratch = torch.empty((floats.value,), device=guide.device)
@@ -91,7 +92,7 @@ def k3_call(lib, grid, guide, image):
   n_out = c // (n_in + 1)
   out = torch.empty((b, h, w, n_out), device=guide.device)
   args = (grid.data_ptr(), guide.data_ptr(), image.data_ptr(),
-          out.data_ptr(), b, h, w, gh, gw, gd, n_in, n_out, 1, gh / h,
+          out.data_ptr(), b, h, w, gh, gw, gd, n_in, n_out, 1, 0, h, gh / h,
           gw / w)
 
   def call():
@@ -110,7 +111,7 @@ def k4_call(lib, grid, guide, image, ct, need_input):
              if need_input else None)
   args = (grid.data_ptr(), guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
           d_guide.data_ptr(), None if d_image is None else d_image.data_ptr(),
-          b, h, w, gh, gw, gd, n_in, n_out, 1, gh / h, gw / w)
+          b, h, w, gh, gw, gd, n_in, n_out, 1, 0, h, gh / h, gw / w)
 
   def call():
     _build.check(lib.hdrnet_slice_apply_pix_bwd(*args, _stream()), 'K4')

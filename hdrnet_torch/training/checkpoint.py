@@ -8,6 +8,11 @@ statistics. Writes go to a temporary file first and are renamed into
 place, so a reader never sees a partial file. The newest ``max_to_keep``
 are kept; ``restore`` loads the latest into a state built from the same
 config. Reading the JAX package's orbax checkpoints is not ported.
+
+On a mesh (``Checkpointer(..., mesh=)``, every rank holding the same
+state) rank 0 writes, every rank restores from the shared directory, and
+a barrier on the mesh follows each save; rank 0's clock decides when
+``maybe_save`` saves, for every rank.
 """
 
 from __future__ import annotations
@@ -47,9 +52,10 @@ def load(path, device='cpu'):
 
 class Checkpointer:
 
-  def __init__(self, directory, max_to_keep=3):
+  def __init__(self, directory, max_to_keep=3, mesh=None):
     self.directory = os.path.abspath(directory)
     self.max_to_keep = max_to_keep
+    self.mesh = mesh
     os.makedirs(self.directory, exist_ok=True)
     self._last_save = time.time()
 
@@ -57,7 +63,17 @@ class Checkpointer:
     steps = _steps(self.directory)
     return steps[-1] if steps else None
 
-  def save(self, step, state):
+  def save(self, step, state, sync=True):
+    """Writes the state (on a mesh: rank 0 writes, then, with `sync`, every
+    rank waits at a barrier; without it, after a failure, no rank
+    waits)."""
+    if self.mesh is None or self.mesh.lead:
+      self._write(step, state)
+    if self.mesh is not None and sync:
+      self.mesh.barrier()
+    self._last_save = time.time()
+
+  def _write(self, step, state):
     payload = {'step': int(step), 'model': state.model.state_dict(),
                'optimizer': state.optimizer.state_dict(),
                'ema_loss': state.ema_loss.detach().cpu(),
@@ -68,13 +84,14 @@ class Checkpointer:
     os.replace(tmp, path)
     for old in _steps(self.directory)[:-self.max_to_keep]:
       os.remove(checkpoint_path(self.directory, old))
-    self._last_save = time.time()
 
   def maybe_save(self, step, state, interval_secs):
-    if time.time() - self._last_save >= interval_secs:
+    due = time.time() - self._last_save >= interval_secs
+    if self.mesh is not None:
+      due = self.mesh.agree(due)
+    if due:
       self.save(step, state)
-      return True
-    return False
+    return due
 
   def restore(self, state):
     """Loads the latest checkpoint into `state` (model, optimizer, step,

@@ -1,4 +1,4 @@
-"""The training loop of the port on one device (counterpart of
+"""The training loop of the port (counterpart of
 ``hdrnet_tpu.training.loop``; reference: bin/train.py:46-184).
 
 ``train(config, checkpoint_dir, data_dir, ...)`` builds the port's host
@@ -17,8 +17,18 @@ qualify, takes the host pipeline with a warning, as in the JAX package.
 The returned state's ``data_route`` and ``eval_data_route`` say which
 route ran.
 
-Not ported here, and refused rather than replaced: multi-device meshes
-(``mesh_shape`` other than None or [1, 1]; ROADMAP M6).
+Over several processes (``torch.distributed`` initialized, e.g. by
+``parallel.mesh.initialize_distributed`` under torchrun) it trains on a
+('data', 'spatial') mesh (``parallel.mesh``), as the JAX loop does on its
+device mesh: by default every rank on 'data' at the largest degree that
+divides the batch; ``train.mesh_shape`` picks a layout. Every rank builds
+the same global batch from the seed (the host pipeline with one worker
+thread, whose batches do not depend on thread timing; the device route
+augments the rank's rows) and takes its share; the step is the global
+batch's. Rank 0 writes the config, the summaries and the checkpoints,
+logs, profiles and evaluates; its clock decides when to save, for every
+rank. Ranks past the mesh sit out: they wait for the run to end and
+return its last checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hdrnet_torch.config import Config
 from hdrnet_torch.data import (ImageFilesDataPipeline,
@@ -39,6 +50,8 @@ from hdrnet_torch.data import (ImageFilesDataPipeline,
                                UnsharpMaskDataPipeline, make_pipeline)
 from hdrnet_torch.inference import resolve_device
 from hdrnet_torch.models import make_model
+from hdrnet_torch.models.hdrnet import check_band
+from hdrnet_torch.parallel import mesh as pm
 from hdrnet_torch.training.checkpoint import Checkpointer
 from hdrnet_torch.training.step import (create_state, make_eval_step,
                                         make_train_step, to_device)
@@ -165,22 +178,24 @@ def augment_batch(augment, ins, outs, params):
                  params)
 
 
-def _host_batches(pipeline, seed, device):
-  """The host pipeline's batches on `device`; closing this generator
-  stops the pipeline's worker threads."""
+def _host_batches(pipeline, seed, device, mesh=None):
+  """The host pipeline's batches (on a mesh, this rank's shares) on
+  `device`; closing this generator stops the pipeline's worker
+  threads."""
   raw = pipeline.prefetching_batches(seed=seed)
   try:
     for batch in raw:
-      yield to_device(batch, device)
+      yield to_device(pm.shard_batch(mesh, batch)[0], device)
   finally:
     raw.close()
 
 
-def _batch_source(pipeline, data_cfg, device, seed, host_batches):
+def _batch_source(pipeline, data_cfg, device, seed, host_batches,
+                  mesh=None):
   """(route, samples, batches, resident bytes): with ``device_data`` and
   a dataset that qualifies, the device route, whose ``batches()`` gathers
-  and augments each batch on the device; else the host route,
-  ``host_batches``."""
+  and augments each batch (on a mesh, this rank's rows, then its H-band)
+  on the device; else the host route, ``host_batches``."""
   dds = None
   if data_cfg.device_data:
     dds, augment = _try_device_dataset(pipeline, data_cfg, device)
@@ -189,43 +204,105 @@ def _batch_source(pipeline, data_cfg, device, seed, host_batches):
 
   def batches():
     for p in dds.param_stream(seed, data_cfg.batch_size):
-      yield augment_batch(augment, dds.inputs, dds.outputs, p)
+      if mesh is not None:
+        rows = mesh.rows(data_cfg.batch_size)
+        p = {k: v[rows] for k, v in p.items()}
+      yield pm.take_band(mesh, augment_batch(augment, dds.inputs,
+                                             dds.outputs, p))[0]
   return 'device', dds.nsamples, batches, dds.nbytes
+
+
+def _make_mesh(config):
+  """This rank's Mesh for ``train.mesh_shape`` (None for one process with
+  no process group); raises, as the JAX loop does, where the layout does
+  not fit the world, the batch, the frame or the model."""
+  tc, world = config.train, pm.world_size()
+  if tc.mesh_shape:
+    mesh_shape = tuple(int(v) for v in tc.mesh_shape)
+  else:
+    # Default: pure DP with the largest degree that divides the batch.
+    dp = world
+    while config.data.batch_size % dp:
+      dp -= 1
+    mesh_shape = (dp, 1)
+  mesh = pm.make_mesh(mesh_shape)
+  d, s = mesh_shape
+  if config.data.batch_size % d:
+    raise ValueError(f'batch_size {config.data.batch_size} not divisible '
+                     f'by data-parallel degree {d}')
+  if s > 1:
+    h = config.data.output_resolution[0]
+    if h % s:
+      raise ValueError(f'full-res height {h} not divisible by spatial mesh '
+                       f'degree {s}')
+    pm.check_band_rows(h, s, config.model.spatial_bin)
+  return mesh
+
+
+def _sit_out(config, checkpoint_dir, mesh, device):
+  """A rank past the mesh: waits for the mesh's run to end, then returns
+  its last checkpoint as a state on `device`."""
+  log.info('rank %d sits out of the %dx%d mesh', mesh.rank, *mesh.shape)
+  dist.barrier(group=mesh.world_control)
+  tc = config.train
+  model = make_model(config.model,
+                     generator=torch.Generator().manual_seed(tc.seed))
+  model = model.to(device)
+  state = create_state(model, make_optimizer(model, tc), make_schedule(tc))
+  Checkpointer(checkpoint_dir).restore(state)
+  return state
 
 
 def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
           max_steps=None, device='cuda'):
-  """Trains on one device and returns the final TrainState. device: CUDA
-  by default (raises without it); ``'cpu'`` runs the plain versions."""
+  """Trains and returns the final TrainState. device: CUDA by default
+  (raises without it; on a mesh, this rank's card, ``pm.rank_device``);
+  ``'cpu'`` runs the plain versions. Every rank of the process group
+  calls it with the same arguments."""
   tc = config.train
-  if tc.mesh_shape is not None and list(tc.mesh_shape) != [1, 1]:
-    raise NotImplementedError(
-        f'mesh_shape {tc.mesh_shape}: multi-GPU training is not ported '
-        '(ROADMAP M6); the port trains on one device')
-  device = resolve_device(device)
-  config.save(checkpoint_dir)
+  device = resolve_device(pm.rank_device(device))
+  mesh = _make_mesh(config)
+  if mesh is not None and not mesh.member:
+    return _sit_out(config, checkpoint_dir, mesh, device)
+  lead = mesh is None or mesh.lead
+  if lead:
+    config.save(checkpoint_dir)
 
   model = make_model(config.model,
                      generator=torch.Generator().manual_seed(tc.seed))
+  if mesh is not None and mesh.spatial > 1:
+    check_band(model)
   model = model.to(device)
   schedule = make_schedule(tc)
   state = create_state(model, make_optimizer(model, tc), schedule)
-  ckpt = Checkpointer(checkpoint_dir)
+  ckpt = Checkpointer(checkpoint_dir, mesh=mesh)
   if ckpt.restore(state) is not None:
     log.info('restored checkpoint at step %d', state.step)
+  pm.replicate(model, mesh)
 
-  pipeline = make_pipeline(data_dir, config.data)
-  log.info('training on %d samples from %s on %s', pipeline.nsamples,
-           data_dir, device)
+  data_cfg = config.data
+  if mesh is not None and data_cfg.data_threads != 1:
+    # One worker: the batches then follow from the seed alone, the same
+    # on every rank (several workers' order depends on thread timing).
+    data_cfg = Config.from_json(config.to_json()).data
+    data_cfg.data_threads = 1
+  pipeline = make_pipeline(data_dir, data_cfg)
+  log.info('training on %d samples from %s on %s%s', pipeline.nsamples,
+           data_dir, device, '' if mesh is None else
+           f', rank {mesh.rank} at {mesh.coords} of a mesh '
+           f'{dict(zip((pm.DATA_AXIS, pm.SPATIAL_AXIS), mesh.shape))} over '
+           f'{dist.get_backend()}')
   state.data_route, _, batches, state.resident_bytes = _batch_source(
-      pipeline, config.data, device, tc.seed,
-      lambda: _host_batches(pipeline, tc.seed, device))
+      pipeline, data_cfg, device, tc.seed,
+      lambda: _host_batches(pipeline, tc.seed, device, mesh), mesh)
   batches = batches()
+  band = None if mesh is None else mesh.band(data_cfg.output_resolution[0])[1]
   train_step = make_train_step(guide_reg=tc.guide_reg,
-                               guide_reg_target=tc.guide_reg_target)
+                               guide_reg_target=tc.guide_reg_target,
+                               mesh=mesh)
 
   eval_step = eval_batches = None
-  if eval_data_dir:
+  if eval_data_dir and lead:
     eval_cfg = _eval_config(config)
     eval_pipeline = make_pipeline(eval_data_dir, eval_cfg)
     eval_step = make_eval_step()
@@ -234,7 +311,7 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
         lambda: (to_device(raw, device)
                  for raw in eval_pipeline.batches(seed=0)))
 
-  summaries = SummaryWriter(checkpoint_dir)
+  summaries = SummaryWriter(checkpoint_dir) if lead else None
   last_log = last_summary = last_eval = time.time()
   m = {}
   limit = max_steps if max_steps is not None else tc.max_steps
@@ -250,13 +327,16 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
 
   runahead = collections.deque()
   profiler = None
+  # Whether every rank ended the loop normally, and so reaches the final
+  # save's barrier; after a failure no rank waits for the others.
+  ended = False
   try:
     for batch in batches:
       if limit is not None and state.step >= limit:
         break
-      if tc.profile_dir and state.step == 10 and profiler is None:
+      if lead and tc.profile_dir and state.step == 10 and profiler is None:
         profiler = _start_profiler(device)
-      state, m = train_step(state, batch)
+      state, m = train_step(state, batch, band)
       runahead.append(m['loss'])
       if len(runahead) >= RUNAHEAD:
         runahead.popleft().item()
@@ -264,12 +344,14 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
         _stop_profiler(profiler, tc.profile_dir)
         profiler = None
 
+      # Rank 0's own business (no collective inside), by its clock; the
+      # save, whose barrier every rank joins, is agreed in maybe_save.
       now = time.time()
-      if now - last_log >= tc.log_interval:
+      if lead and now - last_log >= tc.log_interval:
         log.info('Step %d | loss = %.4f | psnr = %.1f dB', state.step,
                  float(m['ema_loss']), float(m['ema_psnr']))
         last_log = now
-      if now - last_summary >= tc.summary_interval:
+      if lead and now - last_summary >= tc.summary_interval:
         lr = tc.learning_rate if schedule is None else schedule(state.step)
         summaries.write(state.step, loss=m['ema_loss'], psnr=m['ema_psnr'],
                         learning_rate=lr,
@@ -279,6 +361,7 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
       if eval_step and now - last_eval >= tc.eval_interval:
         run_eval(state.step)
         last_eval = now
+    ended = True
   except KeyboardInterrupt:
     log.info('interrupted')
   finally:
@@ -286,9 +369,11 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
     if profiler is not None:
       _stop_profiler(profiler, tc.profile_dir)
     log.info('training done at step %d, saving final checkpoint', state.step)
-    ckpt.save(state.step, state)
-  if m:
+    ckpt.save(state.step, state, sync=ended)
+  if m and lead:
     summaries.write(state.step, loss=m['ema_loss'], psnr=m['ema_psnr'])
+  if mesh is not None and ended:
+    dist.barrier(group=mesh.world_control)  # the ranks that sit out
   return state
 
 

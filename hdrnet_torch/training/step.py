@@ -11,6 +11,14 @@ are stateful.
 The whole step runs under :func:`full_float32`: cuDNN's forward and
 backward convolutions default to TF32 on the card, and the JAX package
 trains in full float32.
+
+On a mesh (``hdrnet_torch.parallel.mesh``; ``make_train_step(mesh=)``)
+the step takes this rank's share of the batch and its H-band, and is the
+one-process step of the global batch: each rank's loss is its part of
+the global mean, the gradients are summed over the mesh in one flat
+all-reduce after ``backward`` (a sum, not DDP's average: a spatial
+band's gradient is a part, not a sample), the batch norms reduce over
+their groups, and the metrics and EMAs are the global ones.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ import torch
 from torch import nn
 
 from hdrnet_torch.inference import full_float32
+from hdrnet_torch.models.hdrnet import check_band
+from hdrnet_torch.parallel.collectives import (all_reduce, all_reduce_grads,
+                                               all_reduce_sum_)
 from hdrnet_torch.training import metrics
 
 
@@ -88,11 +99,23 @@ def set_learning_rates(state):
     group['lr'] = lr * group.get('lr_scale', 1.0)
 
 
-def guide_range_hinge(guide, target):
+def guide_range_hinge(guide, target, mesh=None):
   """mean over images of relu(target - std(guide))^2, std with ddof 0
-  over each image's pixels."""
-  std = guide.reshape(guide.shape[0], -1).std(dim=1, correction=0)
-  return torch.mean(torch.relu(target - std) ** 2)
+  over each image's pixels. With a mesh, this rank's part of the global
+  mean: each image's sums (of g, then of (g - mean)^2) are summed over
+  'spatial' with the autograd all-reduce, and the part is the sum of its
+  images' hinges over the global image count times the spatial degree
+  (the spatial ranks hold the same images)."""
+  g = guide.reshape(guide.shape[0], -1)
+  if mesh is None:
+    std = g.std(dim=1, correction=0)
+    return torch.mean(torch.relu(target - std) ** 2)
+  n = g.shape[1] * mesh.spatial
+  mean = all_reduce(g.sum(dim=1), mesh.spatial_group) / n
+  var = all_reduce(torch.square(g - mean[:, None]).sum(dim=1),
+                   mesh.spatial_group) / n
+  hinge = torch.relu(target - torch.sqrt(var)) ** 2
+  return hinge.sum() / (g.shape[0] * mesh.data * mesh.spatial)
 
 
 def top_level_guides(model, intermediates):
@@ -108,8 +131,10 @@ def top_level_guides(model, intermediates):
   return guides
 
 
-def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
-  """Returns step(state, batch) -> (state, metrics dict of 0-dim tensors).
+def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2,
+                    mesh=None):
+  """Returns step(state, batch, band=None) -> (state, metrics dict of 0-dim
+  tensors).
 
   batch: tensors with the keys lowres_input, lowres_output (unused by the
   loss, as in the reference), image_input, image_output; integer dtypes
@@ -119,30 +144,44 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2):
   maps' hinges, as the JAX step takes it. It reads the guide maps the
   model sows at top level (``top_level_guides``), so a model with none
   raises ValueError.
+
+  mesh: None for one process; else this rank's Mesh, with `batch` its
+  share and `band` its H-band (``parallel.mesh.shard_batch``), and the
+  model readied by ``parallel.mesh.replicate``. Every rank of the mesh
+  must call the step together.
   """
 
-  def step(state, batch):
+  def step(state, batch, band=None):
     batch = normalize_batch(batch)
     model, opt = state.model, state.optimizer
     model.train()
     set_learning_rates(state)
+    kw = {}
+    if band is not None:
+      check_band(model)
+      kw['band'] = band
     with full_float32():
       target = batch['image_output']
       if guide_reg > 0.0:
         out, inter = model.forward_with_intermediates(
-            batch['lowres_input'], batch['image_input'])
+            batch['lowres_input'], batch['image_input'], **kw)
         guides = top_level_guides(model, inter)
-        hinges = [guide_range_hinge(g, guide_reg_target) for g in guides]
-        loss = (metrics.l2_loss(target, out)
+        hinges = [guide_range_hinge(g, guide_reg_target, mesh)
+                  for g in guides]
+        loss = (metrics.l2_loss(target, out, mesh)
                 + guide_reg * sum(hinges) / len(hinges))
       else:
-        out = model(batch['lowres_input'], batch['image_input'])
-        loss = metrics.l2_loss(target, out)
+        out = model(batch['lowres_input'], batch['image_input'], **kw)
+        loss = metrics.l2_loss(target, out, mesh)
       opt.zero_grad(set_to_none=True)
       loss.backward()
+      if mesh is not None:
+        all_reduce_grads(model.parameters(), mesh.group)
       opt.step()
     loss = loss.detach()
-    p = metrics.psnr(target, out.detach())
+    if mesh is not None:
+      loss = all_reduce_sum_(loss.clone(), mesh.group)
+    p = metrics.psnr(target, out.detach(), mesh)
     if state.step == 0:
       state.ema_loss, state.ema_psnr = loss, p
     else:

@@ -998,3 +998,48 @@ def test_train_device_data_on_card(cuda, tmp_path):
   assert (state.step, state.data_route) == (4, 'device')
   assert [a - b for a, b in zip(after, before)] == [4, 4, 4]
   assert torch.isfinite(state.ema_loss)
+
+
+@pytest.mark.parametrize('n_in', [3, 0, 8])
+@pytest.mark.parametrize('h,n_bands', [(256, 4), (200, 2), (64, 4)])
+def test_band_kernels_match_the_whole_frame(cuda, n_in, h, n_bands):
+  """K3, K4 and K5 with a band (y_off, h_total): K3's output and K4's
+  cotangents are the whole frame's rows bit for bit; K5's shares (its
+  own rows of the mirror-padded frame, and the frame's top or bottom
+  mirror rows at its ends) sum to the frame's cotangent within 1e-5 of
+  its largest value and agree with the plain shares at K5's gate. A
+  band's K5 plan is its own, not the plan of a frame of its height."""
+  rng = np.random.RandomState(h + n_in)
+  b, w, n_out = 2, 72, 3 if n_in else 12
+  g5 = torch.from_numpy(rng.randn(b, 16, 16, 8, n_out * (n_in + 1)).astype(
+      np.float32)).to(cuda)
+  guide = torch.from_numpy(rng.uniform(-0.1, 1.1, (b, h, w)).astype(
+      np.float32)).to(cuda)
+  image = torch.from_numpy(rng.rand(b, h, w, n_in).astype(np.float32)).to(
+      cuda)
+  ct = torch.from_numpy(rng.randn(b, h, w, n_out).astype(np.float32)).to(
+      cuda)
+  out = slice_apply.slice_apply_fwd(g5, guide, image)
+  d_guide, d_image = slice_apply.slice_apply_pix_bwd(g5, guide, image, ct)
+  d_grid = slice_apply.slice_apply_grid_bwd(g5.shape, guide, image, ct)
+  total = torch.zeros_like(d_grid)
+  per = h // n_bands
+  for i in range(n_bands):
+    rows = slice(i * per, (i + 1) * per)
+    band = (rows.start, h)
+    args = [t[:, rows].contiguous() for t in (guide, image, ct)]
+    assert torch.equal(slice_apply.slice_apply_fwd(g5, *args[:2], band=band),
+                       out[:, rows])
+    dg, di = slice_apply.slice_apply_pix_bwd(g5, *args, band=band)
+    assert torch.equal(dg, d_guide[:, rows])
+    if n_in:
+      assert torch.equal(di, d_image[:, rows])
+    share = slice_apply.slice_apply_grid_bwd(g5.shape, *args, band=band)
+    want = slice_apply.slice_apply_grid_bwd_plain(g5.shape, *args, band=band)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((share - want).abs().max()) <= 2e-4 * scale
+    assert slice_apply.grid_bwd_plan(g5.shape, args[0], band) != (
+        slice_apply.grid_bwd_plan(g5.shape, args[0]))
+    total += share
+  scale = float(d_grid.abs().max())
+  assert float((total - d_grid).abs().max()) <= 1e-5 * scale

@@ -4,8 +4,9 @@ The machine with the card has no JAX, so the port must import, serve
 (all three HDRNet models), run ``bin/run.py``'s per-image function,
 train, build, serve and train a feature model, a baseline and a style
 model of the zoo, run the tools (``bin/export.py``, ``bin/fit_grid.py``,
-``bin/viz_activations.py``), and build a local-Laplacian set and train
-on it from device memory without it: no module under ``hdrnet_torch/`` (nor
+``bin/viz_activations.py``), build a local-Laplacian set and train
+on it from device memory, and train on a mesh through ``bin/train.py``
+under torchrun's environment without it: no module under ``hdrnet_torch/`` (nor
 ``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
 module, even one that does not import JAX: the port keeps its own copy
 of what it needs (config, data pipeline, flag mapping).
@@ -180,6 +181,35 @@ loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
 assert not loaded, loaded
 print('device data without jax')
+
+# A mesh run: bin/train.py under torchrun's environment (a world of one
+# gloo rank) joins the process group and trains on a (1, 1) mesh.
+import socket
+import torch.distributed as dist
+with socket.socket() as sock:
+  sock.bind(('localhost', 0))
+  port = sock.getsockname()[1]
+os.environ.update(RANK='0', LOCAL_RANK='0', WORLD_SIZE='1',
+                  MASTER_ADDR='localhost', MASTER_PORT=str(port))
+work = tempfile.mkdtemp()
+try:
+  images.imwrite(os.path.join(work, 'input', 'a.png'), rng.rand(80, 96, 3))
+  images.imwrite(os.path.join(work, 'output', 'a.png'), rng.rand(80, 96, 3))
+  with open(os.path.join(work, 'filelist.txt'), 'w') as f:
+    f.write('a.png')
+  state = train.main([os.path.join(work, 'ckpt'), work, '--batch_size', '2',
+                      '--output_resolution', '64', '64', '--net_input_size',
+                      '32', '--spatial_bin', '8', '--luma_bins', '4',
+                      '--mesh_shape', '1', '1', '--max_steps', '2',
+                      '--device', 'cpu'])
+  assert dist.is_initialized() and state.step == 2, state.step
+  dist.destroy_process_group()
+finally:
+  shutil.rmtree(work, ignore_errors=True)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
+assert not loaded, loaded
+print('mesh training without jax')
 '''
 
 
@@ -193,6 +223,7 @@ def test_package_serves_with_jax_refused():
   assert 'zoo without jax' in proc.stdout
   assert 'tools without jax' in proc.stdout
   assert 'device data without jax' in proc.stdout
+  assert 'mesh training without jax' in proc.stdout
 
 
 def test_entry_points_refuse_a_missing_card():

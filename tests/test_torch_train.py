@@ -288,15 +288,17 @@ def test_normalize_batch_matches_jax():
 
 
 def test_train_refuses_what_is_not_ported(dataset, tmp_path):
-  """Multi-device meshes are refused (ROADMAP M6); the device-resident
-  data path is ported and trains (tests/test_torch_device_data.py)."""
+  """A mesh larger than the world of processes is refused (one process
+  here: the multi-process meshes are tests/test_torch_mesh_train.py's);
+  the device-resident data path is ported and trains
+  (tests/test_torch_device_data.py)."""
   cfg = _config(1)
   cfg.data.device_data = True
   state = loop.train(cfg, str(tmp_path / 'a'), str(dataset), device='cpu')
   assert (state.step, state.data_route) == (1, 'device')
   cfg = _config(1)
   cfg.train.mesh_shape = [2, 1]
-  with pytest.raises(NotImplementedError, match='M6'):
+  with pytest.raises(ValueError, match='needs 2 processes; the world has 1'):
     loop.train(cfg, str(tmp_path / 'b'), str(dataset), device='cpu')
 
 

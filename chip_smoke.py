@@ -99,6 +99,17 @@ process group; and ``python -m torch.distributed.run --nproc_per_node 1
 this script in its worker mode (``chip_smoke.py --mesh_worker SPEC``,
 started by torchrun), with the kernels built by this process first.
 
+The native deployment path (``hdrnet_torch/native``): the ``hdrnet::``
+op library and the C++ runner built with g++; a seeded ``HDRNetCurves``
+exported by ``bin/export.py``'s ``main`` with ``--aoti`` at 1080p and
+``HDRNetPointwiseNNGuide``'s ``serve_fn`` compiled the same way; each
+AOTInductor package (``coefficients_fn``, ``enhance_fn``, ``serve_fn``,
+``stream_fn``; the NN guide's ``serve_fn``) served by ``aoti_serve`` in a
+subprocess with no Python in it, held to the eager Enhancer, its op
+library's launches of K1, K2, K3 and K6 checked against the graph's and
+added to the kernels line; the runner's ``serve_fn`` timed in turns with
+the Python ``load_artifact`` graph's.
+
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
 object describing each kernel (its launches on the path that runs it,
@@ -1108,6 +1119,162 @@ def _check_export(dev, tag, gen, slice_launches):
         f'turns direct / op / op / direct '
         f'{" / ".join(f"{t:.2f}" for t in turns)}', flush=True)
   return turns
+
+
+NATIVE_DIR = 'build/chip_smoke_native'
+NATIVE_BURN, NATIVE_ITERS = 3, 20
+NATIVE_TIMEOUT_S = 300
+# The op library's counters (hdrnet_ops.cc) by kernel.
+NATIVE_KERNELS = {'nearest_lowres': 'K2', 'enhance_fused_curves': 'K1',
+                  'enhance_fused_nn': 'K6', 'slice_apply_fwd': 'K3'}
+
+
+def _native_run(package, inputs, out_path, what):
+  """Runs the native runner on `package` with the op library, the inputs
+  as raw files; returns its report. Raises on a non-zero exit."""
+  from hdrnet_torch import native
+  paths = []
+  for i, x in enumerate(inputs):
+    path = f'{out_path}.in{i}.bin'
+    x.cpu().numpy().tofile(path)
+    paths.append(path)
+  cmd = native.serve_command(package, inputs=paths, output=out_path,
+                             burn=NATIVE_BURN, iters=NATIVE_ITERS)
+  proc = subprocess.run(cmd, capture_output=True, text=True,
+                        timeout=NATIVE_TIMEOUT_S, check=False)
+  if proc.returncode:
+    raise AssertionError(f'aoti_serve {what}: exit {proc.returncode}: '
+                         f'{proc.stderr[-2000:]}')
+  return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _native_serving(dev, tag):
+  """The native deployment path (hdrnet_torch/native): the op library and
+  the runner built; a seeded HDRNetCurves checkpoint exported by
+  bin/export.py's main with --aoti at 1080p (coefficients_fn, enhance_fn,
+  serve_fn, stream_fn compiled by AOTInductor) and HDRNetPointwiseNNGuide's
+  serve_fn; each package served by aoti_serve in a subprocess (no Python
+  in it) on seeded inputs and held to the eager Enhancer (float32 within
+  K1_TOL, uint8 within one code on fewer than 1% of values; Inductor may
+  order the glue around the kernels another way); the op library's
+  launch counts checked against the graphs' kernels a run; the runner's
+  serve_fn forward against the Python load_artifact serve_fn in turns.
+  Returns {kernel id: launches in the runner}."""
+  import shutil
+  from hdrnet_torch import native
+  from hdrnet_torch.bin import export
+  from hdrnet_torch.inference import Enhancer, full_float32
+  t0 = time.perf_counter()
+  built = native.build()
+  print(f'native build: op library {built[native.OPS_LIBRARY].seconds:.1f} '
+        f's, runner {built[native.RUNNER].seconds:.1f} s (g++, together; '
+        f'{time.perf_counter() - t0:.1f} s with the kernels\' library)',
+        flush=True)
+  shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+  curves_dir, nn_dir = f'{NATIVE_DIR}/HDRNetCurves', f'{NATIVE_DIR}/{NN}'
+  _seeded_checkpoint(curves_dir, 'HDRNetCurves', 31)
+  t0 = time.perf_counter()
+  export.main([curves_dir, '--fullres', *map(str, FHD), '--aoti'])
+  export_s = time.perf_counter() - t0
+  _seeded_checkpoint(nn_dir, NN, 32)
+  nn_enh = Enhancer.from_checkpoint(nn_dir, device=dev)
+  t0 = time.perf_counter()
+  fn, example, dynamic = export.serving_functions(nn_enh, FHD)['serve_fn']
+  export.export_function(nn_enh, 'serve_fn', fn, example, dynamic, nn_dir,
+                         aoti=True)
+  nn_export_s = time.perf_counter() - t0
+  enh = Enhancer.from_checkpoint(curves_dir, device=dev)
+
+  rng = np.random.RandomState(11)
+  low = torch.from_numpy(rng.rand(1, 256, 256, 3).astype(np.float32)).to(dev)
+  full = torch.from_numpy(rng.rand(1, *FHD, 3).astype(np.float32)).to(dev)
+  full8 = torch.from_numpy(
+      rng.randint(0, 256, (1, *FHD, 3)).astype(np.uint8)).to(dev)
+  with torch.no_grad(), full_float32():
+    cases = [
+        (curves_dir, 'coefficients_fn', (low,),
+         export.coefficients_function(enh)(low), {}),
+        (curves_dir, 'enhance_fn', (low, full),
+         enh._composite_forward(low, full, clip=True),
+         {'slice_apply_fwd': 1}),
+        (curves_dir, 'serve_fn', (low, full), enh(low, full),
+         {'enhance_fused_curves': 1}),
+        (curves_dir, 'stream_fn', (full8,),
+         enh.make_stream_fn(full8.shape)(full8),
+         {'nearest_lowres': 1, 'enhance_fused_curves': 1}),
+        (nn_dir, 'serve_fn', (low, full), nn_enh(low, full),
+         {'enhance_fused_nn': 1})]
+  torch.cuda.synchronize()
+  runs = NATIVE_BURN + NATIVE_ITERS
+  launches = {k: 0 for k in NATIVE_KERNELS.values()}
+  lines, reports = [], {}
+  for directory, name, args, want, per_run in cases:
+    model = os.path.basename(directory)
+    package = f'{directory}/{name}.aoti.pt2'
+    out_path = f'{directory}/{name}.out.bin'
+    report = _native_run(package, args, out_path, f'{model} {name}')
+    got = torch.from_numpy(np.fromfile(out_path, dtype=np.uint8 if
+                                       want.dtype == torch.uint8 else
+                                       np.float32).reshape(want.shape))
+    want = want.cpu()
+    if want.dtype == torch.uint8:
+      worst, share = _u8_check(got, want, f'aoti_serve {model} {name}')
+      err = f'u8 max {worst} codes, {int((got != want).sum())} values differ '
+      err += f'({share:.4%})'
+    else:
+      err = f'max abs err {_max_err(got, want, K1_TOL, name):.3e}'
+    calls = report['hdrnet_op_calls']
+    expect = {k: per_run.get(k, 0) * runs for k in NATIVE_KERNELS}
+    if calls != expect:
+      raise AssertionError(f'aoti_serve {model} {name}: op calls {calls}; '
+                           f'expected {expect}')
+    for k, n in calls.items():
+      launches[NATIVE_KERNELS[k]] += n
+    reports[model, name] = report
+    lines.append(f'{model} {name}: {err} vs the eager Enhancer, op calls '
+                 f'{ {k: v for k, v in calls.items() if v} }, load '
+                 f'{report["compile_ms"]:.1f} ms, upload '
+                 f'{report["upload_ms"]:.3f} ms, forward '
+                 f'{report["forward_ms_per_iter"]:.4f} ms a run, readback '
+                 f'{report["readback_ms"]:.3f} ms')
+
+  # The runner's serve_fn forward in turns with the Python artifact's,
+  # each by the host clock over NATIVE_ITERS runs ended by a synchronize.
+  served = export.load_artifact(f'{curves_dir}/serve_fn.pt2')
+
+  def python_ms():
+    for _ in range(NATIVE_BURN):
+      served(low, full)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(NATIVE_ITERS):
+      served(low, full)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / NATIVE_ITERS
+
+  def runner_ms():
+    return _native_run(f'{curves_dir}/serve_fn.aoti.pt2', (low, full),
+                       f'{curves_dir}/serve_fn.turn.bin',
+                       'serve_fn turn')['forward_ms_per_iter']
+
+  turns = [python_ms(), runner_ms(), runner_ms(), python_ms()]
+  rep = reports['HDRNetCurves', 'serve_fn']
+  print(f'native serving (bin/export.py --aoti at 1080x1920, seeded default '
+        f'widths; export {export_s:.1f} s for HDRNetCurves, {nn_export_s:.1f} '
+        f's for the NN guide\'s serve_fn; aoti_serve with libhdrnet_ops.so, '
+        f'burn {NATIVE_BURN}, {NATIVE_ITERS} runs): ' + '; '.join(lines)
+        + f'; launches in the runner {launches}', flush=True)
+  print(f'timing {tag}: HDRNetCurves serve_fn at 1080p, ms a run in turns '
+        f'Python load_artifact / aoti_serve / aoti_serve / Python '
+        f'{" / ".join(f"{t:.4f}" for t in turns)} (host clock over '
+        f'{NATIVE_ITERS} runs, synchronized); aoti_serve stages init '
+        f'{rep["init_ms"]:.3f} ms, load {rep["compile_ms"]:.1f} ms, upload '
+        f'{rep["upload_ms"]:.3f} ms, forward {rep["forward_ms_per_iter"]:.4f} '
+        f'ms, readback {rep["readback_ms"]:.3f} ms, {rep["fps"]:.1f} fps',
+        flush=True)
+  del served, enh, nn_enh
+  shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+  return launches
 
 
 def _fit_grads(fit_grid, pair, where):
@@ -2838,11 +3005,19 @@ def main():
                            slice_launches, gen, full_float32)
   import shutil
   shutil.rmtree(QUALITY_DIR, ignore_errors=True)
+
+  # 23. The native deployment path: AOTInductor packages served by the C++
+  # runner, whose op library launches K1, K2, K3 and K6; its counts start
+  # at 0 in the runner's process and are read from its report.
+  native = _native_serving(dev, tag)
+  launches['K1'] += native['K1']
+  launches['K2'] += native['K2']
+  _tally_slice(slice_launches, native['K3'])
   print(f'K3/K4/K5 launches on the paths (train steps, evaluate, export, '
         f'fit_grid, the zoo\'s steps and frames, the quality, usm and '
-        f'style-transfer workloads, the mesh runs of every rank): '
-        f'{slice_launches}; K1 and K2 with the quality run\'s evaluate (K1 '
-        f'only): {launches}', flush=True)
+        f'style-transfer workloads, the mesh runs of every rank, the native '
+        f'runner): {slice_launches}; K1 and K2 with the quality run\'s '
+        f'evaluate (K1 only) and the native runner: {launches}', flush=True)
 
   # The least time each kernel could take at the shapes it was timed at.
   k1_bound = _fused_bound(g4k, x4k, params, CURVES_GUIDE_OPS)
@@ -2867,7 +3042,8 @@ def main():
       ('K6', 'K6 enhance_fused nn (NN guide + slice + apply)',
        'hdrnet_torch/csrc/fused_slice_apply.cu',
        'hdrnet_tpu/ops/pallas.py:529',
-       nn_launches['K6'] + pyr_launches['K6'], k6_err, 'K6 f32'),
+       nn_launches['K6'] + pyr_launches['K6'] + native['K6'], k6_err,
+       'K6 f32'),
       ('K7', 'K7 enhance_fused band (offset and total extent of K1/K6; '
        'timed on four 1080-row NN gc-16 bands of an 8K frame)',
        'hdrnet_torch/csrc/fused_slice_apply.cu',

@@ -28,9 +28,19 @@ eager ``Enhancer``. Produces in the output directory:
     for the NN guides, freeze_graph.py:127-184), for the reference
     renderer (benchmark/src/renderer.cc:197-224).
 
-The JAX export also writes ``.mlir`` StableHLO and ``compile_options.pb``
-for its native PJRT driver; the port's native driver is not written yet
-(ROADMAP, M8), so neither is produced here.
+With ``--aoti``, each graph is also compiled ahead of time by
+AOTInductor (``torch._inductor.aoti_compile_and_package``, for
+``--device``, under ``full_float32()``) into ``<name>.aoti.pt2``, which
+the native runner ``hdrnet_torch/native/aoti_serve.cc`` serves with no
+Python in the process: the port's counterpart of the ``.mlir``
+StableHLO and ``compile_options.pb`` that the JAX export writes for its
+``pjrt_serve``. The manifest records the package and its device under
+``"aoti"``. A package names the ``hdrnet::`` ops its graph calls, and the
+runner needs them registered in C++ (``native/hdrnet_ops.cc``, CUDA
+only), which holds ``nearest_lowres``, ``enhance_fused`` and
+``slice_apply_fwd``; so ``serve_any_fn`` (H and W dynamic) and the graphs
+that call ``hdrnet::resize_bilinear`` (the pyramid's) get no package, and
+the export logs why.
 
 A graph does not carry torch's TF32 switches, and torch's default runs
 float32 cuDNN convolutions in TF32 (``cudnn.allow_tf32 = True``), which
@@ -43,7 +53,7 @@ an artifact: ``import hdrnet_torch.ops`` (which registers the ops),
 the manifest's switches set. ``load_artifact`` does all three.
 
   python -m hdrnet_torch.bin.export ckpt/ [--output_dir out/]
-      [--fullres 1080 1920] [--device cuda]
+      [--fullres 1080 1920] [--device cuda] [--aoti]
 """
 
 from __future__ import annotations
@@ -58,7 +68,8 @@ import numpy as np
 import torch
 
 import hdrnet_torch.ops  # noqa: F401  (registers the hdrnet:: ops)
-from hdrnet_torch.inference import Enhancer
+from hdrnet_torch import native
+from hdrnet_torch.inference import Enhancer, full_float32
 from hdrnet_torch.models import require_top_level_grid
 from hdrnet_torch.models.layers import BN_EPS
 
@@ -205,8 +216,35 @@ def _avals(nodes, names):
           for n in nodes]
 
 
-def export_function(enh, name, fn, example, dynamic, out_dir):
-  """Traces `fn` on `example`, saves ``<name>.pt2`` and its manifest;
+def aoti_skip_reason(name, program):
+  """Why the graph `name` gets no AOTInductor package, or None: the native
+  runner serves static shapes, and the op library registers every
+  ``hdrnet::`` op but the bilinear resize."""
+  if name == 'serve_any_fn':
+    return 'its H and W are dynamic'
+  if 'hdrnet.resize_bilinear.default' in hdrnet_ops(program):
+    return 'it calls hdrnet::resize_bilinear, which the native op library ' \
+           'does not register'
+  return None
+
+
+def aoti_package(program, name, out_dir, device):
+  """Compiles `program` with AOTInductor for `device` under full float32
+  into ``<name>.aoti.pt2``; returns the manifest's ``"aoti"`` record."""
+  from torch._inductor import aoti_compile_and_package, config
+  path = os.path.join(out_dir, f'{name}.aoti.pt2')
+  # Inductor builds the package's C++ wrapper with OpenMP: with the g++
+  # that builds the native runner, not a compiler named by CXX that may
+  # lack OpenMP.
+  with full_float32(), config.patch({'cpp.cxx': (None, native.cxx())}):
+    aoti_compile_and_package(program, package_path=path)
+  return {'package': os.path.basename(path),
+          'device': torch.device(device).type}
+
+
+def export_function(enh, name, fn, example, dynamic, out_dir, aoti=False):
+  """Traces `fn` on `example`, saves ``<name>.pt2`` and its manifest (with
+  `aoti`, also ``<name>.aoti.pt2``, where ``aoti_skip_reason`` allows);
   returns the ExportedProgram."""
   module = _Function(enh, fn).eval()
   with torch.no_grad():
@@ -226,10 +264,17 @@ def export_function(enh, name, fn, example, dynamic, out_dir):
   manifest = {'name': name, 'inputs': _avals(inputs, names),
               'outputs': _avals(graph.output_node().args[0], names),
               'precision': PRECISION}
+  if aoti:
+    reason = aoti_skip_reason(name, program)
+    if reason is None:
+      manifest['aoti'] = aoti_package(program, name, out_dir, enh.device)
+    else:
+      log.info('%s: no AOTInductor package: %s', name, reason)
   with open(os.path.join(out_dir, f'{name}.manifest.json'), 'w') as f:
     json.dump(manifest, f, indent=2)
-  log.info('wrote %s{.pt2,.manifest.json} (out %s)',
-           os.path.join(out_dir, name), manifest['outputs'])
+  log.info('wrote %s{.pt2,%s.manifest.json} (out %s)',
+           os.path.join(out_dir, name),
+           '.aoti.pt2,' if 'aoti' in manifest else '', manifest['outputs'])
   return program
 
 
@@ -287,6 +332,10 @@ def main(argv=None):
   parser.add_argument('--device', default='cuda',
                       help="torch device the graphs run on ('cpu' for the "
                            'plain versions of the kernels)')
+  parser.add_argument('--aoti', action='store_true',
+                      help='also compile each graph with AOTInductor into '
+                           '<name>.aoti.pt2 for the native runner '
+                           '(hdrnet_torch/native)')
   args = parser.parse_args(argv)
   out_dir = args.output_dir or args.checkpoint_dir
   os.makedirs(out_dir, exist_ok=True)
@@ -296,7 +345,7 @@ def main(argv=None):
   for name, (fn, example, dynamic) in serving_functions(
       enh, args.fullres).items():
     programs[name] = export_function(enh, name, fn, example, dynamic,
-                                     out_dir)
+                                     out_dir, aoti=args.aoti)
     log.info('%s calls %s', name, hdrnet_ops(programs[name]))
   dump_guide_params(enh.model.state_dict(), enh.model_cfg.model_name,
                     out_dir)

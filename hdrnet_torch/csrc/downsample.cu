@@ -29,6 +29,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launchers.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_unit(float v) { return v; }

@@ -43,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "launchers.cuh"
+
 namespace {
 
 constexpr int kTile = 16;           // output rows and columns a warp

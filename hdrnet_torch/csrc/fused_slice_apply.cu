@@ -99,6 +99,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "launchers.cuh"
 #include "slice_common.cuh"
 #include "slice_tile.cuh"
 

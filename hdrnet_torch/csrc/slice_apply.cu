@@ -125,6 +125,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launchers.cuh"
 #include "slice_common.cuh"
 #include "slice_tile.cuh"
 

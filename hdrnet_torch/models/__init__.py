@@ -18,7 +18,7 @@ MODELS = {
 }
 
 __all__ = list(MODELS) + ['MODELS', 'CoefficientBackbone', 'make_model',
-                          'require_top_level_grid']
+                          'register', 'require_top_level_grid']
 
 
 def make_model(cfg, generator=None):
@@ -30,6 +30,12 @@ def make_model(cfg, generator=None):
         f'unknown model {cfg.model_name!r}; choices: {sorted(MODELS)}'
     ) from None
   return cls(cfg, generator=generator)
+
+
+def register(name, cls):
+  """Extension hook for new model families: ``make_model`` builds `cls`
+  for a ModelConfig whose model_name is `name`."""
+  MODELS[name] = cls
 
 
 def require_top_level_grid(model, what):

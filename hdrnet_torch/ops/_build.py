@@ -6,6 +6,8 @@ library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``build/hdrnet_torch/<hash>/`` at the root of
 the checkout, keyed by a hash of the sources (``*.cu`` and ``*.cuh``) and
 flags, so a fresh checkout builds once and an edited source rebuilds.
+``compile_parallel`` and ``install`` are the build steps that
+``hdrnet_torch.native`` shares for its ``g++`` builds.
 
 No ``--use_fast_math``: the kernels rely on IEEE division (u8 / 255),
 IEEE ``sqrt`` (the smoothed depth tent) and the accurate ``expf`` (the NN
@@ -22,6 +24,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -33,7 +36,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# extern "C" launchers in csrc/*.cu; each returns its cudaGetLastError().
+# The extern "C" launchers of csrc/launchers.cuh; each returns its
+# cudaGetLastError().
 _SIGNATURES = {
     # frame, u8, iy, ix, out, b, h, w, c, s, stream
     'hdrnet_nearest_lowres': (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -105,40 +109,58 @@ def _source_hash(csrc=CSRC):
   return h.hexdigest()[:16]
 
 
+def _run(cmd):
+  t0 = time.perf_counter()
+  proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True, check=False)
+  return proc, time.perf_counter() - t0
+
+
+def compile_parallel(cmds, compiler):
+  """Runs the compiler commands `cmds` (each names its output after
+  ``-o``), all started together, and waits for every one. Returns [(log, seconds)] in their order, each log the
+  command and its output; raises with the logs if any failed."""
+  with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+    runs = list(pool.map(_run, cmds))
+  logs = [' '.join(cmd) + '\n' + proc.stdout
+          for cmd, (proc, _) in zip(cmds, runs)]
+  failed = [cmd[cmd.index('-o') + 1] for cmd, (proc, _) in zip(cmds, runs)
+            if proc.returncode]
+  if failed:
+    raise RuntimeError(f'{compiler} failed to build {failed}:\n' +
+                       '\n'.join(logs))
+  return [(log, seconds) for log, (_, seconds) in zip(logs, runs)]
+
+
+def temporary(path):
+  """Where a build writes `path` before ``install`` moves it there."""
+  return path.with_name(f'{path.name}.{os.getpid()}.tmp')
+
+
+def install(path, log):
+  """Writes `log` to build.log beside `path` and moves ``temporary(path)``
+  to `path` (atomic: readers never see a partial file)."""
+  (path.parent / 'build.log').write_text(log)
+  os.replace(temporary(path), path)
+
+
 def _build(out_dir, srcs):
   """One nvcc per source, all at once, then one link. Returns the
   compilers' output (ptxas resource usage included) and the seconds."""
   nvcc = find_nvcc()
   out_dir.mkdir(parents=True, exist_ok=True)
-  tag = os.getpid()
   t0 = time.perf_counter()
-  objs, procs, log = [], [], []
-  for src in srcs:
-    obj = out_dir / f'{src.stem}.{tag}.o'
-    cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
-    procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT,
-                                        text=True)))
-    objs.append(obj)
-  failed = False
-  for cmd, proc in procs:
-    out, _ = proc.communicate()
-    log.append(' '.join(cmd) + '\n' + out)
-    failed |= proc.returncode != 0
-  if failed:
-    raise RuntimeError('nvcc failed:\n' + '\n'.join(log))
-  tmp = out_dir / f'{LIB_NAME}.{tag}.tmp'
-  cmd = [nvcc, '-shared', '-o', str(tmp), *map(str, objs)]
-  proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-  log.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-  log = '\n'.join(log)
-  if proc.returncode:
-    raise RuntimeError(f'nvcc link failed ({proc.returncode}):\n{log}')
+  objs = [out_dir / f'{src.stem}.{os.getpid()}.o' for src in srcs]
+  logs = compile_parallel([[nvcc, *NVCC_FLAGS, '-o', str(obj), '-c', str(src)]
+                           for src, obj in zip(srcs, objs)], 'nvcc')
+  path = out_dir / LIB_NAME
+  logs += compile_parallel([[nvcc, '-shared', '-o', str(temporary(path)),
+                             *map(str, objs)]], 'nvcc (link)')
   seconds = time.perf_counter() - t0
   for obj in objs:
     obj.unlink()
-  (out_dir / 'build.log').write_text(log)
-  os.replace(tmp, out_dir / LIB_NAME)  # atomic: readers never see a partial
+  log = '\n'.join(log for log, _ in logs)
+  install(path, log)
   return log, seconds
 
 

@@ -7,7 +7,9 @@ ema_loss, ema_psnr}``, the model's state dict holding the batch-norm
 statistics. Writes go to a temporary file first and are renamed into
 place, so a reader never sees a partial file. The newest ``max_to_keep``
 are kept; ``restore`` loads the latest into a state built from the same
-config. Reading the JAX package's orbax checkpoints is not ported.
+config. A checkpoint of the JAX package (orbax) is converted once into
+this format by ``scripts/convert_jax_checkpoint.py``, where JAX is
+installed; the port then serves and resumes it as its own.
 
 On a mesh (``Checkpointer(..., mesh=)``, every rank holding the same
 state) rank 0 writes, every rank restores from the shared directory, and

@@ -1043,3 +1043,53 @@ def test_band_kernels_match_the_whole_frame(cuda, n_in, h, n_bands):
     total += share
   scale = float(d_grid.abs().max())
   assert float((total - d_grid).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize('name,mode', [('HDRNetCurves', 'curves'),
+                                       ('HDRNetPointwiseNNGuide', 'nn')])
+def test_native_runner_serves_cuda_package(cuda, name, mode, tmp_path):
+  """The native runner (hdrnet_torch/native) on an AOTInductor serve_fn
+  package compiled for the card: the op library launches K1 (or K6) once
+  a run, and the output is the eager Enhancer's within 1e-4 (Inductor may
+  order the glue around the kernel another way)."""
+  import json
+  import subprocess
+  from hdrnet_torch import native
+  from hdrnet_torch.bin import export
+  from hdrnet_torch.config import Config, TrainConfig
+  from hdrnet_torch.training import loop, step
+  from hdrnet_torch.training.checkpoint import Checkpointer
+  cfg = Config(model=ModelConfig(model_name=name, net_input_size=64,
+                                 spatial_bin=8, luma_bins=4,
+                                 guide_complexity=4), train=TrainConfig())
+  model = Enhancer(cfg.model, device='cpu', seed=3).model
+  cfg.save(str(tmp_path))
+  Checkpointer(str(tmp_path)).save(0, step.create_state(
+      model, loop.make_optimizer(model, cfg.train)))
+  enh = Enhancer.from_checkpoint(str(tmp_path), device=cuda)
+  fn, example, dynamic = export.serving_functions(enh, (96, 128))['serve_fn']
+  export.export_function(enh, 'serve_fn', fn, example, dynamic,
+                         str(tmp_path), aoti=True)
+  rng = np.random.RandomState(4)
+  low = rng.rand(1, 64, 64, 3).astype(np.float32)
+  full = rng.rand(1, 96, 128, 3).astype(np.float32)
+  low.tofile(tmp_path / 'low.bin')
+  full.tofile(tmp_path / 'full.bin')
+  cmd = native.serve_command(
+      tmp_path / 'serve_fn.aoti.pt2',
+      inputs=[tmp_path / 'low.bin', tmp_path / 'full.bin'],
+      output=tmp_path / 'out.bin', burn=1, iters=2)
+  r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                     check=False)
+  assert r.returncode == 0, r.stderr
+  report = json.loads(r.stdout.strip())
+  assert report['device'] == 'cuda'
+  kernel = f'enhance_fused_{mode}'
+  assert report['hdrnet_op_calls'] == {
+      k: 3 if k == kernel else 0 for k in ('nearest_lowres',
+                                           'enhance_fused_curves',
+                                           'enhance_fused_nn',
+                                           'slice_apply_fwd')}
+  want = enh(torch.from_numpy(low).to(cuda), torch.from_numpy(full).to(cuda))
+  got = np.fromfile(tmp_path / 'out.bin', np.float32).reshape(want.shape)
+  np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0, atol=1e-4)

@@ -1,7 +1,8 @@
 """hdrnet_torch never imports JAX, nor anything of ``hdrnet_tpu``.
 
 The machine with the card has no JAX, so the port must import, serve
-(all three HDRNet models), run ``bin/run.py``'s per-image function,
+(all three HDRNet models, and a checkpoint of the JAX package converted
+by ``scripts/convert_jax_checkpoint.py``, which it also restores), run ``bin/run.py``'s per-image function,
 train, build, serve and train a feature model, a baseline and a style
 model of the zoo, run the tools (``bin/export.py``, ``bin/fit_grid.py``,
 ``bin/viz_activations.py``), build a local-Laplacian set and train
@@ -16,6 +17,8 @@ import ast
 import pathlib
 import subprocess
 import sys
+
+import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = REPO / 'hdrnet_torch'
@@ -82,11 +85,22 @@ for name in ('HDRNetPointwiseNNGuide', 'HDRNetGaussianPyrNN'):
   assert out.shape == (1, 41, 47, 3), (name, out.shape)
 out, _ = enhance_image(enh, np.random.rand(37, 53, 3).astype(np.float32))
 assert out.shape == (1, 37, 53, 3), out.shape
-print('served without jax')
-
-from hdrnet_torch.config import TrainConfig
+# A checkpoint that the JAX package trained, converted by
+# scripts/convert_jax_checkpoint.py (argv[1]): served and restored.
+from hdrnet_torch.config import Config, TrainConfig
 from hdrnet_torch.models import make_model
 from hdrnet_torch.training import loop, step
+from hdrnet_torch.training.checkpoint import Checkpointer
+converted = sys.argv[1]
+out = Enhancer.from_checkpoint(converted, device='cpu').process(
+    torch.rand(1, 40, 48, 3))
+assert out.shape == (1, 40, 48, 3), out.shape
+ccfg = Config.load(converted)
+cmodel = make_model(ccfg.model)
+cstate = step.create_state(cmodel, loop.make_optimizer(cmodel, ccfg.train))
+assert Checkpointer(converted).restore(cstate).step == 3, cstate.step
+print('served without jax')
+
 model = make_model(cfg, generator=torch.Generator().manual_seed(0))
 state = step.create_state(model, loop.make_optimizer(model, TrainConfig()))
 batch = {{'lowres_input': torch.randint(0, 256, (2, 64, 64, 3),
@@ -130,9 +144,7 @@ print('zoo without jax')
 
 import os, shutil, tempfile
 from hdrnet_torch.bin import export, fit_grid, viz_activations
-from hdrnet_torch.config import Config
 from hdrnet_torch.data import images
-from hdrnet_torch.training.checkpoint import Checkpointer
 work = tempfile.mkdtemp()
 try:
   Config(model=cfg).save(work)
@@ -213,8 +225,26 @@ print('mesh training without jax')
 '''
 
 
-def test_package_serves_with_jax_refused():
-  proc = subprocess.run([sys.executable, '-c', _BLOCKED_RUN], cwd=REPO,
+@pytest.fixture()
+def converted_checkpoint(tmp_path):
+  """A checkpoint of the JAX package's training (HDRNetCurves, tiny
+  widths, 3 steps), converted by scripts/convert_jax_checkpoint.py in this
+  process, where JAX may be imported."""
+  import jax_checkpoints
+  from hdrnet_tpu.config import Config, DataConfig, ModelConfig
+  cfg = Config(model=ModelConfig(net_input_size=32, spatial_bin=8,
+                                 luma_bins=4),
+               data=DataConfig(output_resolution=[64, 64],
+                               net_input_size=32))
+  jax_checkpoints.write(tmp_path / 'jax', cfg)
+  jax_checkpoints.converter().main([str(tmp_path / 'jax'),
+                                    str(tmp_path / 'port')])
+  return str(tmp_path / 'port')
+
+
+def test_package_serves_with_jax_refused(converted_checkpoint):
+  proc = subprocess.run([sys.executable, '-c', _BLOCKED_RUN,
+                         converted_checkpoint], cwd=REPO,
                         capture_output=True, text=True, timeout=300,
                         check=False)
   assert proc.returncode == 0, proc.stdout + proc.stderr

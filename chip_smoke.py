@@ -99,16 +99,26 @@ process group; and ``python -m torch.distributed.run --nproc_per_node 1
 this script in its worker mode (``chip_smoke.py --mesh_worker SPEC``,
 started by torchrun), with the kernels built by this process first.
 
+The quality-triage tools: ``hdrnet_torch.scripts.guide_stats`` and
+``diagnose_pyramid`` on the pyramid checkpoint of the 2048^2 training
+phase over two images of the quality set (their K3 launches counted),
+held to the same runs with ``--device cpu``.
+
 The native deployment path (``hdrnet_torch/native``): the ``hdrnet::``
-op library and the C++ runner built with g++; a seeded ``HDRNetCurves``
-exported by ``bin/export.py``'s ``main`` with ``--aoti`` at 1080p and
-``HDRNetPointwiseNNGuide``'s ``serve_fn`` compiled the same way; each
-AOTInductor package (``coefficients_fn``, ``enhance_fn``, ``serve_fn``,
-``stream_fn``; the NN guide's ``serve_fn``) served by ``aoti_serve`` in a
-subprocess with no Python in it, held to the eager Enhancer, its op
-library's launches of K1, K2, K3 and K6 checked against the graph's and
-added to the kernels line; the runner's ``serve_fn`` timed in turns with
-the Python ``load_artifact`` graph's.
+op library (the kernel-backed ops and ``hdrnet::resize_bilinear`` in
+C++) and the C++ runner built with g++; a seeded ``HDRNetCurves``
+exported by ``bin/export.py``'s ``main`` with ``--aoti`` at 1080p, and
+``HDRNetPointwiseNNGuide``'s ``serve_fn``, ``HDRNetGaussianPyrNN``'s
+``enhance_fn``, ``serve_fn``, ``stream_fn`` and ``serve_any_fn`` and
+``HDRNetFeaturesPyrNN3``'s (cm 2) ``stream_fn`` compiled the same way;
+each AOTInductor package served by ``aoti_serve`` in a subprocess with
+no Python in it, the two ``serve_any_fn`` packages at 723x1085 and
+2160x3840 through ``--dim``, held to the eager Enhancer, its op
+library's launches of K1, K2, K3 and K6 and calls of the resize checked
+against the graph's own nodes and the launches added to the kernels
+line; the pyramid's package refused without the op library; the
+runner's ``serve_fn`` and ``serve_any_fn`` timed in turns with the
+Python ``load_artifact`` graph's.
 
 Each phase prints one line and raises on failure. The last three lines
 are the card's name and power limit as nvidia-smi gives them, a JSON
@@ -697,13 +707,15 @@ def _check_resume(cfg, state, fresh, batch, train_step, ckpt_dir, what):
 
 
 def _train_full_width(dev, tag, enh_cls, slice_launches,
-                      model_name='HDRNetCurves', steps=TRAIN_STEPS):
+                      model_name='HDRNetCurves', steps=TRAIN_STEPS,
+                      keep=None):
   """The model and optimizer of scripts/ll/train_std.sh (HDRNetCurves) or
   train_gpyrnn.sh (HDRNetGaussianPyrNN): `steps` steps with one K3, K4
   and K5 a slice-apply (three a step for the pyramid), save, restore, one
   more step each way, evaluate the checkpoint through bin/evaluate.py's
-  functions (training graph and serving path), serve it at 4K. Returns
-  the timings; the K3/K4/K5 launches go into slice_launches."""
+  functions (training graph and serving path), serve it at 4K, and move
+  it to `keep` (else remove it). Returns the timings; the K3/K4/K5
+  launches go into slice_launches."""
   import shutil
   from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
   from hdrnet_torch.models import make_model
@@ -796,7 +808,12 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
                          f'{fused.nn_launches}; expected {want}')
   if out.shape != x.shape or not torch.isfinite(out).all():
     raise AssertionError('serving the checkpoint: output malformed')
-  shutil.rmtree(ckpt_dir, ignore_errors=True)
+  if keep is None:
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+  else:
+    shutil.rmtree(keep, ignore_errors=True)
+    os.makedirs(os.path.dirname(keep), exist_ok=True)
+    shutil.move(ckpt_dir, keep)
   print(f'training {model_name} at full width (l8/s16/cm1, 256^2, 2048^2, '
         f'b=1, Adam 1e-4): {steps} steps, loss step 1 {losses[0]:.6f} -> '
         f'step {steps} {losses[-1]:.6f}, EMA {ema:.6f}; launches '
@@ -1020,15 +1037,17 @@ def _check_k2x(dev, tag):
   return launches, err, times, fn_bound, floors
 
 
-def _seeded_checkpoint(directory, model_name, seed):
-  """A seeded model at the default widths saved as training saves it."""
+def _seeded_checkpoint(directory, model_name, seed, **widths):
+  """A seeded model at the default widths (or `widths`) saved as training
+  saves it."""
   import shutil
   from hdrnet_torch.config import Config, ModelConfig, TrainConfig
   from hdrnet_torch.models import make_model
   from hdrnet_torch.training import loop, step
   from hdrnet_torch.training.checkpoint import Checkpointer
   shutil.rmtree(directory, ignore_errors=True)
-  cfg = Config(model=ModelConfig(model_name=model_name), train=TrainConfig())
+  cfg = Config(model=ModelConfig(model_name=model_name, **widths),
+               train=TrainConfig())
   model = make_model(cfg.model, generator=torch.Generator().manual_seed(seed))
   cfg.save(directory)
   Checkpointer(directory).save(0, step.create_state(
@@ -1124,22 +1143,48 @@ def _check_export(dev, tag, gen, slice_launches):
 NATIVE_DIR = 'build/chip_smoke_native'
 NATIVE_BURN, NATIVE_ITERS = 3, 20
 NATIVE_TIMEOUT_S = 300
-# The op library's counters (hdrnet_ops.cc) by kernel.
+# The op library's counters (hdrnet_ops.cc, resize_op.cc) by kernel; the
+# bilinear resize is no kernel.
 NATIVE_KERNELS = {'nearest_lowres': 'K2', 'enhance_fused_curves': 'K1',
-                  'enhance_fused_nn': 'K6', 'slice_apply_fwd': 'K3'}
+                  'enhance_fused_nn': 'K6', 'slice_apply_fwd': 'K3',
+                  'resize_bilinear': 'resize'}
+# The sizes one serve_any_fn package serves: odd extents, and 4K.
+NATIVE_ANY_SIZES = ((723, 1085), UHD)
 
 
-def _native_run(package, inputs, out_path, what):
-  """Runs the native runner on `package` with the op library, the inputs
-  as raw files; returns its report. Raises on a non-zero exit."""
-  from hdrnet_torch import native
+def _graph_op_calls(program):
+  """The op library's calls a run of `program`: its graph's hdrnet:: nodes
+  counted by op, enhance_fused by its guide mode (the library's
+  counters)."""
+  calls = {}
+  for node in program.graph.nodes:
+    target = str(node.target)
+    if node.op != 'call_function' or not target.startswith('hdrnet.'):
+      continue
+    op = target.split('.')[1]
+    if op == 'enhance_fused':
+      op = f'enhance_fused_{node.args[3]}'
+    calls[op] = calls.get(op, 0) + 1
+  return calls
+
+
+def _write_inputs(prefix, tensors):
+  """Each tensor as a raw file `prefix`.in<i>.bin; their paths."""
   paths = []
-  for i, x in enumerate(inputs):
-    path = f'{out_path}.in{i}.bin'
-    x.cpu().numpy().tofile(path)
-    paths.append(path)
-  cmd = native.serve_command(package, inputs=paths, output=out_path,
-                             burn=NATIVE_BURN, iters=NATIVE_ITERS)
+  for i, x in enumerate(tensors):
+    paths.append(f'{prefix}.in{i}.bin')
+    x.cpu().numpy().tofile(paths[-1])
+  return paths
+
+
+def _native_run(package, inputs, out_path, what, dims=None):
+  """Runs the native runner on `package` with the op library, the inputs
+  raw files and `dims` its --dim bindings; returns its report. Raises on a
+  non-zero exit."""
+  from hdrnet_torch import native
+  cmd = native.serve_command(package, dims=dims, inputs=inputs,
+                             output=out_path, burn=NATIVE_BURN,
+                             iters=NATIVE_ITERS)
   proc = subprocess.run(cmd, capture_output=True, text=True,
                         timeout=NATIVE_TIMEOUT_S, check=False)
   if proc.returncode:
@@ -1150,20 +1195,27 @@ def _native_run(package, inputs, out_path, what):
 
 def _native_serving(dev, tag):
   """The native deployment path (hdrnet_torch/native): the op library and
-  the runner built; a seeded HDRNetCurves checkpoint exported by
-  bin/export.py's main with --aoti at 1080p (coefficients_fn, enhance_fn,
-  serve_fn, stream_fn compiled by AOTInductor) and HDRNetPointwiseNNGuide's
-  serve_fn; each package served by aoti_serve in a subprocess (no Python
-  in it) on seeded inputs and held to the eager Enhancer (float32 within
-  K1_TOL, uint8 within one code on fewer than 1% of values; Inductor may
-  order the glue around the kernels another way); the op library's
-  launch counts checked against the graphs' kernels a run; the runner's
-  serve_fn forward against the Python load_artifact serve_fn in turns.
-  Returns {kernel id: launches in the runner}."""
+  the runner built; seeded checkpoints at the default widths exported at
+  1080p with --aoti: HDRNetCurves by bin/export.py's main (coefficients_fn,
+  enhance_fn, serve_fn, stream_fn and serve_any_fn, H and W dynamic),
+  HDRNetPointwiseNNGuide's serve_fn, HDRNetGaussianPyrNN's enhance_fn,
+  serve_fn, stream_fn and serve_any_fn, and train_fpyrnn3_cm2.sh's
+  HDRNetFeaturesPyrNN3 (cm 2) stream_fn, by export_function. Each package
+  served by aoti_serve in a subprocess (no Python in it) on seeded inputs,
+  the two serve_any_fn packages at 723x1085 and 2160x3840 (--dim), and held
+  to the eager Enhancer (float32 within K1_TOL, uint8 within one code on
+  fewer than 1% of values; Inductor may order the glue around the kernels
+  another way); the op library's calls checked against the graph's own
+  hdrnet:: nodes times the runs (hdrnet::resize_bilinear included); the
+  pyramid's package without the op library refused naming the resize; the
+  runner's forward against the Python load_artifact graph in turns for
+  the serve_fn and serve_any_fn cases. Returns {kernel id: launches in the
+  runner}."""
   import shutil
   from hdrnet_torch import native
   from hdrnet_torch.bin import export
   from hdrnet_torch.inference import Enhancer, full_float32
+  phase_t0 = time.perf_counter()
   t0 = time.perf_counter()
   built = native.build()
   print(f'native build: op library {built[native.OPS_LIBRARY].seconds:.1f} '
@@ -1171,110 +1223,265 @@ def _native_serving(dev, tag):
         f'{time.perf_counter() - t0:.1f} s with the kernels\' library)',
         flush=True)
   shutil.rmtree(NATIVE_DIR, ignore_errors=True)
-  curves_dir, nn_dir = f'{NATIVE_DIR}/HDRNetCurves', f'{NATIVE_DIR}/{NN}'
+  curves_dir = f'{NATIVE_DIR}/HDRNetCurves'
   _seeded_checkpoint(curves_dir, 'HDRNetCurves', 31)
   t0 = time.perf_counter()
-  export.main([curves_dir, '--fullres', *map(str, FHD), '--aoti'])
-  export_s = time.perf_counter() - t0
-  _seeded_checkpoint(nn_dir, NN, 32)
-  nn_enh = Enhancer.from_checkpoint(nn_dir, device=dev)
-  t0 = time.perf_counter()
-  fn, example, dynamic = export.serving_functions(nn_enh, FHD)['serve_fn']
-  export.export_function(nn_enh, 'serve_fn', fn, example, dynamic, nn_dir,
-                         aoti=True)
-  nn_export_s = time.perf_counter() - t0
-  enh = Enhancer.from_checkpoint(curves_dir, device=dev)
+  programs = {('HDRNetCurves', k): p for k, p in export.main(
+      [curves_dir, '--fullres', *map(str, FHD), '--aoti']).items()}
+  export_s = {'HDRNetCurves': time.perf_counter() - t0}
+  enhancers = {'HDRNetCurves': Enhancer.from_checkpoint(curves_dir,
+                                                        device=dev)}
+  for model, seed, names, widths in (
+      (NN, 32, ('serve_fn',), {}),
+      (PYR, 33, ('enhance_fn', 'serve_fn', 'stream_fn', 'serve_any_fn'), {}),
+      (FPYR, 34, ('stream_fn',), {'channel_multiplier': 2})):
+    directory = f'{NATIVE_DIR}/{model}'
+    _seeded_checkpoint(directory, model, seed, **widths)
+    enh = enhancers[model] = Enhancer.from_checkpoint(directory, device=dev)
+    fns = export.serving_functions(enh, FHD)
+    t0 = time.perf_counter()
+    for name in names:
+      fn, example, dynamic = fns[name]
+      programs[model, name] = export.export_function(
+          enh, name, fn, example, dynamic, directory, aoti=True)
+    export_s[model] = time.perf_counter() - t0
 
   rng = np.random.RandomState(11)
   low = torch.from_numpy(rng.rand(1, 256, 256, 3).astype(np.float32)).to(dev)
   full = torch.from_numpy(rng.rand(1, *FHD, 3).astype(np.float32)).to(dev)
   full8 = torch.from_numpy(
       rng.randint(0, 256, (1, *FHD, 3)).astype(np.uint8)).to(dev)
+  anys = [torch.from_numpy(rng.rand(1, *hw, 3).astype(np.float32)).to(dev)
+          for hw in NATIVE_ANY_SIZES]
+  curves, pyr = enhancers['HDRNetCurves'], enhancers[PYR]
+  # (model, function, inputs, eager output, --dim bindings, timed in turns)
   with torch.no_grad(), full_float32():
     cases = [
-        (curves_dir, 'coefficients_fn', (low,),
-         export.coefficients_function(enh)(low), {}),
-        (curves_dir, 'enhance_fn', (low, full),
-         enh._composite_forward(low, full, clip=True),
-         {'slice_apply_fwd': 1}),
-        (curves_dir, 'serve_fn', (low, full), enh(low, full),
-         {'enhance_fused_curves': 1}),
-        (curves_dir, 'stream_fn', (full8,),
-         enh.make_stream_fn(full8.shape)(full8),
-         {'nearest_lowres': 1, 'enhance_fused_curves': 1}),
-        (nn_dir, 'serve_fn', (low, full), nn_enh(low, full),
-         {'enhance_fused_nn': 1})]
+        ('HDRNetCurves', 'coefficients_fn', (low,),
+         export.coefficients_function(curves)(low), None, False),
+        ('HDRNetCurves', 'enhance_fn', (low, full),
+         curves._composite_forward(low, full, clip=True), None, False),
+        ('HDRNetCurves', 'serve_fn', (low, full), curves(low, full), None,
+         True),
+        ('HDRNetCurves', 'stream_fn', (full8,),
+         curves.make_stream_fn(full8.shape)(full8), None, False),
+        (NN, 'serve_fn', (low, full), enhancers[NN](low, full), None, False),
+        (PYR, 'enhance_fn', (low, full),
+         pyr._composite_forward(low, full, clip=True), None, False),
+        (PYR, 'serve_fn', (low, full), pyr(low, full), None, True),
+        (PYR, 'stream_fn', (full8,), pyr.make_stream_fn(full8.shape)(full8),
+         None, False),
+        (FPYR, 'stream_fn', (full8,),
+         enhancers[FPYR].make_stream_fn(full8.shape)(full8), None, False)]
+    cases += [(model, 'serve_any_fn', (low, x), enhancers[model](low, x),
+               {'H': x.shape[1], 'W': x.shape[2]}, True)
+              for model in ('HDRNetCurves', PYR) for x in anys]
   torch.cuda.synchronize()
   runs = NATIVE_BURN + NATIVE_ITERS
   launches = {k: 0 for k in NATIVE_KERNELS.values()}
-  lines, reports = [], {}
-  for directory, name, args, want, per_run in cases:
-    model = os.path.basename(directory)
+  lines, timed = [], []
+  for i, (model, name, args, want, dims, turns) in enumerate(cases):
+    directory = f'{NATIVE_DIR}/{model}'
     package = f'{directory}/{name}.aoti.pt2'
-    out_path = f'{directory}/{name}.out.bin'
-    report = _native_run(package, args, out_path, f'{model} {name}')
+    out_path = f'{directory}/{name}.{i}.out.bin'
+    what = f'{model} {name} {"x".join(map(str, args[-1].shape[1:3]))}'
+    inputs = _write_inputs(f'{directory}/{name}.{i}', args)
+    report = _native_run(package, inputs, out_path, what, dims)
+    if report['shapes'] != {'inputs': [list(a.shape) for a in args],
+                            'output': list(want.shape)}:
+      raise AssertionError(f'aoti_serve {what}: served {report["shapes"]}')
     got = torch.from_numpy(np.fromfile(out_path, dtype=np.uint8 if
                                        want.dtype == torch.uint8 else
                                        np.float32).reshape(want.shape))
     want = want.cpu()
     if want.dtype == torch.uint8:
-      worst, share = _u8_check(got, want, f'aoti_serve {model} {name}')
+      worst, share = _u8_check(got, want, f'aoti_serve {what}')
       err = f'u8 max {worst} codes, {int((got != want).sum())} values differ '
       err += f'({share:.4%})'
     else:
-      err = f'max abs err {_max_err(got, want, K1_TOL, name):.3e}'
+      err = f'max abs err {_max_err(got, want, K1_TOL, what):.3e}'
     calls = report['hdrnet_op_calls']
+    per_run = _graph_op_calls(programs[model, name])
     expect = {k: per_run.get(k, 0) * runs for k in NATIVE_KERNELS}
     if calls != expect:
-      raise AssertionError(f'aoti_serve {model} {name}: op calls {calls}; '
-                           f'expected {expect}')
+      raise AssertionError(f'aoti_serve {what}: op calls {calls}; expected '
+                           f'{expect} (the graph\'s {per_run} a run)')
     for k, n in calls.items():
       launches[NATIVE_KERNELS[k]] += n
-    reports[model, name] = report
-    lines.append(f'{model} {name}: {err} vs the eager Enhancer, op calls '
+    if turns:
+      timed.append((what, f'{directory}/{name}.pt2', args, package, inputs,
+                    dims))
+    lines.append(f'{what}: {err} vs the eager Enhancer, op calls '
                  f'{ {k: v for k, v in calls.items() if v} }, load '
                  f'{report["compile_ms"]:.1f} ms, upload '
                  f'{report["upload_ms"]:.3f} ms, forward '
                  f'{report["forward_ms_per_iter"]:.4f} ms a run, readback '
                  f'{report["readback_ms"]:.3f} ms')
-
-  # The runner's serve_fn forward in turns with the Python artifact's,
-  # each by the host clock over NATIVE_ITERS runs ended by a synchronize.
-  served = export.load_artifact(f'{curves_dir}/serve_fn.pt2')
-
-  def python_ms():
-    for _ in range(NATIVE_BURN):
-      served(low, full)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(NATIVE_ITERS):
-      served(low, full)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3 / NATIVE_ITERS
-
-  def runner_ms():
-    return _native_run(f'{curves_dir}/serve_fn.aoti.pt2', (low, full),
-                       f'{curves_dir}/serve_fn.turn.bin',
-                       'serve_fn turn')['forward_ms_per_iter']
-
-  turns = [python_ms(), runner_ms(), runner_ms(), python_ms()]
-  rep = reports['HDRNetCurves', 'serve_fn']
+  del cases, got, want
+  # No fallback: the pyramid's package without the op library is refused,
+  # naming the first op it calls.
+  bare = subprocess.run([str(native.runner().path),
+                         f'{NATIVE_DIR}/{PYR}/serve_fn.aoti.pt2'],
+                        capture_output=True, text=True,
+                        timeout=NATIVE_TIMEOUT_S, check=False)
+  if bare.returncode != 1 or ('calls the op hdrnet::resize_bilinear'
+                              not in bare.stderr):
+    raise AssertionError(f'{PYR} serve_fn without the op library: exit '
+                         f'{bare.returncode}: {bare.stderr[-2000:]}')
   print(f'native serving (bin/export.py --aoti at 1080x1920, seeded default '
-        f'widths; export {export_s:.1f} s for HDRNetCurves, {nn_export_s:.1f} '
-        f's for the NN guide\'s serve_fn; aoti_serve with libhdrnet_ops.so, '
-        f'burn {NATIVE_BURN}, {NATIVE_ITERS} runs): ' + '; '.join(lines)
-        + f'; launches in the runner {launches}', flush=True)
-  print(f'timing {tag}: HDRNetCurves serve_fn at 1080p, ms a run in turns '
-        f'Python load_artifact / aoti_serve / aoti_serve / Python '
-        f'{" / ".join(f"{t:.4f}" for t in turns)} (host clock over '
-        f'{NATIVE_ITERS} runs, synchronized); aoti_serve stages init '
-        f'{rep["init_ms"]:.3f} ms, load {rep["compile_ms"]:.1f} ms, upload '
-        f'{rep["upload_ms"]:.3f} ms, forward {rep["forward_ms_per_iter"]:.4f} '
-        f'ms, readback {rep["readback_ms"]:.3f} ms, {rep["fps"]:.1f} fps',
+        f'widths, fpyrnn3 cm 2; export s {json.dumps(export_s)}; aoti_serve '
+        f'with libhdrnet_ops.so, burn {NATIVE_BURN}, {NATIVE_ITERS} runs): '
+        + '; '.join(lines) + f'; launches in the runner {launches}; the '
+        f'pyramid\'s serve_fn without the op library exits 1 naming '
+        f'hdrnet::resize_bilinear', flush=True)
+
+  # The runner's forward in turns with the Python artifact's, each by the
+  # host clock over NATIVE_ITERS runs ended by a synchronize.
+  timings = {}
+  for what, pt2, args, package, inputs, dims in timed:
+    served = export.load_artifact(pt2)
+
+    def python_ms():
+      for _ in range(NATIVE_BURN):
+        served(*args)
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      for _ in range(NATIVE_ITERS):
+        served(*args)
+      torch.cuda.synchronize()
+      return (time.perf_counter() - t) * 1e3 / NATIVE_ITERS
+
+    def runner_ms():
+      return _native_run(package, inputs, f'{package}.turn.bin',
+                         f'{what} turn', dims)['forward_ms_per_iter']
+
+    timings[what] = [python_ms(), runner_ms(), runner_ms(), python_ms()]
+    del served
+  print(f'timing {tag}: ms a run in turns Python load_artifact / aoti_serve '
+        f'/ aoti_serve / Python (host clock over {NATIVE_ITERS} runs, '
+        f'synchronized): ' + '; '.join(
+            f'{what} {" / ".join(f"{t:.4f}" for t in ts)}'
+            for what, ts in timings.items())
+        + f'; the native phase took {time.perf_counter() - phase_t0:.1f} s',
         flush=True)
-  del served, enh, nn_enh
+  del enhancers, low, full, full8, anys
   shutil.rmtree(NATIVE_DIR, ignore_errors=True)
   return launches
+
+
+TRIAGE_DIR = 'build/chip_smoke_triage'
+TRIAGE_LIMIT = 2
+TRIAGE_PSNR_REL = 1e-5  # as evaluate's serving path against its graph
+
+
+def _hold_triage(got, want, tol, where):
+  """Holds two triage records to each other: integers and strings exactly,
+  each float within tol(key, value)."""
+  if sorted(got) != sorted(want):
+    raise AssertionError(f'{where}: fields {sorted(got)} vs {sorted(want)}')
+  for key, w in want.items():
+    g = got[key]
+    if isinstance(w, list):
+      for i, (gi, wi) in enumerate(zip(g, w, strict=True)):
+        _hold_triage(gi, wi, tol, f'{where}.{key}[{i}]')
+    elif isinstance(w, dict):
+      _hold_triage(g, w, tol, f'{where}.{key}')
+    elif isinstance(w, float):
+      if not abs(g - w) <= tol(key, w):
+        raise AssertionError(f'{where}.{key}: card {g} vs CPU {w} (tol '
+                             f'{tol(key, w)})')
+    elif key != 'checkpoint' and g != w:
+      raise AssertionError(f'{where}.{key}: card {g} vs CPU {w}')
+
+
+def _psnrs(record):
+  """Every PSNR value (not a drop) in a triage report."""
+  if isinstance(record, list):
+    return [v for r in record for v in _psnrs(r)]
+  if isinstance(record, dict):
+    return [v for k, r in record.items()
+            for v in ([r] if 'psnr' in k and 'drop' not in k and
+                      isinstance(r, float) else _psnrs(r))]
+  return []
+
+
+def _triage_tol(cpu_report):
+  """tol(key, value) of the card's triage floats against `cpu_report`'s:
+  the guides' statistics (torch ops on both) within one rounding step of
+  guide_stats (4 decimals; 2 for the range in bins) plus 1e-5,
+  diagnose_pyramid's unrounded ones within 1e-5; a level's output RMS (K3
+  against its plain version) within K1_TOL; a PSNR within
+  TRIAGE_PSNR_REL of itself, a drop (the difference of two PSNRs) within
+  that of the report's largest PSNR twice."""
+  largest = max(map(abs, _psnrs(cpu_report)), default=0.0)
+
+  def tol(key, value):
+    if key in ('p01', 'p99', 'std'):
+      return 1e-4 + 1e-5
+    if key == 'effective_range_bins':
+      return 1e-2 + 1e-5
+    if key == 'out_rms':
+      return K1_TOL
+    if 'drop' in key:
+      return 2 * TRIAGE_PSNR_REL * largest
+    if 'psnr' in key:
+      return TRIAGE_PSNR_REL * abs(value)
+    return 1e-5
+  return tol
+
+
+def _triage_tools(dev, tag, pyr_ckpt, data, slice_launches):
+  """The quality-triage tools (M10) on the card: hdrnet_torch.scripts.
+  guide_stats and diagnose_pyramid on the 2048^2 pyramid checkpoint of
+  the training phase, over two images of the quality set (--limit 2; its
+  data config set to the set's 1024^2, since the eval pipeline crops each
+  image to it), their K3 launches counted (3 a forward; diagnose_pyramid
+  18 an image: the forward, the reconstruction, each level's output and
+  the three ablations); then both with --device cpu, held to the card's
+  (_triage_tol)."""
+  import shutil
+  from hdrnet_torch.config import Config
+  from hdrnet_torch.ops import slice_apply as sa
+  from hdrnet_torch.scripts import diagnose_pyramid, guide_stats
+  cfg = Config.load(pyr_ckpt)
+  cfg.data.output_resolution = [QUALITY_SIZE, QUALITY_SIZE]
+  cfg.save(pyr_ckpt)
+  reports, seconds = {}, {}
+  for device in ('cuda', 'cpu'):
+    for tool in (guide_stats, diagnose_pyramid):
+      name = tool.__name__.rsplit('.', 1)[1]
+      if device == 'cuda':
+        torch.cuda.synchronize()
+        sa.fwd_launches = 0
+      t0 = time.perf_counter()
+      # The tools' own per-image lines and summary go to a log file.
+      with open(f'{TRIAGE_DIR}/{name}.log', 'a') as log, \
+          contextlib.redirect_stdout(log):
+        reports[device, name] = tool.main(
+            [pyr_ckpt, data, '--limit', str(TRIAGE_LIMIT), '--device',
+             device, '--json', f'{TRIAGE_DIR}/{name}.{device}.json'])
+      seconds[f'{name} {device}'] = round(time.perf_counter() - t0, 2)
+      if device == 'cuda':
+        torch.cuda.synchronize()
+        want = TRIAGE_LIMIT * (18 if name == 'diagnose_pyramid' else 3)
+        if sa.fwd_launches != want:
+          raise AssertionError(f'{name} on the card: {sa.fwd_launches} K3 '
+                               f'launches; expected {want}')
+        _tally_slice(slice_launches, want)
+  for name in ('guide_stats', 'diagnose_pyramid'):
+    _hold_triage(reports['cuda', name], reports['cpu', name],
+                 _triage_tol(reports['cpu', name]), name)
+  stats = reports['cuda', 'guide_stats']
+  diag = reports['cuda', 'diagnose_pyramid']['summary']
+  print(f'triage tools ({PYR} checkpoint of the 2048^2 phase, step '
+        f'{stats["step"]}, {TRIAGE_LIMIT} quality-set images at '
+        f'{QUALITY_SIZE}^2): guide_stats {json.dumps(stats["guides"])}; '
+        f'diagnose_pyramid mean PSNR {diag["mean_psnr"]:.4f} dB, levels '
+        f'{json.dumps(diag["levels"])}; the card\'s reports held to '
+        f'--device cpu (integers exact, guides one rounding step + 1e-5, '
+        f'RMS {K1_TOL:.0e}, PSNR {TRIAGE_PSNR_REL:.0e} rel); seconds '
+        f'{json.dumps(seconds)} {tag}', flush=True)
+  shutil.rmtree(TRIAGE_DIR, ignore_errors=True)
 
 
 def _fit_grads(fit_grid, pair, where):
@@ -2936,7 +3143,8 @@ def main():
   step_ms, peak_mib, steady_peak = _train_full_width(dev, tag, Enhancer,
                                                      slice_launches)
   pyr_step_ms, _, pyr_peak = _train_full_width(
-      dev, tag, Enhancer, slice_launches, PYR, PYR_TRAIN_STEPS)
+      dev, tag, Enhancer, slice_launches, PYR, PYR_TRAIN_STEPS,
+      keep=f'{TRIAGE_DIR}/pyr_2048')
   print(f'timing {tag}: {PYR} train step at full width {pyr_step_ms:.4f} ms '
         f'({1e3 / pyr_step_ms:.2f} steps/s, host clock over 20 steps); '
         f'peak memory allocated during those steps {pyr_peak:.1f} MiB',
@@ -3003,20 +3211,26 @@ def main():
   # four gloo ranks on the card, one NCCL rank under torchrun.
   band_times = _mesh_phase(dev, tag, f'{QUALITY_DIR}/data_ll',
                            slice_launches, gen, full_float32)
+
+  # 23. The quality-triage tools on the pyramid checkpoint of phase 16,
+  # over the quality set's test images.
+  _triage_tools(dev, tag, f'{TRIAGE_DIR}/pyr_2048',
+                f'{QUALITY_DIR}/data_ll/test', slice_launches)
   import shutil
   shutil.rmtree(QUALITY_DIR, ignore_errors=True)
 
-  # 23. The native deployment path: AOTInductor packages served by the C++
-  # runner, whose op library launches K1, K2, K3 and K6; its counts start
-  # at 0 in the runner's process and are read from its report.
+  # 24. The native deployment path: AOTInductor packages served by the C++
+  # runner, whose op library launches K1, K2, K3 and K6 (and calls the
+  # bilinear resize); its counts start at 0 in the runner's process and
+  # are read from its report.
   native = _native_serving(dev, tag)
   launches['K1'] += native['K1']
   launches['K2'] += native['K2']
   _tally_slice(slice_launches, native['K3'])
   print(f'K3/K4/K5 launches on the paths (train steps, evaluate, export, '
         f'fit_grid, the zoo\'s steps and frames, the quality, usm and '
-        f'style-transfer workloads, the mesh runs of every rank, the native '
-        f'runner): {slice_launches}; K1 and K2 with the quality run\'s '
+        f'style-transfer workloads, the mesh runs of every rank, the triage '
+        f'tools, the native runner): {slice_launches}; K1 and K2 with the quality run\'s '
         f'evaluate (K1 only) and the native runner: {launches}', flush=True)
 
   # The least time each kernel could take at the shapes it was timed at.

@@ -36,6 +36,27 @@ from hdrnet_torch.training.step import normalize_batch, to_device
 log = logging.getLogger('hdrnet_torch.evaluate')
 
 
+def restore(checkpoint_dir):
+  """(Config, payload) of the latest checkpoint in `checkpoint_dir`;
+  FileNotFoundError where there is none."""
+  config = Config.load(checkpoint_dir)
+  path = latest_checkpoint(checkpoint_dir)
+  if path is None:
+    raise FileNotFoundError(f'no checkpoint in {checkpoint_dir}')
+  return config, load(path)
+
+
+def eval_pipeline(config, data_dir):
+  """The pipeline of `config`'s data on `data_dir` as evaluation reads it:
+  batch 1, in file order, no crop, flips or rotation."""
+  eval_cfg = Config.from_json(config.to_json()).data
+  eval_cfg.batch_size = 1
+  eval_cfg.shuffle = False
+  eval_cfg.random_crop = False
+  eval_cfg.fliplr = eval_cfg.flipud = eval_cfg.rotate = False
+  return make_pipeline(data_dir, eval_cfg)
+
+
 def make_forward(model_cfg, state_dict, device, serving, coeff_bf16=False):
   """The function evaluated, (lowres, fullres) -> output: the serving
   path (``Enhancer``, unclipped; with `coeff_bf16` its bfloat16
@@ -89,18 +110,8 @@ def main(argv=None):
   args = parser.parse_args(argv)
   device = resolve_device(args.device)
 
-  config = Config.load(args.checkpoint_dir)
-  path = latest_checkpoint(args.checkpoint_dir)
-  if path is None:
-    raise FileNotFoundError(f'no checkpoint in {args.checkpoint_dir}')
-  payload = load(path)
-
-  eval_cfg = Config.from_json(config.to_json()).data
-  eval_cfg.batch_size = 1
-  eval_cfg.shuffle = False
-  eval_cfg.random_crop = False
-  eval_cfg.fliplr = eval_cfg.flipud = eval_cfg.rotate = False
-  pipeline = make_pipeline(args.data_dir, eval_cfg)
+  config, payload = restore(args.checkpoint_dir)
+  pipeline = eval_pipeline(config, args.data_dir)
 
   fwd = make_forward(config.model, payload['model'], device, args.serving,
                      args.coeff_bf16)

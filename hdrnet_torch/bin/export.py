@@ -20,27 +20,33 @@ eager ``Enhancer``. Produces in the output directory:
   * ``stream_fn`` -- a uint8 (1, H, W, n_in) frame -> uint8, preview
     downsample, enhancement and requantization on the device
     (``Enhancer.make_stream_fn``);
-  * ``serve_any_fn`` -- ``serve_fn`` with H and W as ``torch.export.Dim``s:
-    one graph serves every frame size (the JAX package's padded bucket
-    with a traced true size); the fused route only;
+  * ``serve_any_fn`` -- ``serve_fn`` with H and W as ``torch.export.Dim``s
+    (``MIN_SIDE`` to ``MAX_SIDE``): one graph serves every frame size (the
+    JAX package's padded bucket with a traced true size); the fused route
+    only;
   * ``guide_*.bin`` -- the guide parameters as raw little-endian float32,
     byte for byte the JAX package's dumps (batch norm folded into conv1
     for the NN guides, freeze_graph.py:127-184), for the reference
     renderer (benchmark/src/renderer.cc:197-224).
 
-With ``--aoti``, each graph is also compiled ahead of time by
+A manifest writes a dynamic dimension as its ``Dim``'s name and records
+its range under ``"dims"`` (``{"H": {"min": 8, "max": 16384}}``, the
+exported program's range constraints).
+
+With ``--aoti``, every graph is also compiled ahead of time by
 AOTInductor (``torch._inductor.aoti_compile_and_package``, for
 ``--device``, under ``full_float32()``) into ``<name>.aoti.pt2``, which
 the native runner ``hdrnet_torch/native/aoti_serve.cc`` serves with no
 Python in the process: the port's counterpart of the ``.mlir``
 StableHLO and ``compile_options.pb`` that the JAX export writes for its
 ``pjrt_serve``. The manifest records the package and its device under
-``"aoti"``. A package names the ``hdrnet::`` ops its graph calls, and the
-runner needs them registered in C++ (``native/hdrnet_ops.cc``, CUDA
-only), which holds ``nearest_lowres``, ``enhance_fused`` and
-``slice_apply_fwd``; so ``serve_any_fn`` (H and W dynamic) and the graphs
-that call ``hdrnet::resize_bilinear`` (the pyramid's) get no package, and
-the export logs why.
+``"aoti"``. ``serve_any_fn``'s package keeps H and W dynamic (the runner
+binds them with ``--dim H=.. --dim W=..``, one size a run). A package
+names the ``hdrnet::`` ops its graph calls, and the runner finds them
+registered in C++ by its op library (``native/hdrnet_ops.cc`` and
+``native/resize_op.cc``): ``nearest_lowres``, ``enhance_fused``,
+``slice_apply_fwd`` and ``resize_bilinear``, which the pyramid and the
+multiscale zoo models call.
 
 A graph does not carry torch's TF32 switches, and torch's default runs
 float32 cuDNN convolutions in TF32 (``cudnn.allow_tf32 = True``), which
@@ -216,18 +222,6 @@ def _avals(nodes, names):
           for n in nodes]
 
 
-def aoti_skip_reason(name, program):
-  """Why the graph `name` gets no AOTInductor package, or None: the native
-  runner serves static shapes, and the op library registers every
-  ``hdrnet::`` op but the bilinear resize."""
-  if name == 'serve_any_fn':
-    return 'its H and W are dynamic'
-  if 'hdrnet.resize_bilinear.default' in hdrnet_ops(program):
-    return 'it calls hdrnet::resize_bilinear, which the native op library ' \
-           'does not register'
-  return None
-
-
 def aoti_package(program, name, out_dir, device):
   """Compiles `program` with AOTInductor for `device` under full float32
   into ``<name>.aoti.pt2``; returns the manifest's ``"aoti"`` record."""
@@ -244,8 +238,7 @@ def aoti_package(program, name, out_dir, device):
 
 def export_function(enh, name, fn, example, dynamic, out_dir, aoti=False):
   """Traces `fn` on `example`, saves ``<name>.pt2`` and its manifest (with
-  `aoti`, also ``<name>.aoti.pt2``, where ``aoti_skip_reason`` allows);
-  returns the ExportedProgram."""
+  `aoti`, also ``<name>.aoti.pt2``); returns the ExportedProgram."""
   module = _Function(enh, fn).eval()
   with torch.no_grad():
     # The module takes *args: its dynamic shapes nest one level deeper.
@@ -262,14 +255,15 @@ def export_function(enh, name, fn, example, dynamic, out_dir, aoti=False):
     for axis, dim in (spec or {}).items():
       names[str(node.meta['val'].shape[axis])] = dim.__name__
   manifest = {'name': name, 'inputs': _avals(inputs, names),
-              'outputs': _avals(graph.output_node().args[0], names),
-              'precision': PRECISION}
+              'outputs': _avals(graph.output_node().args[0], names)}
+  if names:
+    manifest['dims'] = {names[str(sym)]: {'min': int(r.lower),
+                                          'max': int(r.upper)}
+                        for sym, r in program.range_constraints.items()
+                        if str(sym) in names}
+  manifest['precision'] = PRECISION
   if aoti:
-    reason = aoti_skip_reason(name, program)
-    if reason is None:
-      manifest['aoti'] = aoti_package(program, name, out_dir, enh.device)
-    else:
-      log.info('%s: no AOTInductor package: %s', name, reason)
+    manifest['aoti'] = aoti_package(program, name, out_dir, enh.device)
   with open(os.path.join(out_dir, f'{name}.manifest.json'), 'w') as f:
     json.dump(manifest, f, indent=2)
   log.info('wrote %s{.pt2,%s.manifest.json} (out %s)',

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -183,17 +184,27 @@ def upsample_add(current, level_out):
                          align_corners=True) + level_out
 
 
-def pyramid_slice_apply(grid, guides, images):
+def level_slice_apply(grid, guide, image, il):
+  """The slice-apply of the il-th coarsest pyramid level: its 3-output
+  block of the grid (channels 3 il .. 3 il + 2) sliced by `guide` and
+  applied to `image`. The block is a view of the grid: the slice-apply
+  copies it, and its gradient lands in the grid's block."""
+  return bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
+                               image, has_offset=True)
+
+
+def pyramid_slice_apply(grid, guides, images, zeroed=()):
   """The pyramid's coarse-to-fine sum: level l (finest first) sliced by
-  guides[l] from its 3-output block of the grid, block il = n - 1 - l
-  (channels 3 il .. 3 il + 2), applied to images[l] and added to the
-  bilinear upsampling of the coarser levels' sum. The block is a view of
-  the grid: the slice-apply copies it, and its gradient lands in the
-  grid's block."""
+  guides[l] from block il = n - 1 - l of the grid (``level_slice_apply``),
+  applied to images[l] and added to the bilinear upsampling of the
+  coarser levels' sum. A level whose il is in `zeroed` adds zeros in
+  place of its output (the ablation of ``scripts/diagnose_pyramid.py``).
+  """
   current = None
   for il, (guide, image) in enumerate(zip(guides[::-1], images[::-1])):
-    out = bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
-                                image, has_offset=True)
+    out = level_slice_apply(grid, guide, image, il)
+    if il in zeroed:
+      out = torch.zeros_like(out)
     current = out if current is None else upsample_add(current, out)
   return current
 

@@ -7,22 +7,27 @@ library it loads, built at first use.
     process and reports the stages as ``hdrnet_tpu/native/pjrt_serve.cc``
     does. Built by ``g++`` against libtorch alone (the wheel's headers and
     ``torch/lib``), so it builds on a CPU wheel too.
-  * ``libhdrnet_ops.so`` (``hdrnet_ops.cc``): ``hdrnet::nearest_lowres``,
-    ``hdrnet::enhance_fused`` and ``hdrnet::slice_apply_fwd`` on CUDA
-    tensors, through the ``extern "C"`` launchers of
-    ``libhdrnet_kernels.so`` (``ops._build.library()``, built first); it
-    needs the CUDA toolkit's headers.
+  * ``libhdrnet_ops.so`` (``hdrnet_ops.cc`` and ``resize_op.cc``):
+    ``hdrnet::nearest_lowres``, ``hdrnet::enhance_fused`` and
+    ``hdrnet::slice_apply_fwd`` on CUDA tensors, through the ``extern
+    "C"`` launchers of ``libhdrnet_kernels.so`` (``ops._build.library()``,
+    built first), and ``hdrnet::resize_bilinear`` (no kernel: ATen calls,
+    CPU and CUDA); it needs the CUDA toolkit's headers.
+  * ``libhdrnet_resize.so`` (``resize_op.cc`` alone): the resize op
+    without the kernels, built by ``g++`` against libtorch alone like the
+    runner, so the tests serve a CPU package that calls it.
 
-Both are built into ``build/hdrnet_torch/native/<hash>/`` at the root of
-the checkout, keyed by a hash of the sources (the op library's with
+Each is built into ``build/hdrnet_torch/native/<hash>/`` at the root of
+the checkout, keyed by a hash of its sources (the op library's with
 ``csrc/launchers.cuh``), the flags and the torch version, their ``g++``
 started together (``ops._build.compile_parallel``), with the include and
 library paths of ``torch.utils.cpp_extension``, torch's C++ ABI and an
 rpath to ``torch/lib``. A failed build raises.
 
-Never load ``libhdrnet_ops.so`` into a Python process: ``hdrnet_torch.ops``
-defines the ``hdrnet`` namespace there, and only one ``TORCH_LIBRARY``
-may define a namespace. The runner loads it (``--ops_library``).
+Never load ``libhdrnet_ops.so`` or ``libhdrnet_resize.so`` into a Python
+process that imports ``hdrnet_torch.ops``: that module defines the
+``hdrnet`` namespace's ops there, and an op may be defined once. The
+runner loads one of them (``--ops_library``).
 
   python -c 'from hdrnet_torch import native; print(native.build())'
 """
@@ -41,6 +46,7 @@ HERE = Path(__file__).resolve().parent
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'hdrnet_torch' / \
     'native'
 RUNNER, OPS_LIBRARY = 'aoti_serve', 'libhdrnet_ops.so'
+RESIZE_LIBRARY = 'libhdrnet_resize.so'
 CXX_FLAGS = ('-std=c++17', '-O2', '-fPIC', '-Wno-c++20-extensions')
 
 
@@ -80,21 +86,26 @@ def _cuda_include():
 
 
 def _targets(names):
-  """{name: (source files, the source to compile, output file, flags
-  without the output)}; the files key the build."""
+  """{name: (sources, files that key the build, output file, flags
+  without the output)}."""
   from hdrnet_torch.ops import _build
   cflags, lflags, lib_dir = _torch_flags()
+  resize = HERE / 'resize_op.cc'
   out = {}
   if RUNNER in names:
     has_cuda = (lib_dir / 'libtorch_cuda.so').is_file()
     source = HERE / 'aoti_serve.cc'
-    out[RUNNER] = ((source,), source, RUNNER,
+    out[RUNNER] = ((source,), (source,), RUNNER,
                    [*cflags, *lflags, *_torch_libs(has_cuda), '-ldl'])
+  if RESIZE_LIBRARY in names:
+    out[RESIZE_LIBRARY] = ((resize,), (resize,), RESIZE_LIBRARY,
+                           [*cflags, '-shared', *lflags,
+                            *_torch_libs(False)])
   if OPS_LIBRARY in names:
     kernels = _build.library().path
-    source = HERE / 'hdrnet_ops.cc'
+    sources = (HERE / 'hdrnet_ops.cc', resize)
     out[OPS_LIBRARY] = (
-        (source, _build.CSRC / 'launchers.cuh'), source, OPS_LIBRARY,
+        sources, (*sources, _build.CSRC / 'launchers.cuh'), OPS_LIBRARY,
         [*cflags, f'-I{_cuda_include()}', f'-I{_build.CSRC}', '-shared',
          *lflags, *_torch_libs(True), f'-L{kernels.parent}',
          f'-l:{kernels.name}', f'-Wl,-rpath,{kernels.parent}'])
@@ -126,13 +137,13 @@ def _build(names):
   from hdrnet_torch.ops import _build
   compiler = cxx()
   done, pending = {}, {}
-  for name, (files, source, filename, flags) in _targets(names).items():
+  for name, (sources, files, filename, flags) in _targets(names).items():
     path = BUILD_ROOT / _key(files, flags) / filename
     if path.is_file():
       done[name] = Binary(path, 0.0)
       continue
     path.parent.mkdir(parents=True, exist_ok=True)
-    pending[name] = (path, [compiler, str(source), '-o',
+    pending[name] = (path, [compiler, *map(str, sources), '-o',
                             str(_build.temporary(path)), *flags])
   if pending:
     built = _build.compile_parallel([cmd for _, cmd in pending.values()],
@@ -156,16 +167,21 @@ def ops_library():
   return _build((OPS_LIBRARY,))[OPS_LIBRARY]
 
 
-def build():
-  """Both binaries, their compilers started together: {name: Binary}."""
-  return _build((RUNNER, OPS_LIBRARY))
+def build(names=(RUNNER, OPS_LIBRARY)):
+  """The named binaries (the runner and the op library by default), their
+  compilers started together: {name: Binary}."""
+  return _build(names)
 
 
-def serve_command(package, **flags):
+def serve_command(package, dims=None, **flags):
   """The runner's command line for `package` with the op library, then
-  ``--name value`` for each flag (a list joined by commas)."""
+  ``--dim NAME=VALUE`` for each of `dims` (a package's dynamic
+  dimensions) and ``--name value`` for each flag (a list joined by
+  commas)."""
   cmd = [str(runner().path), str(package), '--ops_library',
          str(ops_library().path)]
+  for name, value in (dims or {}).items():
+    cmd += ['--dim', f'{name}={value}']
   for name, value in flags.items():
     if isinstance(value, (list, tuple)):
       value = ','.join(map(str, value))

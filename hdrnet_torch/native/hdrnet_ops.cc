@@ -10,6 +10,9 @@
 //                                                          (ops/fused.py)
 //   hdrnet::slice_apply_fwd  K3, csrc/slice_apply.cu       (ops/slice_apply.py)
 //
+// The library also holds hdrnet::resize_bilinear (resize_op.cc, no kernel:
+// ATen calls on CPU and CUDA tensors), which this source's report counts.
+//
 // Each schema is the one torch.library.custom_op infers for the Python op
 // (torch.ops.hdrnet.<op>.default._schema), since an AOTInductor package
 // names its ops by qualified name and the loader looks them up here. The
@@ -297,13 +300,18 @@ TORCH_LIBRARY_IMPL(hdrnet, CUDA, m) {
   m.impl("slice_apply_fwd", &SliceApplyFwd);
 }
 
-// The kernels' launches in this process, as one JSON object.
+extern "C" long long hdrnet_resize_bilinear_calls();  // resize_op.cc
+
+// The kernels' launches and the resize's calls in this process, as one
+// JSON object.
 extern "C" const char* hdrnet_ops_launch_counts() {
   static thread_local char buf[256];
   std::snprintf(buf, sizeof(buf),
                 "{\"nearest_lowres\": %lld, \"enhance_fused_curves\": %lld, "
-                "\"enhance_fused_nn\": %lld, \"slice_apply_fwd\": %lld}",
+                "\"enhance_fused_nn\": %lld, \"slice_apply_fwd\": %lld, "
+                "\"resize_bilinear\": %lld}",
                 g_nearest_lowres.load(), g_fused_curves.load(),
-                g_fused_nn.load(), g_slice_apply_fwd.load());
+                g_fused_nn.load(), g_slice_apply_fwd.load(),
+                hdrnet_resize_bilinear_calls());
   return buf;
 }

@@ -1045,16 +1045,14 @@ def test_band_kernels_match_the_whole_frame(cuda, n_in, h, n_bands):
   assert float((total - d_grid).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize('name,mode', [('HDRNetCurves', 'curves'),
-                                       ('HDRNetPointwiseNNGuide', 'nn')])
-def test_native_runner_serves_cuda_package(cuda, name, mode, tmp_path):
-  """The native runner (hdrnet_torch/native) on an AOTInductor serve_fn
-  package compiled for the card: the op library launches K1 (or K6) once
-  a run, and the output is the eager Enhancer's within 1e-4 (Inductor may
-  order the glue around the kernel another way)."""
-  import json
-  import subprocess
-  from hdrnet_torch import native
+NATIVE_OPS = ('nearest_lowres', 'enhance_fused_curves', 'enhance_fused_nn',
+              'slice_apply_fwd', 'resize_bilinear')
+
+
+def _native_package(cuda, name, fn_name, fullres, tmp_path):
+  """(Enhancer, ExportedProgram): a seeded tiny `name` checkpoint saved in
+  `tmp_path` and its `fn_name` exported there with aoti=True for the
+  card."""
   from hdrnet_torch.bin import export
   from hdrnet_torch.config import Config, TrainConfig
   from hdrnet_torch.training import loop, step
@@ -1067,29 +1065,98 @@ def test_native_runner_serves_cuda_package(cuda, name, mode, tmp_path):
   Checkpointer(str(tmp_path)).save(0, step.create_state(
       model, loop.make_optimizer(model, cfg.train)))
   enh = Enhancer.from_checkpoint(str(tmp_path), device=cuda)
-  fn, example, dynamic = export.serving_functions(enh, (96, 128))['serve_fn']
-  export.export_function(enh, 'serve_fn', fn, example, dynamic,
-                         str(tmp_path), aoti=True)
-  rng = np.random.RandomState(4)
+  fn, example, dynamic = export.serving_functions(enh, fullres)[fn_name]
+  program = export.export_function(enh, fn_name, fn, example, dynamic,
+                                   str(tmp_path), aoti=True)
+  return enh, program
+
+
+def _native_serve(enh, package, hw, tmp_path, seed, dims=None):
+  """The runner's report and output for `package` on seeded (lowres,
+  fullres) inputs at `hw`, and the eager Enhancer's output on them."""
+  import json
+  import subprocess
+  from hdrnet_torch import native
+  rng = np.random.RandomState(seed)
   low = rng.rand(1, 64, 64, 3).astype(np.float32)
-  full = rng.rand(1, 96, 128, 3).astype(np.float32)
+  full = rng.rand(1, *hw, 3).astype(np.float32)
   low.tofile(tmp_path / 'low.bin')
   full.tofile(tmp_path / 'full.bin')
   cmd = native.serve_command(
-      tmp_path / 'serve_fn.aoti.pt2',
-      inputs=[tmp_path / 'low.bin', tmp_path / 'full.bin'],
+      package, dims=dims, inputs=[tmp_path / 'low.bin', tmp_path / 'full.bin'],
       output=tmp_path / 'out.bin', burn=1, iters=2)
   r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                      check=False)
   assert r.returncode == 0, r.stderr
   report = json.loads(r.stdout.strip())
   assert report['device'] == 'cuda'
-  kernel = f'enhance_fused_{mode}'
-  assert report['hdrnet_op_calls'] == {
-      k: 3 if k == kernel else 0 for k in ('nearest_lowres',
-                                           'enhance_fused_curves',
-                                           'enhance_fused_nn',
-                                           'slice_apply_fwd')}
-  want = enh(torch.from_numpy(low).to(cuda), torch.from_numpy(full).to(cuda))
+  want = enh(torch.from_numpy(low).to(enh.device),
+             torch.from_numpy(full).to(enh.device))
   got = np.fromfile(tmp_path / 'out.bin', np.float32).reshape(want.shape)
-  np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0, atol=1e-4)
+  return report, got, want.cpu().numpy()
+
+
+def _node_count(program, op):
+  return sum(str(n.target) == f'hdrnet.{op}.default'
+             for n in program.graph.nodes)
+
+
+@pytest.mark.parametrize('name,mode', [('HDRNetCurves', 'curves'),
+                                       ('HDRNetPointwiseNNGuide', 'nn')])
+def test_native_runner_serves_cuda_package(cuda, name, mode, tmp_path):
+  """The native runner (hdrnet_torch/native) on an AOTInductor serve_fn
+  package compiled for the card: the op library launches K1 (or K6) once
+  a run, and the output is the eager Enhancer's within 1e-4 (Inductor may
+  order the glue around the kernel another way)."""
+  enh, _ = _native_package(cuda, name, 'serve_fn', (96, 128), tmp_path)
+  report, got, want = _native_serve(enh, tmp_path / 'serve_fn.aoti.pt2',
+                                    (96, 128), tmp_path, 4)
+  kernel = f'enhance_fused_{mode}'
+  assert report['hdrnet_op_calls'] == {k: 3 if k == kernel else 0
+                                       for k in NATIVE_OPS}
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_native_runner_serves_pyramid(cuda, tmp_path):
+  """HDRNetGaussianPyrNN's serve_fn through the runner: its op library
+  runs K6 three times and hdrnet::resize_bilinear four times a run (the
+  graph's own node counts), within 1e-4 of the eager Enhancer; without
+  the op library the runner exits 1 naming the resize."""
+  import subprocess
+  from hdrnet_torch import native
+  enh, program = _native_package(cuda, 'HDRNetGaussianPyrNN', 'serve_fn',
+                                 (96, 128), tmp_path)
+  package = tmp_path / 'serve_fn.aoti.pt2'
+  report, got, want = _native_serve(enh, package, (96, 128), tmp_path, 5)
+  per_run = {'enhance_fused_nn': _node_count(program, 'enhance_fused'),
+             'resize_bilinear': _node_count(program, 'resize_bilinear')}
+  assert per_run == {'enhance_fused_nn': 3, 'resize_bilinear': 4}
+  assert report['hdrnet_op_calls'] == {k: 3 * per_run.get(k, 0)
+                                       for k in NATIVE_OPS}
+  np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+  r = subprocess.run([str(native.runner().path), str(package)],
+                     capture_output=True, text=True, timeout=300,
+                     check=False)
+  assert r.returncode == 1
+  assert 'calls the op hdrnet::resize_bilinear' in r.stderr, r.stderr
+
+
+@pytest.mark.parametrize('name,mode', [('HDRNetCurves', 'curves'),
+                                       ('HDRNetGaussianPyrNN', 'nn')])
+def test_native_runner_serves_any_size(cuda, name, mode, tmp_path):
+  """One serve_any_fn package (H and W dynamic) served at two sizes, odd
+  extents included, each within 1e-4 of the eager Enhancer at that size,
+  the report naming the shapes it served."""
+  enh, program = _native_package(cuda, name, 'serve_any_fn', (96, 128),
+                                 tmp_path)
+  per_run = {f'enhance_fused_{mode}': _node_count(program, 'enhance_fused'),
+             'resize_bilinear': _node_count(program, 'resize_bilinear')}
+  for seed, hw in enumerate([(73, 109), (160, 96)]):
+    report, got, want = _native_serve(
+        enh, tmp_path / 'serve_any_fn.aoti.pt2', hw, tmp_path, seed,
+        dims={'H': hw[0], 'W': hw[1]})
+    assert report['shapes'] == {'inputs': [[1, 64, 64, 3], [1, *hw, 3]],
+                                'output': [1, *hw, 3]}
+    assert report['hdrnet_op_calls'] == {k: 3 * per_run.get(k, 0)
+                                         for k in NATIVE_OPS}
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -5,7 +5,8 @@ The machine with the card has no JAX, so the port must import, serve
 by ``scripts/convert_jax_checkpoint.py``, which it also restores), run ``bin/run.py``'s per-image function,
 train, build, serve and train a feature model, a baseline and a style
 model of the zoo, run the tools (``bin/export.py``, ``bin/fit_grid.py``,
-``bin/viz_activations.py``), build a local-Laplacian set and train
+``bin/viz_activations.py``, the triage scripts ``scripts/guide_stats.py``
+and ``scripts/diagnose_pyramid.py``), build a local-Laplacian set and train
 on it from device memory, and train on a mesh through ``bin/train.py``
 under torchrun's environment without it: no module under ``hdrnet_torch/`` (nor
 ``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
@@ -171,6 +172,36 @@ loaded = sorted(m for m in sys.modules
 assert not loaded, loaded
 print('tools without jax')
 
+# The quality-triage tools on a pyramid checkpoint of the port.
+from hdrnet_torch.config import DataConfig
+from hdrnet_torch.scripts import diagnose_pyramid, guide_stats
+work = tempfile.mkdtemp()
+try:
+  data = os.path.join(work, 'set')
+  for side in ('input', 'output'):
+    images.imwrite(os.path.join(data, side, 'a.png'), rng.rand(72, 80, 3))
+  with open(os.path.join(data, 'filelist.txt'), 'w') as f:
+    f.write('a.png')
+  pcfg = Config(model=ModelConfig(model_name='HDRNetGaussianPyrNN',
+                                  net_input_size=32, spatial_bin=8,
+                                  luma_bins=4, guide_complexity=4),
+                data=DataConfig(output_resolution=[64, 64],
+                                net_input_size=32))
+  pmodel = make_model(pcfg.model, generator=torch.Generator().manual_seed(2))
+  pcfg.save(work)
+  Checkpointer(work).save(0, step.create_state(
+      pmodel, loop.make_optimizer(pmodel, pcfg.train)))
+  stats = guide_stats.main([work, data, '--device', 'cpu'])
+  assert stats['n_images'] == 1 and len(stats['guides']) == 3, stats
+  diag = diagnose_pyramid.main([work, data, '--device', 'cpu'])
+  assert len(diag['summary']['levels']) == 3, diag
+finally:
+  shutil.rmtree(work, ignore_errors=True)
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
+assert not loaded, loaded
+print('triage without jax')
+
 # The quality workload's data: a tiny local-Laplacian set built, then
 # trained on from device memory (the device route on the CPU).
 from hdrnet_torch.bin import train
@@ -252,6 +283,7 @@ def test_package_serves_with_jax_refused(converted_checkpoint):
   assert 'trained without jax' in proc.stdout
   assert 'zoo without jax' in proc.stdout
   assert 'tools without jax' in proc.stdout
+  assert 'triage without jax' in proc.stdout
   assert 'device data without jax' in proc.stdout
   assert 'mesh training without jax' in proc.stdout
 

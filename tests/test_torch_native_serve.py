@@ -11,12 +11,15 @@ wheel's libtorch. The deployment path end to end: a tiny
 ``coefficients_fn``, which calls no ``hdrnet::`` op, is served by the
 runner and its grid held at 1e-5 to the JAX model's coefficients on the
 same low-res input and to the port's eager grid; ``stream_fn`` calls
-``hdrnet::`` ops, which only the op library registers in C++ (CUDA only,
-so not built here), and the runner must refuse it naming the op. Then
-``pjrt_serve``'s error cases (usage, an unknown flag, a missing package
-or manifest), a CUDA package without a card, the packages ``--aoti``
-leaves out, and the op library's schemas against the Python ops'. The
-runner on a CUDA package is ``tests/test_torch_cuda.py``'s.
+``hdrnet::`` ops, which only the op library registers in C++ (its kernel
+ops on CUDA only, so not built here), and the runner must refuse it
+naming the op. Then ``pjrt_serve``'s error cases (usage, an unknown flag,
+a missing package or manifest), a CUDA package without a card, the
+pyramid's ``serve_fn`` and ``serve_any_fn`` packaged by ``--aoti`` (the
+runner naming the first op it lacks), and the op library's schemas
+against the Python ops'. The resize op in C++ and dynamic dimensions are
+``tests/test_torch_native_resize.py``'s; the runner on a CUDA package is
+``tests/test_torch_cuda.py``'s.
 """
 
 import json
@@ -47,7 +50,7 @@ SMALL = dict(net_input_size=32, spatial_bin=8, luma_bins=4,
 FULLRES = (24, 40)
 REPORT_KEYS = {'init_ms', 'compile_ms', 'upload_ms', 'forward_ms_per_iter',
                'readback_ms', 'fps', 'iters', 'burn', 'out_mean', 'out_min',
-               'out_max', 'device', 'hdrnet_op_calls'}
+               'out_max', 'device', 'shapes', 'hdrnet_op_calls'}
 
 
 def _checkpoint(directory, model_name='HDRNetCurves', seed=3):
@@ -134,6 +137,8 @@ def test_runner_serves_cpu_coefficients_package(runner, packages):
   assert json.loads((d / 'report.json').read_text()) == report
   assert report['iters'] == 2 and report['burn'] == 1
   assert report['device'] == 'cpu' and report['hdrnet_op_calls'] == {}
+  assert report['shapes'] == {'inputs': [[1, 32, 32, 3]],
+                              'output': list(want.shape)}
   np.testing.assert_allclose(
       [report['out_mean'], report['out_min'], report['out_max']],
       [got.mean(), got.min(), got.max()], rtol=1e-5, atol=1e-6)
@@ -215,28 +220,38 @@ def test_manifest_without_a_package_or_a_card(runner, tmp_path):
     assert 'no CUDA device is visible' in r.stderr
 
 
-def test_aoti_leaves_out_dynamic_and_resize_graphs(tmp_path):
+def test_aoti_leaves_out_dynamic_and_resize_graphs(runner, tmp_path):
   """serve_any_fn (dynamic H and W) and a graph calling
-  hdrnet::resize_bilinear (the pyramid's) get no package; the export
-  records none in their manifests and compiles nothing for them."""
+  hdrnet::resize_bilinear (the pyramid's) are packaged too: each manifest
+  records its package (serve_any_fn's also its dims and their range),
+  and the runner, given no op library, refuses each package naming
+  hdrnet::resize_bilinear, the first hdrnet:: op the graph calls."""
   enh = _checkpoint(tmp_path, 'HDRNetGaussianPyrNN')
   fns = export.serving_functions(enh, FULLRES)
-  for name in ('serve_fn', 'serve_any_fn'):
+  side = {'min': export.MIN_SIDE, 'max': export.MAX_SIDE}
+  for name, dims in (('serve_fn', None), ('serve_any_fn', {'H': side,
+                                                          'W': side})):
     fn, example, dynamic = fns[name]
     program = export.export_function(enh, name, fn, example, dynamic,
                                      str(tmp_path), aoti=True)
-    assert export.aoti_skip_reason(name, program)
+    assert 'hdrnet.resize_bilinear.default' in export.hdrnet_ops(program)
     manifest = json.loads((tmp_path / f'{name}.manifest.json').read_text())
-    assert 'aoti' not in manifest
-    assert not (tmp_path / f'{name}.aoti.pt2').exists()
-  assert 'resize_bilinear' in export.aoti_skip_reason('serve_fn', program)
-  assert 'dynamic' in export.aoti_skip_reason('serve_any_fn', program)
+    assert manifest['aoti'] == {'package': f'{name}.aoti.pt2',
+                                'device': 'cpu'}
+    assert manifest.get('dims') == dims
+    assert (tmp_path / f'{name}.aoti.pt2').is_file()
+    r = _run([runner, str(tmp_path / f'{name}.aoti.pt2'), '--dim', 'H=24',
+              '--dim', 'W=40'] if dims else
+             [runner, str(tmp_path / f'{name}.aoti.pt2')])
+    assert r.returncode == 1
+    assert 'calls the op hdrnet::resize_bilinear' in r.stderr, r.stderr
 
 
 def _cc_schemas():
-  """{op: schema} of the m.def(...) strings in hdrnet_ops.cc (adjacent
-  string literals joined)."""
-  source = (native.HERE / 'hdrnet_ops.cc').read_text()
+  """{op: schema} of the m.def(...) strings in the op library's sources,
+  hdrnet_ops.cc and resize_op.cc (adjacent string literals joined)."""
+  source = ''.join((native.HERE / name).read_text()
+                   for name in ('hdrnet_ops.cc', 'resize_op.cc'))
   out = {}
   for call in re.findall(r'm\.def\(((?:\s*"[^"]*")+)\s*\)', source):
     schema = ''.join(re.findall(r'"([^"]*)"', call))
@@ -245,14 +260,14 @@ def _cc_schemas():
 
 
 @pytest.mark.parametrize('op', ['nearest_lowres', 'enhance_fused',
-                                'slice_apply_fwd'])
+                                'slice_apply_fwd', 'resize_bilinear'])
 def test_op_library_schemas_are_the_python_ops(op):
   assert _cc_schemas()[op] == str(getattr(torch.ops.hdrnet, op).default
                                   ._schema)
 
 
 def test_op_library_registers_the_kernel_backed_ops():
-  """Every op the op library defines is one that AOTInductor packages may
-  call, and it defines all but the bilinear resize (no kernel)."""
+  """The op library defines every hdrnet:: op that AOTInductor packages
+  may call: the kernel-backed ops and the bilinear resize (no kernel)."""
   assert sorted(_cc_schemas()) == ['enhance_fused', 'nearest_lowres',
-                                   'slice_apply_fwd']
+                                   'resize_bilinear', 'slice_apply_fwd']

@@ -83,16 +83,22 @@ held to the host pipeline's, ``make_usm_dataset``) and the
 style-transfer one (``make_st_dataset``, ``StyleTransferCurves`` at
 n_in 6) with ``--device_data``.
 
-Training on a ('data', 'spatial') mesh (``hdrnet_torch.parallel.mesh``),
-on the quality workload's set: K3, K4 and K5 on 2 and 4 H-bands of its
-1024^2 b=4 frames (their band arguments: K3's and K4's bands bit for bit
-the whole frame's rows, K5's shares summed to the frame's, each band
-against its plain version; timed over 4 bands in turns with the whole
-frame); ``bin/train.py``'s ``main`` on four gloo ranks sharing the card
-(NCCL refuses two ranks on one device) at (4, 1), (2, 2) twice and
-(1, 4) for ``HDRNetCurves`` and at (2, 2) for ``HDRNetPointwiseNNGuide``,
-each held to the (1, 1) run of this process and its ranks to each other
-bit for bit, the two (2, 2) runs bit for bit under cudnn.deterministic;
+Training on a ('data', 'spatial') mesh (``hdrnet_torch.parallel.mesh``;
+the halos of the resizes and k x k convs exchanged by
+``hdrnet_torch.parallel.halo``), on the quality workload's set: K3, K4
+and K5 on 2 and 4 H-bands of its 1024^2 b=4 frames and on the 4 uneven
+bands of a pyramid level (270x480 b=4) (their band arguments: K3's and
+K4's bands bit for bit the whole's rows, K5's shares summed to the
+whole's, each band against its plain version; timed over 4 bands in
+turns with the whole); ``bin/train.py``'s ``main`` on four gloo ranks
+sharing the card (NCCL refuses two ranks on one device) at (4, 1), (2,
+2) twice and (1, 4) for ``HDRNetCurves``, at (2, 2) for
+``HDRNetPointwiseNNGuide``, at (4, 1), (2, 2) and (1, 4) for
+``HDRNetGaussianPyrNN`` and ``HDRNetFeaturesPyrNN3`` (cm 2), and one step
+of each other model of the registry at (1, 4) on a seeded 256^2 b=4
+batch, each held to the (1, 1) run of this process and its ranks to
+each other bit for bit, the two (2, 2) runs bit for bit under
+cudnn.deterministic;
 a step on one NCCL rank under torchrun in turns with the step with no
 process group; and ``python -m torch.distributed.run --nproc_per_node 1
 -m hdrnet_torch.bin.train ... --mesh_shape 1 1`` on NCCL. The ranks are
@@ -273,10 +279,34 @@ MESH_LAYOUTS = [('curves_4x1', 'HDRNetCurves', (4, 1)),
                 ('curves_2x2', 'HDRNetCurves', (2, 2)),
                 ('curves_2x2_again', 'HDRNetCurves', (2, 2)),
                 ('curves_1x4', 'HDRNetCurves', (1, 4)),
-                ('nn_2x2', NN, (2, 2))]
+                ('nn_2x2', NN, (2, 2)),
+                ('pyr_4x1', PYR, (4, 1)), ('pyr_2x2', PYR, (2, 2)),
+                ('pyr_1x4', PYR, (1, 4)),
+                ('fpyr_4x1', FPYR, (4, 1)), ('fpyr_2x2', FPYR, (2, 2)),
+                ('fpyr_1x4', FPYR, (1, 4))]
+# Each mesh model's flags beyond MESH_FLAGS (FPYR: train_fpyrnn3_cm2.sh's)
+# and its slice-applies a step (one K3, K4 and K5 each).
+MESH_MODEL_FLAGS = {FPYR: ['--channel_multiplier', '2', '--nobatch_norm']}
+MESH_SLICES = {'HDRNetCurves': 1, NN: 1, PYR: 3, FPYR: 3}
+# The other 13 models (ZOO_OTHERS, their scripts' widths): one step each
+# on a seeded MESH_ZOO_B x MESH_ZOO_HW batch made on the card, at
+# MESH_ZOO_LAYOUT on the same ranks, against the step of this process. A
+# first Adam step moves no parameter by more than its lr, whatever the
+# gradient, so the gradients it stepped with (summed over the mesh) are
+# held too, to MESH_GRAD_REL of each leaf's max |g| (measured at most
+# 2.04e-4, HDRNetFeaturesPyrNN2's coarsest guide: float32 sums of a
+# 16-row band's pixels in another order).
+MESH_ZOO_HW, MESH_ZOO_B, MESH_ZOO_LAYOUT = (256, 256), 4, (1, 4)
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 1e-3, 2e-4
+MESH_GRAD_REL = 1e-3
 MESH_LOSS_RTOL = 1e-5
 BAND_SHARE_REL = 1e-5  # K5's band shares summed, of the frame's max
+# A pyramid level cut unevenly: the third level of a 1080x1920 frame, whose
+# 270 rows a (1, 4) mesh cuts into bands of 67, 68, 67 and 68.
+LEVEL_HW = (270, 480)
+# FPYR cm 2's slice-apply on the bands of its 512^2 level at (1, 4): its
+# 4 * cm learned features (n_in 8, C = 27), b=4, as the mesh runs give it.
+FPYR_LEVEL_HW, FPYR_FEATURES = (512, 512), 8
 MESH_TIMEOUT_S = 300
 
 # The least time the card could take (H100 SXM data sheet at 700 W): the
@@ -2388,102 +2418,142 @@ def _quality_workload(dev, tag, slice_launches, full_float32):
   return totals['K1']
 
 
-def _band_kernels(gen, dev, tag, full_float32):
-  """K3, K4 and K5 on H-bands of a 1024^2 b=4 frame (the quality
-  workload's), in 2 and 4 bands: K3's output and K4's cotangents
-  bit-identical to the whole frame's rows, K5's shares summed within
-  BAND_SHARE_REL of the frame's; each band launch against its plain
-  version; then each kernel over 4 bands timed in turns with one whole
-  frame. Comparison launches: none counts. Returns the times."""
+def _hold_bands(g5, guide, image, ct, bounds, what, full_float32):
+  """K3, K4 and K5 on the H-bands `bounds` ([(lo, hi)]) of a frame (or a
+  pyramid level) against the whole one: K3's output and K4's cotangents
+  bit-identical to its rows, K5 bit-identical across runs and its shares
+  summed within BAND_SHARE_REL of the whole grid cotangent; each band
+  against its plain version. Returns (max abs errs, the shares' error)."""
   from hdrnet_torch.ops import slice_apply as sa
-  g5, guide, image, ct = _train_inputs(gen, 4, (QUALITY_SIZE,) * 2, 3, dev)
-  h = QUALITY_SIZE
+  h = guide.shape[1]
   whole_out = sa.slice_apply_fwd(g5, guide, image)
   whole_dg, whole_di = sa.slice_apply_pix_bwd(g5, guide, image, ct)
   whole_grid = sa.slice_apply_grid_bwd(g5.shape, guide, image, ct)
   errs = {'K3': 0.0, 'K4': 0.0, 'K5': 0.0}
-  share_err = {}
+  total = torch.zeros_like(whole_grid)
+  for lo, hi in bounds:
+    rows, band = slice(lo, hi), (lo, h)
+    gb, ib, cb = (t[:, rows].contiguous() for t in (guide, image, ct))
+    where = f'{what}, band {band} of {len(bounds)}'
+    out = sa.slice_apply_fwd(g5, gb, ib, band=band)
+    dg, di = sa.slice_apply_pix_bwd(g5, gb, ib, cb, band=band)
+    dg_only, _ = sa.slice_apply_pix_bwd(g5, gb, ib, cb, need_input=False,
+                                        band=band)
+    share = sa.slice_apply_grid_bwd(g5.shape, gb, ib, cb, band=band)
+    for got, want, name in ((out, whole_out[:, rows], 'K3'),
+                            (dg, whole_dg[:, rows], 'K4 guide'),
+                            (dg_only, whole_dg[:, rows], 'K4 guide only'),
+                            (di, whole_di[:, rows], 'K4 input')):
+      if not torch.equal(got, want):
+        raise AssertionError(f'{name} {where}: not bit-identical to the '
+                             f'whole one\'s rows')
+    if not torch.equal(share, sa.slice_apply_grid_bwd(
+        g5.shape, gb, ib, cb, band=band)):
+      raise AssertionError(f'K5 {where}: two runs differ')
+    with full_float32():
+      errs['K3'] = max(errs['K3'], _max_err(
+          out, sa.slice_apply_fwd_plain(g5, gb, ib, band=band), K3_TOL,
+          f'K3 {where} vs plain'))
+      want_dg, want_di = sa.slice_apply_pix_bwd_plain(g5, gb, ib, cb,
+                                                      band=band)
+      errs['K4'] = max(errs['K4'], _scaled_err(
+          dg, want_dg, K4_GUIDE_REL, f'K4 guide {where} vs plain'), _max_err(
+              di, want_di, K3_TOL, f'K4 input {where} vs plain'))
+      errs['K5'] = max(errs['K5'], _scaled_err(
+          share, sa.slice_apply_grid_bwd_plain(g5.shape, gb, ib, cb,
+                                               band=band), K3_TOL,
+          f'K5 {where} vs plain'))
+    total += share
+  return errs, _scaled_err(total, whole_grid, BAND_SHARE_REL,
+                           f'K5 shares of {what} vs the whole')
 
-  def bands(n):
-    per = h // n
-    for i in range(n):
-      rows = slice(i * per, (i + 1) * per)
-      yield rows, (rows.start, h), [t[:, rows].contiguous()
-                                    for t in (guide, image, ct)]
 
-  for n in (2, 4):
-    total = torch.zeros_like(whole_grid)
-    for rows, band, (gb, ib, cb) in bands(n):
-      what = f'band {band} of {n}'
-      out = sa.slice_apply_fwd(g5, gb, ib, band=band)
-      dg, di = sa.slice_apply_pix_bwd(g5, gb, ib, cb, band=band)
-      dg_only, _ = sa.slice_apply_pix_bwd(g5, gb, ib, cb, need_input=False,
-                                          band=band)
-      share = sa.slice_apply_grid_bwd(g5.shape, gb, ib, cb, band=band)
-      for got, want, name in ((out, whole_out[:, rows], 'K3'),
-                              (dg, whole_dg[:, rows], 'K4 guide'),
-                              (dg_only, whole_dg[:, rows], 'K4 guide only'),
-                              (di, whole_di[:, rows], 'K4 input')):
-        if not torch.equal(got, want):
-          raise AssertionError(f'{name} {what}: not bit-identical to the '
-                               f'whole frame\'s rows')
-      if not torch.equal(share, sa.slice_apply_grid_bwd(
-          g5.shape, gb, ib, cb, band=band)):
-        raise AssertionError(f'K5 {what}: two runs differ')
-      with full_float32():
-        errs['K3'] = max(errs['K3'], _max_err(
-            out, sa.slice_apply_fwd_plain(g5, gb, ib, band=band), K3_TOL,
-            f'K3 {what} vs plain'))
-        want_dg, want_di = sa.slice_apply_pix_bwd_plain(g5, gb, ib, cb,
-                                                        band=band)
-        errs['K4'] = max(errs['K4'], _scaled_err(
-            dg, want_dg, K4_GUIDE_REL, f'K4 guide {what} vs plain'), _max_err(
-                di, want_di, K3_TOL, f'K4 input {what} vs plain'))
-        errs['K5'] = max(errs['K5'], _scaled_err(
-            share, sa.slice_apply_grid_bwd_plain(g5.shape, gb, ib, cb,
-                                                 band=band), K3_TOL,
-            f'K5 {what} vs plain'))
-      total += share
-    share_err[n] = _scaled_err(total, whole_grid, BAND_SHARE_REL,
-                               f'K5 shares of {n} bands vs the frame')
-  four = list(bands(4))
+def _time_bands(g5, guide, image, ct, bounds):
+  """Each of K3, K4 (the guide's cotangent only) and K5 over `bounds`'s
+  bands in turns with the whole frame: events (whole / bands / bands /
+  whole) and graphs (the device time, no host gaps between the bands'
+  calls)."""
+  from hdrnet_torch.ops import slice_apply as sa
+  from hdrnet_torch.utils.timing import graph_ms
+  h = guide.shape[1]
+  bands = [((lo, h), [t[:, lo:hi].contiguous() for t in (guide, image, ct)])
+           for lo, hi in bounds]
   calls = {
       'K3': (lambda: sa.slice_apply_fwd(g5, guide, image),
              lambda: [sa.slice_apply_fwd(g5, b[0], b[1], band=band)
-                      for _, band, b in four]),
+                      for band, b in bands]),
       'K4': (lambda: sa.slice_apply_pix_bwd(g5, guide, image, ct,
                                             need_input=False),
              lambda: [sa.slice_apply_pix_bwd(g5, *b, need_input=False,
                                              band=band)
-                      for _, band, b in four]),
+                      for band, b in bands]),
       'K5': (lambda: sa.slice_apply_grid_bwd(g5.shape, guide, image, ct),
              lambda: [sa.slice_apply_grid_bwd(g5.shape, *b, band=band)
-                      for _, band, b in four]),
+                      for band, b in bands]),
   }
-  from hdrnet_torch.utils.timing import graph_ms
   times = {}
   for k, (whole, banded) in calls.items():
     turns = [_time_ms(whole, 20), _time_ms(banded, 20), _time_ms(banded, 20),
              _time_ms(whole, 20)]
-    # Graphs: the device time, with no host gaps between the band calls.
     times[k] = {'whole_ms': (turns[0] + turns[3]) / 2,
-                'four_bands_ms': (turns[1] + turns[2]) / 2, 'turns': turns,
+                'bands_ms': (turns[1] + turns[2]) / 2, 'turns': turns,
                 'whole_graph_ms': graph_ms(whole),
-                'four_bands_graph_ms': graph_ms(banded)}
+                'bands_graph_ms': graph_ms(banded)}
   torch.cuda.synchronize()
+  return times
+
+
+def _band_kernels(gen, dev, tag, full_float32):
+  """K3, K4 and K5 on H-bands (``_hold_bands``): of a 1024^2 b=4 frame
+  (the quality workload's) in 2 and 4 equal bands, of a pyramid level
+  cut unevenly, LEVEL_HW b=4 (a 1080p frame's third level) in the four
+  bands of a (1, 4) mesh, and of FPYR cm 2's FPYR_LEVEL_HW level (n_in 8,
+  C = 27: K4's d_image of the learned features) in four; the first two
+  timed over 4 bands in turns with the whole (``_time_bands``).
+  Comparison launches: none counts. Returns the times,
+  {label: {kernel: times}}."""
+  from hdrnet_torch.parallel import halo
+  h = QUALITY_SIZE
+  g5, guide, image, ct = _train_inputs(gen, 4, (h, h), 3, dev)
+  errs, share_err = {}, {}
+  for n in (2, 4):
+    errs[n], share_err[n] = _hold_bands(g5, guide, image, ct,
+                                        halo.split(h, n), f'{h}^2',
+                                        full_float32)
+  times = {f'{h}^2 b=4, 4 bands': _time_bands(g5, guide, image, ct,
+                                              halo.split(h, 4))}
+  lg5, lguide, limage, lct = _train_inputs(gen, 4, LEVEL_HW, 3, dev)
+  level_bounds = halo.split(LEVEL_HW[0], 4)
+  errs['level'], share_err['level'] = _hold_bands(
+      lg5, lguide, limage, lct, level_bounds, 'the level', full_float32)
+  level_key = (f'{LEVEL_HW[0]}x{LEVEL_HW[1]} b=4 (a 1080p frame\'s third '
+               f'pyramid level), 4 bands of '
+               f'{[hi - lo for lo, hi in level_bounds]} rows')
+  times[level_key] = _time_bands(lg5, lguide, limage, lct, level_bounds)
+  del lg5, lguide, limage, lct
+  fh = FPYR_LEVEL_HW[0]
+  errs['fpyr'], share_err['fpyr'] = _hold_bands(
+      *_train_inputs(gen, 4, FPYR_LEVEL_HW, FPYR_FEATURES, dev),
+      halo.split(fh, 4), f'{FPYR} cm 2\'s {fh}^2 level', full_float32)
+  worst = {k: max(e[k] for e in errs.values()) for k in ('K3', 'K4', 'K5')}
   print(f'band kernels at {h}^2 b=4 (the quality run\'s frames; K4 with and '
-        f'without the input\'s cotangent), 2 and 4 H-bands: K3 and K4 '
-        f'bit-identical to the whole frame\'s rows, K5 bit-identical across '
-        f'runs and its shares summed within {share_err[2]:.3e} (2 bands) '
-        f'and {share_err[4]:.3e} (4) of the frame\'s (<= {BAND_SHARE_REL:.0e}'
-        f' of its max); against the plain bands max abs err K3 '
-        f'{errs["K3"]:.3e}, K4 {errs["K4"]:.3e}, K5 {errs["K5"]:.3e} (<= '
-        f'{K3_TOL:.0e}, K4 guide and K5 of their max); timing {tag}, whole '
-        f'frame / 4 bands / 4 bands / whole frame (events; graphs whole, 4 '
-        f'bands): ' + '; '.join(
-            f'{k} {" / ".join(f"{t:.4f}" for t in v["turns"])} ms '
-            f'({v["whole_graph_ms"]:.4f}, {v["four_bands_graph_ms"]:.4f})'
-            for k, v in times.items()), flush=True)
+        f'without the input\'s cotangent), 2 and 4 H-bands, and on '
+        f'{level_key}: K3 and K4 bit-identical to the whole\'s rows, K5 '
+        f'bit-identical across runs and its shares summed within '
+        f'{share_err[2]:.3e} (2 bands), {share_err[4]:.3e} (4), '
+        f'{share_err["level"]:.3e} (the level) and {share_err["fpyr"]:.3e} '
+        f'({FPYR} cm 2\'s {fh}^2 b=4 level at n_in {FPYR_FEATURES}, C = '
+        f'{3 * (FPYR_FEATURES + 1)}, 4 bands) of the whole\'s (<= '
+        f'{BAND_SHARE_REL:.0e} of its max); against the plain bands max abs '
+        f'err K3 {worst["K3"]:.3e}, K4 {worst["K4"]:.3e}, K5 '
+        f'{worst["K5"]:.3e} (<= {K3_TOL:.0e}, K4 guide and K5 of their max); '
+        f'timing {tag}, whole / 4 bands / 4 bands / whole (events; graphs '
+        f'whole, 4 bands): ' + ' | '.join(
+            f'{label}: ' + '; '.join(
+                f'{k} {" / ".join(f"{t:.4f}" for t in v["turns"])} ms '
+                f'({v["whole_graph_ms"]:.4f}, {v["bands_graph_ms"]:.4f})'
+                for k, v in kt.items()) for label, kt in times.items()),
+        flush=True)
   return times
 
 
@@ -2508,61 +2578,111 @@ def _run_ranks(nproc, args, what):
   return out
 
 
-def _mesh_runs(nproc, backend, runs, what):
-  """Runs `runs` ((name, bin/train.py argv, deterministic, warmup)) on
-  nproc ranks of `backend` (None: NCCL) through this script's worker
-  mode; returns each run's ranks' results."""
+def _mesh_runs(nproc, backend, runs, what, zoo=()):
+  """Runs `runs` ((name, bin/train.py argv, deterministic, warmup)) and
+  then `zoo` ((name, ``_zoo_mesh_step``'s name, n_in and seed, mesh
+  shape)) on nproc ranks of `backend` (None: NCCL) through this script's
+  worker mode; returns each run's ranks' results."""
   spec = {'backend': backend, 'runs': [
       {'argv': argv, 'deterministic': det, 'warmup': warmup,
-       'out': f'{MESH_DIR}/{name}'} for name, argv, det, warmup in runs]}
+       'out': f'{MESH_DIR}/{name}'} for name, argv, det, warmup in runs] + [
+           {'zoo': {'name': model, 'n_in': n_in, 'seed': seed,
+                    'mesh': mesh}, 'out': f'{MESH_DIR}/{name}'}
+           for name, model, n_in, seed, mesh in zoo]}
   path = f'{MESH_DIR}/{what.replace(" ", "_")}.json'
   with open(path, 'w') as f:
     json.dump(spec, f)
   _run_ranks(nproc, [os.path.abspath(__file__), '--mesh_worker', path], what)
   return {name: [torch.load(f'{MESH_DIR}/{name}.rank{r}.pt',
                             weights_only=True) for r in range(nproc)]
-          for name, *_ in runs}
+          for name, *_ in (*runs, *zoo)}
+
+
+def _zoo_mesh_step(name, n_in, seed, dev, mesh=None):
+  """One train step of `name` at its script's widths (ZOO_OTHERS) on a
+  seeded MESH_ZOO_B x MESH_ZOO_HW batch made on the card, under
+  cudnn.deterministic; on a mesh, this rank's share and band. Returns
+  (state dict on the CPU, loss, the gradients Adam stepped with (summed
+  over the mesh) on the CPU, the kernels' launches)."""
+  from hdrnet_torch.config import ModelConfig, TrainConfig
+  from hdrnet_torch.models import make_model
+  from hdrnet_torch.parallel import mesh as pm
+  from hdrnet_torch.training import loop, step
+  cfg = ModelConfig(model_name=name, n_in=n_in,
+                    output_resolution=list(MESH_ZOO_HW))
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  b, s = MESH_ZOO_B, cfg.net_input_size
+  full = torch.rand((b, *MESH_ZOO_HW, n_in), generator=gen, device=dev)
+  low = torch.rand((b, s, s, n_in), generator=gen, device=dev)
+  batch = {'lowres_input': low, 'lowres_output': low[..., :3],
+           'image_input': full,
+           'image_output': (full[..., :3] * 1.3).clamp(0.0, 1.0)}
+  model = make_model(cfg, generator=torch.Generator().manual_seed(
+      seed)).to(dev)
+  pm.replicate(model, mesh)
+  state = step.create_state(model, loop.make_optimizer(
+      model, TrainConfig(learning_rate=1e-4)))
+  share, band = pm.shard_batch(mesh, batch)
+  train_step = step.make_train_step(mesh=mesh)
+  with _cudnn_deterministic():
+    (state, m), counts = _counted(lambda: train_step(state, share, band))
+  return ({k: v.cpu() for k, v in model.state_dict().items()},
+          float(m['loss']),
+          {k: p.grad.cpu() for k, p in model.named_parameters()}, counts)
 
 
 def _mesh_worker(path):
   """One rank of the mesh phase (``chip_smoke.py --mesh_worker SPEC``,
   under torchrun): joins the process group, runs each of the spec's
-  bin/train.py runs with the launch counts reset before and read after
-  and the step clock on, and writes what this rank ended with."""
+  runs (bin/train.py's main with the step clock on, or one
+  ``_zoo_mesh_step``) with the launch counts reset before and read after,
+  and writes what this rank ended with."""
   import torch.distributed as dist
   from hdrnet_torch.bin import train
   from hdrnet_torch.parallel import mesh as pm
   with open(path) as f:
     spec = json.load(f)
-  pm.initialize_distributed(spec['backend'])
+  dev = pm.initialize_distributed(spec['backend'])
   rank = dist.get_rank()
+  meshes = {}
   for run in spec['runs']:
-    guard = (_cudnn_deterministic() if run['deterministic']
-             else contextlib.nullcontext())
-    with guard, _step_clock() as clock:
-      state, counts = _counted(lambda: train.main(run['argv']))
-    torch.save({'state_dict': {k: v.cpu() for k, v in
+    if 'zoo' in run:
+      shape = tuple(run['zoo']['mesh'])
+      if shape not in meshes:
+        meshes[shape] = pm.make_mesh(shape)
+      sd, loss, grads, counts = _zoo_mesh_step(run['zoo']['name'],
+                                               run['zoo']['n_in'],
+                                               run['zoo']['seed'], dev,
+                                               meshes[shape])
+      result = {'state_dict': sd, 'ema_loss': loss, 'grads': grads,
+                'step': 1, 'step_ms': None}
+    else:
+      guard = (_cudnn_deterministic() if run['deterministic']
+               else contextlib.nullcontext())
+      with guard, _step_clock() as clock:
+        state, counts = _counted(lambda: train.main(run['argv']))
+      result = {'state_dict': {k: v.cpu() for k, v in
                                state.model.state_dict().items()},
                 'ema_loss': float(state.ema_loss), 'step': state.step,
-                'launches': counts, 'backend': dist.get_backend(),
-                'step_ms': _step_ms(clock, run['warmup'])},
-               f'{run["out"]}.rank{rank}.pt')
+                'step_ms': _step_ms(clock, run['warmup'])}
+    torch.save({**result, 'launches': counts,
+                'backend': dist.get_backend()}, f'{run["out"]}.rank{rank}.pt')
   dist.destroy_process_group()
   return 0
 
 
-def _hold_layout(got, want, what):
+def _hold_layout(got, want, what, steps=MESH_STEPS):
   """A mesh run's ranks against each other (bit for bit) and rank 0
   against the (1, 1) run: parameters and statistics to MESH_PARAM_RTOL /
-  MESH_PARAM_ATOL, the EMA loss to MESH_LOSS_RTOL. Returns the worst
-  parameter error over its tolerance."""
+  MESH_PARAM_ATOL. Returns the worst parameter error over its
+  tolerance and that parameter's name."""
   for r, res in enumerate(got[1:], 1):
     for k, v in res['state_dict'].items():
       if not torch.equal(v, got[0]['state_dict'][k]):
         raise AssertionError(f'{what}: rank {r} differs from rank 0 at {k}')
-  if got[0]['step'] != MESH_STEPS:
+  if got[0]['step'] != steps:
     raise AssertionError(f'{what}: step {got[0]["step"]}')
-  worst = 0.0
+  worst = (0.0, None)
   for k, v in want.items():
     g = got[0]['state_dict'][k]
     err = float(((g - v).abs() / (MESH_PARAM_ATOL + MESH_PARAM_RTOL *
@@ -2571,7 +2691,24 @@ def _hold_layout(got, want, what):
       raise AssertionError(f'{what}: {k} beyond rtol {MESH_PARAM_RTOL} / '
                            f'atol {MESH_PARAM_ATOL} of the (1, 1) run '
                            f'({err:.3f} of it)')
-    worst = max(worst, err)
+    if err >= worst[0]:
+      worst = (err, k)
+  return worst
+
+
+def _hold_mesh_grads(got, want, what):
+  """A zoo mesh run's gradients (rank 0's; the ranks' parameters are
+  bit-identical) against the (1, 1) run's: MESH_GRAD_REL of each leaf's
+  max |g|. Returns the worst error over that max and its parameter."""
+  worst = (0.0, None)
+  for k, w in want.items():
+    err = float((got[0]['grads'][k] - w).abs().max())
+    rel = err / max(float(w.abs().max()), 1e-30)
+    if not rel <= MESH_GRAD_REL:  # also catches NaN
+      raise AssertionError(f'{what}: gradient of {k} {rel:.3e} of its max '
+                           f'from the (1, 1) run\'s (> {MESH_GRAD_REL:.0e})')
+    if rel >= worst[0]:
+      worst = (rel, k)
   return worst
 
 
@@ -2593,37 +2730,57 @@ def _mesh_phase(dev, tag, data, slice_launches, gen, full_float32):
 
   def argv(name, model, steps, mesh=None):
     return ([f'{MESH_DIR}/{name}', f'{data}/train', *MESH_FLAGS,
-             '--model_name', model, '--max_steps', str(steps)]
+             *MESH_MODEL_FLAGS.get(model, []), '--model_name', model,
+             '--max_steps', str(steps)]
             + ([] if mesh is None else ['--mesh_shape', *map(str, mesh)]))
 
-  per_run = {k: MESH_STEPS for k in ('K3', 'K4', 'K5')}
+  slices = {**MESH_SLICES, **{name: n for name, _, _, n in ZOO_OTHERS}}
+
+  def per_run(model, steps=MESH_STEPS):
+    n = steps * slices[model]
+    return {k: n for k in ('K3', 'K4', 'K5')} if n else {}
+
   refs = {}
   with _cudnn_deterministic():
-    for model in ('HDRNetCurves', NN):
+    for model in MESH_SLICES:
       state, counts = _counted(lambda: train.main(argv(f'ref_{model}', model,
                                                        MESH_STEPS)))
-      _expect_launches(counts, per_run, f'(1, 1) {model}')
+      _expect_launches(counts, per_run(model), f'(1, 1) {model}')
       _tally_slice(slice_launches, *(counts[k] for k in ('K3', 'K4', 'K5')))
       refs[model] = ({k: v.cpu() for k, v in
                       state.model.state_dict().items()},
                      float(state.ema_loss))
+  zoo = [(f'zoo_{name}', name, n_in, 500 + i, MESH_ZOO_LAYOUT)
+         for i, (name, n_in, _, _) in enumerate(ZOO_OTHERS)]
+  zoo_grads, grad_worst = {}, {}
+  for run, name, n_in, seed, _ in zoo:
+    sd, loss, zoo_grads[run], counts = _zoo_mesh_step(name, n_in, seed, dev)
+    _expect_launches(counts, per_run(name, 1), f'(1, 1) {name}')
+    _tally_slice(slice_launches, *(counts[k] for k in ('K3', 'K4', 'K5')))
+    refs[run] = (sd, loss)
+  t_ranks = time.perf_counter()
   results = _mesh_runs(4, 'gloo', [
       (name, argv(name, model, MESH_STEPS, mesh), True, MESH_WARMUP)
-      for name, model, mesh in MESH_LAYOUTS], 'gloo mesh')
+      for name, model, mesh in MESH_LAYOUTS], 'gloo mesh', zoo)
+  t_ranks = time.perf_counter() - t_ranks
   worst, losses = {}, {}
-  for name, model, mesh in MESH_LAYOUTS:
+  for name, model, steps in ([(n, m, MESH_STEPS) for n, m, _ in MESH_LAYOUTS]
+                             + [(n, m, 1) for n, m, *_ in zoo]):
     got = results[name]
     for r, res in enumerate(got):
-      _expect_launches(res['launches'], per_run, f'{name} rank {r}')
+      _expect_launches(res['launches'], per_run(model, steps),
+                       f'{name} rank {r}')
       _tally_slice(slice_launches,
                    *(res['launches'][k] for k in ('K3', 'K4', 'K5')))
       if res['backend'] != 'gloo':
         raise AssertionError(f'{name}: backend {res["backend"]}')
-    want_sd, want_loss = refs[model]
-    worst[name] = _hold_layout(got, want_sd, name)
+    want_sd, want_loss = refs[name if steps == 1 else model]
+    worst[name] = _hold_layout(got, want_sd, name, steps)
+    if name in zoo_grads:
+      grad_worst[name] = _hold_mesh_grads(got, zoo_grads[name], name)
     loss = got[0]['ema_loss']
     if not abs(loss - want_loss) <= MESH_LOSS_RTOL * abs(want_loss):
-      raise AssertionError(f'{name}: EMA loss {loss} vs the (1, 1) run\'s '
+      raise AssertionError(f'{name}: loss {loss} vs the (1, 1) run\'s '
                            f'{want_loss}')
     losses[name] = loss
   a, b = results['curves_2x2'][0], results['curves_2x2_again'][0]
@@ -2632,19 +2789,32 @@ def _mesh_phase(dev, tag, data, slice_launches, gen, full_float32):
       raise AssertionError(f'two (2, 2) runs differ at {k}')
   if a['ema_loss'] != b['ema_loss']:
     raise AssertionError('two (2, 2) runs: EMA losses differ')
-  gloo_ms = b['step_ms']
+  step_ms = {name: results[name][0]['step_ms']
+             for name in ('curves_2x2_again', 'pyr_2x2', 'pyr_1x4',
+                          'fpyr_2x2', 'fpyr_1x4')}
   print(f'mesh training on one card (four gloo ranks; quality_run.sh\'s '
         f'widths and set, 1024^2 b=4, Adam 1e-4 constant, {MESH_STEPS} '
-        f'steps, cudnn.deterministic): every layout\'s ranks bit-identical, '
-        f'held to the (1, 1) run of this process (params rtol '
-        f'{MESH_PARAM_RTOL:.0e} / atol {MESH_PARAM_ATOL:.0e}, worst share of '
-        f'it {json.dumps({k: round(v, 4) for k, v in worst.items()})}; EMA '
-        f'loss rtol {MESH_LOSS_RTOL:.0e}: '
-        f'{json.dumps(losses)} vs curves {refs["HDRNetCurves"][1]}, NN '
-        f'{refs[NN][1]}); the two (2, 2) runs bit-identical; timing {tag}: '
-        f'(2, 2) gloo step {gloo_ms:.4f} ms (host clock, median after '
-        f'{MESH_WARMUP}; gloo reduces through the host: no speed figure); '
-        f'launches a rank a run {per_run}', flush=True)
+        f'steps, cudnn.deterministic; curves, the NN guide, the pyramid and '
+        f'{FPYR} cm 2, the last two with their levels\' halos exchanged; '
+        f'then the other {len(zoo)} models one step each at '
+        f'{MESH_ZOO_LAYOUT}, {MESH_ZOO_HW[0]}^2 b={MESH_ZOO_B}): every '
+        f'layout\'s ranks bit-identical, held to the (1, 1) run of this '
+        f'process (params rtol {MESH_PARAM_RTOL:.0e} / atol '
+        f'{MESH_PARAM_ATOL:.0e}, worst share of it and its parameter '
+        f'{json.dumps({k: [round(v, 4), p] for k, (v, p) in worst.items()})};'
+        f' the zoo\'s gradients summed over the mesh, of each leaf\'s max '
+        f'|g| (<= {MESH_GRAD_REL:.0e}), worst and its parameter '
+        f'{json.dumps({k: [v, p] for k, (v, p) in grad_worst.items()})};'
+        f' loss '
+        f'(EMA over the runs) rtol {MESH_LOSS_RTOL:.0e}: '
+        f'{json.dumps(losses)} vs (1, 1) '
+        f'{json.dumps({k: v[1] for k, v in refs.items()})}); the two (2, 2) '
+        f'curves runs bit-identical; timing {tag}: gloo steps '
+        f'{json.dumps({k: round(v, 4) for k, v in step_ms.items()})} ms '
+        f'(host clock, median after {MESH_WARMUP}; gloo reduces through the '
+        f'host: no speed figure); the ranks\' launch {t_ranks:.1f} s; '
+        f'launches a rank a run: K3, K4, K5 each {MESH_STEPS} x the '
+        f'slice-applies of a step {json.dumps(slices)}', flush=True)
 
   # One NCCL rank under torchrun against no process group, in turns: no
   # group / NCCL / NCCL / no group, the two NCCL runs in one launch.
@@ -3299,7 +3469,7 @@ def main():
     kernels[[r[0] for r in rows].index(kid)]['levels'] = {
         **slice_levels[kid], **zoo_levels[kid]}
     kernels[[r[0] for r in rows].index(kid)]['bands'] = {
-        f'{QUALITY_SIZE}^2 b=4, 4 bands': band_times[kid]}
+        label: kt[kid] for label, kt in band_times.items()}
   kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
       f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
       for r in ('gather', 'mma')}

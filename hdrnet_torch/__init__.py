@@ -8,8 +8,10 @@ train (``hdrnet_torch.training``, ``python -m hdrnet_torch.bin.train``)
 on three more: the slice-apply with an external guide and its two
 backward passes, on one card or over several processes on a ('data',
 'spatial') mesh (``hdrnet_torch.parallel``; the slice-apply kernels take
-a rank's H-band of a frame). The tools (``bin/export.py`` over the registered
-``hdrnet::`` ops, ``fit_grid``, ``viz_activations``,
+a rank's H-band of a frame, and ``parallel.halo`` exchanges the rows of
+the neighbouring bands that the resizes and convolutions read). The
+tools (``bin/export.py`` over the registered ``hdrnet::`` ops,
+``fit_grid``, ``viz_activations``,
 ``compare_baselines``, ``utils/``) and the round-4 downsample experiment
 with its tensor-core kernel K2x (``scripts/``) are ported too. The JAX
 package

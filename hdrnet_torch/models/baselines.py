@@ -6,7 +6,11 @@ Both work at full resolution and ignore the preview; they keep the
 and serving take any model. NHWC at the interface, NCHW inside.
 Submodule names follow the Flax modules, so :mod:`hdrnet_torch.convert`
 maps weights by name. Neither sows intermediates, so
-``forward_with_intermediates`` returns an empty dict.
+``forward_with_intermediates`` returns an empty dict. Both take an
+H-band of the frame (``band=``, a ``parallel.halo.Band``: mesh
+training's 'spatial' axis), each conv and resize exchanging the rows it
+reads from the neighbouring bands; neither slices a grid
+(``slice_levels = 0``).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from torch import nn
 
 from hdrnet_torch.config import ModelConfig
 from hdrnet_torch.models.layers import ConvBlock
-from hdrnet_torch.ops.resize import resize_nearest
+from hdrnet_torch.parallel import halo
 
 
 class UNet(nn.Module):
@@ -26,6 +30,8 @@ class UNet(nn.Module):
   the skip's extent (the float64 floor table of ``resize_nearest``), the
   concatenation ``[x, skip]`` and a 3x3 conv; a linear 1x1 conv to
   ``n_out``. Widths ``width * 2**level``; BN follows ``batch_norm``."""
+
+  slice_levels = 0
 
   def __init__(self, cfg: ModelConfig, generator=None):
     super().__init__()
@@ -48,30 +54,37 @@ class UNet(nn.Module):
     self.out = ConvBlock(ch, cfg.n_out, 1, activation=None,
                          generator=generator)
 
-  def forward(self, lowres, fullres):
+  def forward(self, lowres, fullres, band=None):
     del lowres
     x = fullres.permute(0, 3, 1, 2)
-    skips = []
+    skips, bands = [], [band]
     for i in range(self.n_levels):
-      x = getattr(self, f'enc{i}_a')(x)
+      x = getattr(self, f'enc{i}_a')(x, band)
       skips.append(x)
-      x = getattr(self, f'enc{i}_down')(x)
-    x = self.bottleneck(x)
+      x = getattr(self, f'enc{i}_down')(x, band)
+      if band is not None:
+        band = band.at(-(-band.h_total // 2))
+      bands.append(band)
+    x = self.bottleneck(x, band)
     for i in reversed(range(self.n_levels)):
       skip = skips[i]
-      x = resize_nearest(x.permute(0, 2, 3, 1),
-                         skip.shape[2:]).permute(0, 3, 1, 2)
-      x = getattr(self, f'dec{i}')(torch.cat([x, skip], dim=1))
+      size = (skip.shape[2] if bands[i] is None else bands[i].h_total,
+              skip.shape[3])
+      x = halo.resize_nearest(x.permute(0, 2, 3, 1), size,
+                              band=bands[i + 1]).permute(0, 3, 1, 2)
+      x = getattr(self, f'dec{i}')(torch.cat([x, skip], dim=1), bands[i])
     return self.out(x).permute(0, 2, 3, 1)
 
-  def forward_with_intermediates(self, lowres, fullres):
-    return self(lowres, fullres), {}
+  def forward_with_intermediates(self, lowres, fullres, band=None):
+    return self(lowres, fullres, band), {}
 
 
 class DilatedConvolutions(nn.Module):
   """``depth`` 3x3 convs of ``width`` channels, the dilation doubling a
   layer (1, 2, 4, ...; XLA's SAME pads rate * (k - 1) in all), then a
   linear 1x1 conv to ``n_out``. BN follows ``batch_norm``."""
+
+  slice_levels = 0
 
   def __init__(self, cfg: ModelConfig, generator=None):
     super().__init__()
@@ -85,12 +98,12 @@ class DilatedConvolutions(nn.Module):
     self.out = ConvBlock(ch, cfg.n_out, 1, activation=None,
                          generator=generator)
 
-  def forward(self, lowres, fullres):
+  def forward(self, lowres, fullres, band=None):
     del lowres
     x = fullres.permute(0, 3, 1, 2)
     for i in range(self.cfg.depth):
-      x = getattr(self, f'dilated{i}')(x)
+      x = getattr(self, f'dilated{i}')(x, band)
     return self.out(x).permute(0, 2, 3, 1)
 
-  def forward_with_intermediates(self, lowres, fullres):
-    return self(lowres, fullres), {}
+  def forward_with_intermediates(self, lowres, fullres, band=None):
+    return self(lowres, fullres, band), {}

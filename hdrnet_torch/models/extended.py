@@ -22,6 +22,11 @@ guide maps ('guide_map', finest level first) and the feature towers'
 outputs ('fullres_features'); ``HDRNetGaussianPyr`` sows only the grid
 and ``HDRNetStack`` nothing at top level (its stages' under
 'stage{s}').
+
+Every model takes ``band=`` (an H-band of the frame, mesh training's
+'spatial' axis; see ``models.hdrnet``): the style models are pointwise
+and take a bare (y_off, h_total); the towers' 3x3 convs, the resizes and
+``HDRNetStack``'s frame-wide preview need a ``parallel.halo.Band``.
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from hdrnet_torch.models.guides import (CurveGuide, Guide3x3NN,
 from hdrnet_torch.models.hdrnet import (CoefficientBackbone, HDRNetCurves,
                                         HDRNetGaussianPyrNN,
                                         HDRNetPointwiseNNGuide,
-                                        gaussian_pyramid, pyramid_slice_apply)
+                                        gaussian_pyramid, level_bands,
+                                        pyramid_slice_apply)
 from hdrnet_torch.models.layers import ConvBlock
-from hdrnet_torch.ops.resize import resize_bilinear, resize_nearest
+from hdrnet_torch.ops.resize import _nearest_indices, resize_nearest
 from hdrnet_torch.ops.slice_ops import bilateral_slice_apply
+from hdrnet_torch.parallel import halo
 
 
 class HDRNet3x3NNGuide(HDRNetCurves):
@@ -64,15 +71,17 @@ class HDRNetGaussianPyr(HDRNetGaussianPyrNN):
   def make_level_guide(cfg, generator):
     return CurveGuide(cfg.n_in, generator=generator)
 
-  def forward_with_intermediates(self, lowres, fullres):
-    out, inter = super().forward_with_intermediates(lowres, fullres)
+  def forward_with_intermediates(self, lowres, fullres, band=None):
+    out, inter = super().forward_with_intermediates(lowres, fullres, band)
     return out, {'bilateral_coefficients': inter['bilateral_coefficients']}
 
 
 class HDRNetStack(nn.Module):
   """Two chained ``HDRNetPointwiseNNGuide`` stages (``stage0``,
   ``stage1``) with their own backbones and guides: stage s + 1 enhances
-  stage s's output, its preview the nearest resize of that output."""
+  stage s's output, its preview the nearest resize of that output (on a
+  band, of the whole frame's output: every rank gathers the preview's
+  rows from their bands, ``halo.gather_rows``)."""
 
   n_stages = 2
 
@@ -82,16 +91,20 @@ class HDRNetStack(nn.Module):
     for s in range(self.n_stages):
       self.add_module(f'stage{s}', HDRNetPointwiseNNGuide(cfg, generator))
 
-  def forward(self, lowres, fullres):
-    return self.forward_with_intermediates(lowres, fullres)[0]
+  def forward(self, lowres, fullres, band=None):
+    return self.forward_with_intermediates(lowres, fullres, band)[0]
 
-  def forward_with_intermediates(self, lowres, fullres):
+  def forward_with_intermediates(self, lowres, fullres, band=None):
     n = self.cfg.net_input_size
+    if band is not None:
+      halo.require_group(band, "HDRNetStack's preview of the whole frame")
     inter = {}
     for s in range(self.n_stages):
       fullres, inter[f'stage{s}'] = getattr(self, f'stage{s}')(
-          lowres, fullres, return_intermediates=True)
-      lowres = resize_nearest(fullres, (n, n))
+          lowres, fullres, band, return_intermediates=True)
+      rows = fullres if band is None else halo.gather_rows(
+          fullres, band, _nearest_indices(band.h_total, n), 1)
+      lowres = resize_nearest(rows, (n, n))
     return fullres, inter
 
 
@@ -111,10 +124,10 @@ class FeatureExtractor(nn.Module):
                                               activation=None,
                                               generator=generator))
 
-  def forward(self, x):
+  def forward(self, x, band=None):
     x = x.permute(0, 3, 1, 2)
     for conv in self.children():
-      x = conv(x)
+      x = conv(x, band)
     return x.permute(0, 2, 3, 1)
 
 
@@ -147,29 +160,30 @@ class HDRNetFullresFeatures(nn.Module):
                                   else cfg.n_in, cfg.guide_complexity,
                                   generator=generator)
 
-  def forward(self, lowres, fullres):
-    return self.forward_with_intermediates(lowres, fullres)[0]
+  def forward(self, lowres, fullres, band=None):
+    return self.forward_with_intermediates(lowres, fullres, band)[0]
 
-  def _features(self, fullres):
+  def _features(self, fullres, band):
     if not self.multiscale_features:
-      return self.features(fullres)
-    hw = fullres.shape[1:3]
-    lvl, total = fullres, None
-    for i in range(3):
-      f = getattr(self, f'features_{i}')(lvl)
+      return self.features(fullres, band)
+    levels = gaussian_pyramid(fullres, 3, band)
+    hw = (fullres.shape[1] if band is None else band.h_total,
+          fullres.shape[2])
+    total = None
+    for i, (lvl, lb) in enumerate(zip(levels, level_bands(band, 3))):
+      f = getattr(self, f'features_{i}')(lvl, lb)
       if i:
-        f = resize_bilinear(f, hw, align_corners=True)
+        f = halo.resize_bilinear(f, hw, align_corners=True, band=lb)
       total = f if total is None else total + f
-      if i < 2:
-        lvl = resize_bilinear(lvl, (lvl.shape[1] // 2, lvl.shape[2] // 2),
-                              align_corners=True)
     return total
 
-  def forward_with_intermediates(self, lowres, fullres):
+  def forward_with_intermediates(self, lowres, fullres, band=None):
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
-    features = self._features(fullres)
-    guide = self.guide(features if self.guide_from_features else fullres)
-    out = bilateral_slice_apply(grid, guide, features, has_offset=True)
+    features = self._features(fullres, band)
+    guide = self.guide(features if self.guide_from_features else fullres,
+                       band)
+    out = bilateral_slice_apply(grid, guide, features, has_offset=True,
+                                band=band)
     return out, {'bilateral_coefficients': grid,
                  'fullres_features': [features], 'guide_map': [guide]}
 
@@ -209,17 +223,18 @@ class HDRNetFeaturesPyrNN(nn.Module):
           else PointwiseNNGuide(cfg.n_in, cfg.guide_complexity,
                                 generator=generator)))
 
-  def forward(self, lowres, fullres):
-    return self.forward_with_intermediates(lowres, fullres)[0]
+  def forward(self, lowres, fullres, band=None):
+    return self.forward_with_intermediates(lowres, fullres, band)[0]
 
-  def forward_with_intermediates(self, lowres, fullres):
+  def forward_with_intermediates(self, lowres, fullres, band=None):
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
-    levels = gaussian_pyramid(fullres, self.n_scales)
-    feats = [getattr(self, f'features_{il}')(lvl)
-             for il, lvl in enumerate(levels)]
+    levels = gaussian_pyramid(fullres, self.n_scales, band)
+    bands = level_bands(band, self.n_scales)
+    feats = [getattr(self, f'features_{il}')(lvl, lb)
+             for il, (lvl, lb) in enumerate(zip(levels, bands))]
     guides = [getattr(self, f'guide_level_{il}')(lvl)
               for il, lvl in enumerate(levels)]
-    out = pyramid_slice_apply(grid, guides, feats)
+    out = pyramid_slice_apply(grid, guides, feats, bands=bands)
     return out, {'bilateral_coefficients': grid, 'fullres_features': feats,
                  'guide_map': guides}
 

@@ -10,7 +10,10 @@
 
 Parameter names and shapes are the Flax modules', so converted weights
 load by name. ``guide_mode`` names the fused serving kernel's mode and
-``packed_params()`` returns the vector that kernel reads.
+``packed_params()`` returns the vector that kernel reads. Each takes an
+H-band of a frame (``band=``; mesh training's 'spatial' axis): the
+pointwise guides need no other rows and ignore it; ``Guide3x3NN``'s 3x3
+conv exchanges its halo rows (``parallel.halo``).
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ class CurveGuide(nn.Module):
     return torch.cat([self.channel_mixing_w.reshape(-1),
                       self.channel_mixing_b.reshape(-1)])
 
-  def forward(self, x):
+  def forward(self, x, band=None):
+    del band  # pointwise
     ccm_ext = torch.cat([self.ccm, self.ccm_bias[None, :]])
     return curves_guide(x, ccm_ext, self.shifts, self.slopes, self._mix())
 
@@ -82,7 +86,8 @@ class PointwiseNNGuide(nn.Module):
     self.conv2 = ConvBlock(guide_complexity, 1, 1, activation=None,
                            generator=generator)
 
-  def forward(self, x):
+  def forward(self, x, band=None):
+    del band  # pointwise
     return self.forward_with_intermediates(x)[0]
 
   def forward_with_intermediates(self, x):
@@ -132,8 +137,8 @@ class Guide3x3NN(nn.Module):
     self.conv2 = ConvBlock(guide_complexity, 1, 1, activation='sigmoid',
                            generator=generator)
 
-  def forward(self, x):
-    return self.conv2(self.conv1(x.permute(0, 3, 1, 2)))[:, 0]
+  def forward(self, x, band=None):
+    return self.conv2(self.conv1(x.permute(0, 3, 1, 2), band))[:, 0]
 
 
 class SimpleGuide(nn.Module):
@@ -145,5 +150,6 @@ class SimpleGuide(nn.Module):
     self.conv = ConvBlock(n_chans, 1, 1, activation='sigmoid',
                           generator=generator)
 
-  def forward(self, x):
+  def forward(self, x, band=None):
+    del band  # pointwise
     return self.conv(x.permute(0, 3, 1, 2))[:, 0]

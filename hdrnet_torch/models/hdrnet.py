@@ -8,6 +8,12 @@ does the full-resolution work. The pyramid model does so on each level
 of a bilinear Gaussian pyramid and adds the levels coarse to fine.
 Submodule and parameter names follow the Flax modules, so
 :mod:`hdrnet_torch.convert` maps weights by name.
+
+Every model takes ``band=``: the full-resolution input is then an H-band
+of the frame (mesh training's 'spatial' axis), and the output, the guide
+maps and the pyramid levels are the band's rows of the whole frame's
+(``parallel.halo``). The pointwise models take a bare (y_off, h_total);
+the pyramid's resizes need a ``halo.Band`` on a process group.
 """
 
 from __future__ import annotations
@@ -20,9 +26,9 @@ from torch import nn
 
 from hdrnet_torch.config import ModelConfig
 from hdrnet_torch.models.guides import CurveGuide, PointwiseNNGuide
-from hdrnet_torch.models.layers import ConvBlock, DenseBlock
-from hdrnet_torch.ops.resize import resize_bilinear
+from hdrnet_torch.models.layers import CenterBatchNorm, ConvBlock, DenseBlock
 from hdrnet_torch.ops.slice_ops import bilateral_slice_apply
+from hdrnet_torch.parallel import halo
 
 
 class CoefficientBackbone(nn.Module):
@@ -69,6 +75,11 @@ class CoefficientBackbone(nn.Module):
     # Prediction: linear 1x1 conv to gd * n_out * n_in_tot channels.
     self.prediction_conv = ConvBlock(8 * cm * gd, gd * n_out * n_in_tot, 1,
                                      activation=None, **kw)
+    # The preview is cut over 'data' alone, so on a mesh its batch norms
+    # reduce over 'data' (``parallel.mesh.replicate``).
+    for m in self.modules():
+      if isinstance(m, CenterBatchNorm):
+        m.axis = 'data'
 
   def forward(self, lowres):
     x = lowres
@@ -131,12 +142,10 @@ class HDRNetCurves(nn.Module):
 
     band: None, or (y_off, h_total) when `fullres` holds rows y_off ..
     of a frame of h_total rows (an H-band of mesh training): the output
-    and the guide are the band's rows of the whole frame's
-    (``check_band``)."""
-    if band is not None:
-      check_band(self)
+    and the guide are the band's rows of the whole frame's. A guide that
+    reads neighbouring rows (``Guide3x3NN``) needs a ``halo.Band``."""
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
-    guide = self.guide(fullres)
+    guide = self.guide(fullres, band)
     out = bilateral_slice_apply(grid, guide, fullres, has_offset=True,
                                 band=band)
     return out, {'bilateral_coefficients': grid, 'guide_map': [guide]}
@@ -151,61 +160,68 @@ class HDRNetPointwiseNNGuide(HDRNetCurves):
                             generator=generator)
 
 
-def check_band(model):
-  """Raises ValueError, with the reason, unless `model` trains on H-bands
-  of its frames (a 'spatial' mesh degree above 1): only ``HDRNetCurves``
-  and ``HDRNetPointwiseNNGuide``, whose full-resolution path (a pointwise
-  guide, the slice-apply) reads no pixel of another band."""
-  if type(model) not in (HDRNetCurves, HDRNetPointwiseNNGuide):
-    raise ValueError(
-        f'{type(model).__name__} cannot train on H-bands (spatial mesh '
-        'degree > 1): its full-resolution path (resizes, 3x3 convolutions '
-        'or feature towers) needs rows of the neighbouring bands (halos), '
-        'which nothing here exchanges; only HDRNetCurves and '
-        "HDRNetPointwiseNNGuide train on a 'spatial' axis: use a (d, 1) "
-        'mesh')
-
-
-def gaussian_pyramid(x, n_scales):
-  """[x, x/2, x/4, ...]: NHWC levels, finest first, each the bilinear
-  (align_corners) resize of the one before to (h // 2, w // 2)."""
-  levels = [x]
+def level_bands(band, n_scales):
+  """The bands of a pyramid's levels, finest first: `band` (None for a
+  whole frame) and its band of each halving (h // 2, h // 4, ...)."""
+  if band is not None:
+    halo.require_group(band, 'a pyramid')
+  bands = [band]
   for _ in range(n_scales - 1):
-    h, w = levels[-1].shape[1:3]
-    levels.append(resize_bilinear(levels[-1], (h // 2, w // 2),
-                                  align_corners=True))
+    bands.append(None if band is None else bands[-1].at(
+        bands[-1].h_total // 2))
+  return bands
+
+
+def gaussian_pyramid(x, n_scales, band=None):
+  """[x, x/2, x/4, ...]: NHWC levels, finest first, each the bilinear
+  (align_corners) resize of the one before to (h // 2, w // 2). band: the
+  ``halo.Band`` of x's rows, and then each level is its band's rows
+  (``level_bands``)."""
+  levels = [x]
+  for lb in level_bands(band, n_scales)[:-1]:
+    h = levels[-1].shape[1] if lb is None else lb.h_total
+    w = levels[-1].shape[2]
+    levels.append(halo.resize_bilinear(levels[-1], (h // 2, w // 2),
+                                       align_corners=True, band=lb))
   return levels
 
 
-def upsample_add(current, level_out):
+def upsample_add(current, level_out, band=None, out_band=None):
   """One coarse-to-fine step: `current` resized bilinearly (align_corners)
-  to `level_out`'s extent, plus `level_out`."""
-  return resize_bilinear(current, level_out.shape[1:3],
-                         align_corners=True) + level_out
+  to `level_out`'s extent, plus `level_out`. On bands: `current`'s band
+  and `level_out`'s."""
+  size = (level_out.shape[1:3] if out_band is None
+          else (out_band.h_total, level_out.shape[2]))
+  return halo.resize_bilinear(current, size, align_corners=True,
+                              band=band) + level_out
 
 
-def level_slice_apply(grid, guide, image, il):
+def level_slice_apply(grid, guide, image, il, band=None):
   """The slice-apply of the il-th coarsest pyramid level: its 3-output
   block of the grid (channels 3 il .. 3 il + 2) sliced by `guide` and
-  applied to `image`. The block is a view of the grid: the slice-apply
-  copies it, and its gradient lands in the grid's block."""
+  applied to `image` (the level's rows of `band`, if given). The block is
+  a view of the grid: the slice-apply copies it, and its gradient lands
+  in the grid's block."""
   return bilateral_slice_apply(grid[..., 3 * il:3 * (il + 1), :], guide,
-                               image, has_offset=True)
+                               image, has_offset=True, band=band)
 
 
-def pyramid_slice_apply(grid, guides, images, zeroed=()):
+def pyramid_slice_apply(grid, guides, images, zeroed=(), bands=None):
   """The pyramid's coarse-to-fine sum: level l (finest first) sliced by
   guides[l] from block il = n - 1 - l of the grid (``level_slice_apply``),
   applied to images[l] and added to the bilinear upsampling of the
   coarser levels' sum. A level whose il is in `zeroed` adds zeros in
   place of its output (the ablation of ``scripts/diagnose_pyramid.py``).
+  bands: the levels' bands, finest first (``level_bands``), or None.
   """
+  bands = (bands or [None] * len(images))[::-1]
   current = None
   for il, (guide, image) in enumerate(zip(guides[::-1], images[::-1])):
-    out = level_slice_apply(grid, guide, image, il)
+    out = level_slice_apply(grid, guide, image, il, bands[il])
     if il in zeroed:
       out = torch.zeros_like(out)
-    current = out if current is None else upsample_add(current, out)
+    current = out if current is None else upsample_add(
+        current, out, bands[il - 1], bands[il])
   return current
 
 
@@ -242,15 +258,17 @@ class HDRNetGaussianPyrNN(nn.Module):
   def level_guides(self):
     return [getattr(self, f'guide_level_{il}') for il in range(self.n_scales)]
 
-  def forward(self, lowres, fullres):
-    return self.forward_with_intermediates(lowres, fullres)[0]
+  def forward(self, lowres, fullres, band=None):
+    return self.forward_with_intermediates(lowres, fullres, band)[0]
 
-  def forward_with_intermediates(self, lowres, fullres):
+  def forward_with_intermediates(self, lowres, fullres, band=None):
     """As ``HDRNetCurves.forward_with_intermediates``: the level guides
-    and the levels finest first."""
+    and the levels finest first (on a band, each level's band rows; the
+    resizes need a ``halo.Band``)."""
     grid = self.coefficients(lowres.permute(0, 3, 1, 2))
-    levels = gaussian_pyramid(fullres, self.n_scales)
+    levels = gaussian_pyramid(fullres, self.n_scales, band)
     guides = [g(lvl) for g, lvl in zip(self.level_guides(), levels)]
-    out = pyramid_slice_apply(grid, guides, levels)
+    out = pyramid_slice_apply(grid, guides, levels,
+                              bands=level_bands(band, self.n_scales))
     return out, {'bilateral_coefficients': grid, 'guide_map': guides,
                  'multiscale': levels}

@@ -9,6 +9,12 @@ then columns. All tables are computed in float64 on the host:
 ``F.interpolate`` computes positions in float32 and blends in another
 form, so it can pick another source row or round another way. Operates
 on (..., H, W, C) tensors; the bilinear resize is differentiable.
+
+A resize computes output rows lo .. hi - 1 from the input rows a .. that
+hold their sources (``resize_*_rows``; ``*_source_rows`` names them, from
+the whole extents' tables), bit for bit the whole resize's rows; the
+whole resize is the rows [0, h) of the whole input. Mesh training's
+'spatial' axis resizes H-bands this way (``parallel.halo``).
 """
 
 from __future__ import annotations
@@ -25,23 +31,37 @@ def _nearest_indices(n_in, n_out):
   return np.clip(idx, 0, n_in - 1)
 
 
+def _source_rows(tables, lo, hi):
+  """[a, b): the input rows that outputs lo .. hi - 1 read, where
+  table[y] is an input row that output y reads, for each of `tables`."""
+  a = min(int(t[lo:hi].min()) for t in tables)
+  return a, max(int(t[lo:hi].max()) for t in tables) + 1
+
+
+def _nearest_rows(n_in, n_out, a, lo, hi):
+  """The floor table's outputs lo .. hi - 1 (None: n_out), as rows from
+  input row a: int32."""
+  return (_nearest_indices(n_in, n_out)[lo:hi] - a).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=64)
-def nearest_index_tensor(n_in, n_out, device):
-  """The floor table as an int32 tensor on `device`; cached, so a serving
+def nearest_index_tensor(n_in, n_out, device, a=0, lo=0, hi=None):
+  """The floor table (of outputs lo .. hi - 1, as rows from input row a:
+  ``_nearest_rows``) as an int32 tensor on `device`; cached, so a serving
   loop copies it to the card once per frame size. Callers must not
   write to it."""
-  return torch.as_tensor(_nearest_indices(n_in, n_out).astype(np.int32),
+  return torch.as_tensor(_nearest_rows(n_in, n_out, a, lo, hi),
                          device=device)
 
 
-def _traceable_index(n_in, n_out, device):
-  """The floor table; while ``torch.export`` traces, a new tensor (the
-  graph's own constant), since one made under tracing is a fake tensor
-  that the cache would hand to the next trace."""
+def _traceable_index(n_in, n_out, device, a=0, lo=0, hi=None):
+  """``nearest_index_tensor``; while ``torch.export`` traces, a new tensor
+  (the graph's own constant), since one made under tracing is a fake
+  tensor that the cache would hand to the next trace."""
   if torch.compiler.is_compiling():
-    return torch.as_tensor(_nearest_indices(n_in, n_out).astype(np.int32),
+    return torch.as_tensor(_nearest_rows(n_in, n_out, a, lo, hi),
                            device=device)
-  return nearest_index_tensor(n_in, n_out, device)
+  return nearest_index_tensor(n_in, n_out, device, a, lo, hi)
 
 
 def resize_nearest(x, size):
@@ -49,8 +69,21 @@ def resize_nearest(x, size):
   h, w = size
   if x.shape[-3] == h and x.shape[-2] == w:
     return x
-  iy = _traceable_index(x.shape[-3], h, x.device)
-  ix = _traceable_index(x.shape[-2], w, x.device)
+  return resize_nearest_rows(x, 0, x.shape[-3], size, 0, h)
+
+
+def nearest_source_rows(n_in, n_out, lo, hi):
+  """[a, b): the input rows that output rows lo .. hi - 1 of a nearest
+  resize n_in -> n_out read."""
+  return _source_rows([_nearest_indices(n_in, n_out)], lo, hi)
+
+
+def resize_nearest_rows(x, a, n_in, size, lo, hi):
+  """Output rows lo .. hi - 1 of the nearest resize of an extent of n_in
+  rows to `size`, from x, which holds input rows a .. (at least those
+  ``nearest_source_rows`` names)."""
+  iy = _traceable_index(n_in, size[0], x.device, a, lo, hi)
+  ix = _traceable_index(x.shape[-2], size[1], x.device)
   x = torch.index_select(x, x.ndim - 3, iy)
   return torch.index_select(x, x.ndim - 2, ix)
 
@@ -80,16 +113,20 @@ def _sources_of(idx, n_in):
   return table
 
 
-@functools.lru_cache(maxsize=64)
-def linear_tap_tensors(n_in, n_out, align_corners, device):
-  """(i0, i1, frac, src0, src1) of one axis on `device`: the int64 source
-  indices and float32 blend weight of each output, and for the backward
-  the outputs that read each input through i0 and through i1
+@functools.lru_cache(maxsize=256)
+def linear_tap_tensors(n_in, n_out, align_corners, device, a=0, b=None,
+                       lo=0, hi=None):
+  """(i0, i1, frac, src0, src1) of one axis on `device`, for outputs lo ..
+  hi - 1 (None: n_out) read from input rows a .. b - 1 (None: n_in),
+  indexed from a: the int64 source indices and float32 blend weight of
+  each output, from the whole extents' tables, and for the backward the
+  outputs that read each input through i0 and through i1
   (``_sources_of``); cached like ``nearest_index_tensor``. Callers must
   not write to them."""
   i0, i1, frac = _linear_taps(n_in, n_out, align_corners)
-  return tuple(torch.as_tensor(a, device=device) for a in
-               (i0, i1, frac, _sources_of(i0, n_in), _sources_of(i1, n_in)))
+  i0, i1, n = i0[lo:hi] - a, i1[lo:hi] - a, (n_in if b is None else b) - a
+  return tuple(torch.as_tensor(t, device=device) for t in
+               (i0, i1, frac[lo:hi], _sources_of(i0, n), _sources_of(i1, n)))
 
 
 class _Lerp(torch.autograd.Function):
@@ -152,9 +189,26 @@ def _resize_bilinear(x, size, align_corners):
   h, w = size
   if x.shape[-3] == h and x.shape[-2] == w:
     return x
-  ty = linear_tap_tensors(x.shape[-3], h, align_corners, x.device)
+  return resize_bilinear_rows(x, 0, x.shape[-3], size, align_corners, 0, h)
+
+
+def bilinear_source_rows(n_in, n_out, align_corners, lo, hi):
+  """[a, b): the input rows that output rows lo .. hi - 1 of a bilinear
+  resize n_in -> n_out read (both taps, from the whole extents'
+  tables)."""
+  return _source_rows(_linear_taps(n_in, n_out, align_corners)[:2], lo, hi)
+
+
+def resize_bilinear_rows(x, a, n_in, size, align_corners, lo, hi):
+  """Output rows lo .. hi - 1 of the bilinear resize of an extent of n_in
+  rows to `size`, from x, which holds input rows a .. a + x.shape[-3] - 1
+  (at least those ``bilinear_source_rows`` names): bit for bit the whole
+  resize's rows."""
+  w = size[1]
+  ty = linear_tap_tensors(n_in, size[0], align_corners, x.device, a,
+                          a + x.shape[-3], lo, hi)
   tx = linear_tap_tensors(x.shape[-2], w, align_corners, x.device)
-  fy = ty[2].to(x.dtype).reshape(h, 1, 1)  # broadcast over (..., h, W, C)
-  fx = tx[2].to(x.dtype).reshape(w, 1)     # broadcast over (..., H, w, C)
+  fy = ty[2].to(x.dtype).reshape(hi - lo, 1, 1)  # over (..., rows, W, C)
+  fx = tx[2].to(x.dtype).reshape(w, 1)           # over (..., H, w, C)
   x = _Lerp.apply(x, x.ndim - 3, ty, fy)
   return _Lerp.apply(x, x.ndim - 2, tx, fx)

@@ -4,20 +4,25 @@
 One process a rank, each with its own copy of the model:
   * 'data': the batch is cut into rows, one share a data coordinate;
   * 'spatial': full-resolution images (``FULLRES_KEYS``) are further cut
-    along H, one band a spatial coordinate. The guide and the slice-apply
-    are pointwise given the grid, so a band needs no rows of its
-    neighbours (zero halo): its ops take the band's row offset and the
-    frame's height (``ops.slice_ops.bilateral_slice_apply(band=...)``).
-    The low-resolution inputs are cut over 'data' only and replicated
-    across 'spatial' (each spatial rank computes the same grid).
+    along H, one band a spatial coordinate (``Mesh.band``, a
+    ``parallel.halo.Band`` on the spatial group). The guide and the
+    slice-apply are pointwise given the grid, so they need no rows of the
+    neighbouring bands: they take the band's row offset and the frame's
+    height (``ops.slice_ops.bilateral_slice_apply(band=...)``), at every
+    pyramid level its own. The resizes and the k x k convolutions of the
+    pyramids, the zoo and the baselines read rows of the neighbouring
+    bands, which ``parallel.halo`` exchanges (the halos GSPMD inserts in
+    JAX). The low-resolution inputs are cut over 'data' only and
+    replicated across 'spatial' (each spatial rank computes the same
+    grid).
 
 Rank r of a (d, s) mesh sits at (r // s, r % s): 'spatial' last, as in
 the JAX mesh. Ranks at or past d * s sit out. The gradients are summed
 over the whole mesh (each rank's loss is its share of the global mean),
-the batch norms reduce their statistics over 'data' (the coefficient
-backbone, on low-res inputs) or over the whole mesh (a full-resolution
-guide's), and the step's metrics are the global ones, so every rank holds
-the same parameters, statistics and metrics after each step.
+the batch norms reduce their statistics over 'data' (a coefficient
+backbone's, on low-res inputs) or over the whole mesh (a full-resolution
+guide's or layer's), and the step's metrics are the global ones, so every
+rank holds the same parameters, statistics and metrics after each step.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch.distributed as dist
 
 from hdrnet_torch.models.layers import CenterBatchNorm
 from hdrnet_torch.ops.reference import mirror_pad
+from hdrnet_torch.parallel import halo
 from hdrnet_torch.parallel.collectives import broadcast_
 
 DATA_AXIS = 'data'
@@ -148,16 +154,15 @@ class Mesh:
     return slice(self.coords[0] * per, (self.coords[0] + 1) * per)
 
   def band(self, h):
-    """This rank's H-band of a frame of h rows: (slice, band), the band
-    (y_off, h) or None for the whole frame (spatial degree 1)."""
+    """This rank's H-band of a frame of h rows: a ``halo.Band`` on the
+    spatial group (a tuple (y_off, h)), or None for the whole frame
+    (spatial degree 1)."""
     if self.spatial == 1:
-      return slice(0, h), None
+      return None
     if h % self.spatial:
       raise ValueError(f'full-res height {h} not divisible by spatial mesh '
                        f'degree {self.spatial}')
-    per = h // self.spatial
-    y_off = self.coords[1] * per
-    return slice(y_off, y_off + per), (y_off, h)
+    return halo.Band(self.coords[1], self.spatial, h, self.spatial_group)
 
   def agree(self, flag):
     """Rank 0's `flag` on every rank of the mesh (a broadcast on the
@@ -237,37 +242,49 @@ def take_band(mesh, batch):
     raise ValueError(f'full-res keys of different heights: {sorted(h)}')
   if not h:
     return batch, None
-  rows, band = mesh.band(h.pop())
-  return {k: v[:, rows] if k in FULLRES_KEYS and v.ndim >= 3 else v
+  band = mesh.band(h.pop())
+  if band is None:
+    return batch, None
+  return {k: v[:, band.rows] if k in FULLRES_KEYS and v.ndim >= 3 else v
           for k, v in batch.items()}, band
 
 
-def check_band_rows(h, spatial, grid_rows):
-  """Raises unless an H-band of a frame of h rows cut `spatial` ways is at
-  least as tall as the grid VJP's mirror padding (half a cell of a grid
-  of `grid_rows` rows), which the first and last bands read from their
-  own rows."""
-  pad = mirror_pad(h, grid_rows)
-  if spatial > 1 and h // spatial < pad:
-    raise ValueError(
-        f'spatial mesh degree {spatial} cuts {h} rows into bands of '
-        f'{h // spatial}, shorter than the grid VJP\'s mirror padding of '
-        f'{pad} rows (half a cell of {h} / {grid_rows}); use a smaller '
-        'spatial degree')
+def check_band_rows(h, spatial, grid_rows, levels=1):
+  """Raises unless every H-band of a frame of h rows cut `spatial` ways,
+  at each of `levels` pyramid levels that slice a grid of `grid_rows` rows
+  (h, h // 2, ...; 0 for a model with no grid), is at least as tall as
+  that level's grid VJP mirror padding (half a cell), which the first and
+  last bands read from their own rows. A halo wider than a neighbouring
+  band needs no check: ``halo.exchange`` takes rows from any band."""
+  if spatial == 1:
+    return
+  n = h
+  for level in range(levels):
+    pad = mirror_pad(n, grid_rows)
+    rows = min(hi - lo for lo, hi in halo.split(n, spatial))
+    if rows < pad:
+      where = (f'pyramid level {level}\'s {n} rows' if level
+               else f'{n} rows')
+      raise ValueError(
+          f'spatial mesh degree {spatial} cuts {where} into bands of '
+          f'{rows}, shorter than the grid VJP\'s mirror padding of {pad} '
+          f'rows (half a cell of {n} / {grid_rows}); use a smaller spatial '
+          'degree')
+    n //= 2
 
 
 def replicate(model, mesh):
   """Readies `model` for mesh training: each batch norm reduces its
-  statistics over its process group (the coefficient backbone's, on the
-  low-res inputs cut over 'data' only, over 'data'; any other, on
+  statistics over the group of its ``axis`` (a coefficient backbone's,
+  on the low-res inputs cut over 'data' only, over 'data'; any other, on
   full-resolution pixels, over the whole mesh), and rank 0's parameters
   and buffers are copied to every rank. A no-op without a mesh."""
   if mesh is None:
     return model
-  for name, m in model.named_modules():
+  groups = {None: mesh.group, DATA_AXIS: mesh.data_group}
+  for m in model.modules():
     if isinstance(m, CenterBatchNorm):
-      m.process_group = (mesh.data_group if name.startswith('coefficients.')
-                         else mesh.group)
+      m.process_group = groups[m.axis]
   with torch.no_grad():
     broadcast_(list(model.state_dict().values()), 0, mesh.group)
   return model

@@ -49,8 +49,7 @@ from hdrnet_torch.data import (ImageFilesDataPipeline,
                                StyleTransferDataPipeline,
                                UnsharpMaskDataPipeline, make_pipeline)
 from hdrnet_torch.inference import resolve_device
-from hdrnet_torch.models import make_model
-from hdrnet_torch.models.hdrnet import check_band
+from hdrnet_torch.models import MODELS, make_model
 from hdrnet_torch.parallel import mesh as pm
 from hdrnet_torch.training.checkpoint import Checkpointer
 from hdrnet_torch.training.step import (create_state, make_eval_step,
@@ -215,7 +214,9 @@ def _batch_source(pipeline, data_cfg, device, seed, host_batches,
 def _make_mesh(config):
   """This rank's Mesh for ``train.mesh_shape`` (None for one process with
   no process group); raises, as the JAX loop does, where the layout does
-  not fit the world, the batch, the frame or the model."""
+  not fit the world, the batch or the frame, and where a band of a level
+  at which the model slices its grid is shorter than the level's mirror
+  padding (``pm.check_band_rows``): on every rank, before any step."""
   tc, world = config.train, pm.world_size()
   if tc.mesh_shape:
     mesh_shape = tuple(int(v) for v in tc.mesh_shape)
@@ -235,7 +236,9 @@ def _make_mesh(config):
     if h % s:
       raise ValueError(f'full-res height {h} not divisible by spatial mesh '
                        f'degree {s}')
-    pm.check_band_rows(h, s, config.model.spatial_bin)
+    cls = MODELS.get(config.model.model_name)
+    levels = getattr(cls, 'slice_levels', getattr(cls, 'n_scales', 1))
+    pm.check_band_rows(h, s, config.model.spatial_bin, levels)
   return mesh
 
 
@@ -270,8 +273,6 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
 
   model = make_model(config.model,
                      generator=torch.Generator().manual_seed(tc.seed))
-  if mesh is not None and mesh.spatial > 1:
-    check_band(model)
   model = model.to(device)
   schedule = make_schedule(tc)
   state = create_state(model, make_optimizer(model, tc), schedule)
@@ -296,7 +297,7 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
       pipeline, data_cfg, device, tc.seed,
       lambda: _host_batches(pipeline, tc.seed, device, mesh), mesh)
   batches = batches()
-  band = None if mesh is None else mesh.band(data_cfg.output_resolution[0])[1]
+  band = None if mesh is None else mesh.band(data_cfg.output_resolution[0])
   train_step = make_train_step(guide_reg=tc.guide_reg,
                                guide_reg_target=tc.guide_reg_target,
                                mesh=mesh)

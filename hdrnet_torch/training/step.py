@@ -29,7 +29,6 @@ import torch
 from torch import nn
 
 from hdrnet_torch.inference import full_float32
-from hdrnet_torch.models.hdrnet import check_band
 from hdrnet_torch.parallel.collectives import (all_reduce, all_reduce_grads,
                                                all_reduce_sum_)
 from hdrnet_torch.training import metrics
@@ -102,16 +101,20 @@ def set_learning_rates(state):
 def guide_range_hinge(guide, target, mesh=None):
   """mean over images of relu(target - std(guide))^2, std with ddof 0
   over each image's pixels. With a mesh, this rank's part of the global
-  mean: each image's sums (of g, then of (g - mean)^2) are summed over
-  'spatial' with the autograd all-reduce, and the part is the sum of its
-  images' hinges over the global image count times the spatial degree
-  (the spatial ranks hold the same images)."""
+  mean: each image's sums (of g and its pixel count, then of
+  (g - mean)^2) are summed over 'spatial' with the autograd all-reduce
+  (a pyramid level's bands may hold different counts), and the part is
+  the sum of its images' hinges over the global image count times the
+  spatial degree (the spatial ranks hold the same images)."""
   g = guide.reshape(guide.shape[0], -1)
   if mesh is None:
     std = g.std(dim=1, correction=0)
     return torch.mean(torch.relu(target - std) ** 2)
-  n = g.shape[1] * mesh.spatial
-  mean = all_reduce(g.sum(dim=1), mesh.spatial_group) / n
+  b = g.shape[0]
+  sums = all_reduce(torch.cat([g.sum(dim=1), g.new_full((1,), g.shape[1])]),
+                    mesh.spatial_group)
+  n = sums[b]
+  mean = sums[:b] / n
   var = all_reduce(torch.square(g - mean[:, None]).sum(dim=1),
                    mesh.spatial_group) / n
   hinge = torch.relu(target - torch.sqrt(var)) ** 2
@@ -156,10 +159,7 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2,
     model, opt = state.model, state.optimizer
     model.train()
     set_learning_rates(state)
-    kw = {}
-    if band is not None:
-      check_band(model)
-      kw['band'] = band
+    kw = {} if band is None else {'band': band}
     with full_float32():
       target = batch['image_output']
       if guide_reg > 0.0:

@@ -23,10 +23,10 @@ from hdrnet_tpu.ops import reference as jref
 
 from hdrnet_torch.config import ModelConfig
 from hdrnet_torch.models import MODELS, make_model
-from hdrnet_torch.models.hdrnet import check_band
 from hdrnet_torch.ops import reference as tref
 from hdrnet_torch.ops import slice_apply as sa
 from hdrnet_torch.ops.slice_ops import bilateral_slice_apply
+from hdrnet_torch.parallel import halo
 
 REL = 1e-5
 # (b, h, w, gh, gw, gd): padding ceil(h / 2gh) rows = 3 and 2.
@@ -149,14 +149,25 @@ def test_op_gradients_over_bands_sum_to_the_frames():
                              atol=REL * scale)
 
 
-@pytest.mark.parametrize('name', ['HDRNetCurves', 'HDRNetPointwiseNNGuide'])
+# The models whose full-resolution path is pointwise: a bare (y_off,
+# h_total) band serves them.
+POINTWISE = ['HDRNetCurves', 'HDRNetPointwiseNNGuide', 'StyleTransferNN',
+             'StyleTransferCurves']
+
+
+def _zoo_cfg(name):
+  return ModelConfig(model_name=name, net_input_size=32, spatial_bin=8,
+                     luma_bins=4, guide_complexity=4, depth=2, width=4,
+                     n_in=6 if name.startswith('StyleTransfer') else 3)
+
+
+@pytest.mark.parametrize('name', POINTWISE)
 def test_model_band_is_the_frames_rows(name):
-  cfg = ModelConfig(model_name=name, net_input_size=32, spatial_bin=8,
-                    luma_bins=4, guide_complexity=4)
+  cfg = _zoo_cfg(name)
   model = make_model(cfg, generator=torch.Generator().manual_seed(0)).eval()
   rng = np.random.RandomState(5)
-  low = torch.from_numpy(rng.rand(2, 32, 32, 3).astype(np.float32))
-  full = torch.from_numpy(rng.rand(2, 64, 40, 3).astype(np.float32))
+  low = torch.from_numpy(rng.rand(2, 32, 32, cfg.n_in).astype(np.float32))
+  full = torch.from_numpy(rng.rand(2, 64, 40, cfg.n_in).astype(np.float32))
   with torch.no_grad():
     want = model(low, full)
     for rows, band in _bands(64, 4):
@@ -164,11 +175,18 @@ def test_model_band_is_the_frames_rows(name):
                          want[:, rows])
 
 
-@pytest.mark.parametrize('name', sorted(
-    set(MODELS) - {'HDRNetCurves', 'HDRNetPointwiseNNGuide'}))
-def test_other_models_refuse_bands(name):
-  cfg = ModelConfig(model_name=name, net_input_size=32, spatial_bin=8,
-                    luma_bins=4, guide_complexity=4, depth=2, width=4,
-                    n_in=6 if name.startswith('StyleTransfer') else 3)
-  with pytest.raises(ValueError, match='halos'):
-    check_band(make_model(cfg))
+@pytest.mark.parametrize('name', sorted(set(MODELS) - set(POINTWISE)))
+def test_other_models_need_a_band_on_a_group(name):
+  """A model that reads rows of the neighbouring bands (resizes, k x k
+  convs, the stack's frame-wide preview) refuses a bare (y_off, h_total)
+  band, and a ``halo.Band`` with no process group: only the group can
+  supply those rows (``tests/test_torch_mesh_train.py`` trains each on
+  one)."""
+  cfg = _zoo_cfg(name)
+  model = make_model(cfg, generator=torch.Generator().manual_seed(0))
+  rng = np.random.RandomState(6)
+  low = torch.from_numpy(rng.rand(2, 32, 32, 3).astype(np.float32))
+  full = torch.from_numpy(rng.rand(2, 16, 40, 3).astype(np.float32))
+  for band in ((16, 64), halo.Band(1, 4, 64)):
+    with pytest.raises(ValueError, match='neighbouring H-bands'):
+      model(low, full, band=band)

@@ -7,8 +7,9 @@ train, build, serve and train a feature model, a baseline and a style
 model of the zoo, run the tools (``bin/export.py``, ``bin/fit_grid.py``,
 ``bin/viz_activations.py``, the triage scripts ``scripts/guide_stats.py``
 and ``scripts/diagnose_pyramid.py``), build a local-Laplacian set and train
-on it from device memory, and train on a mesh through ``bin/train.py``
-under torchrun's environment without it: no module under ``hdrnet_torch/`` (nor
+on it from device memory, train on a mesh through ``bin/train.py``
+under torchrun's environment, and train the pyramid on a 'spatial' axis
+(two ranks, halos exchanged) without it: no module under ``hdrnet_torch/`` (nor
 ``chip_smoke.py``) may import jax, flax, optax, or any ``hdrnet_tpu``
 module, even one that does not import JAX: the port keeps its own copy
 of what it needs (config, data pipeline, flag mapping).
@@ -53,7 +54,7 @@ def test_no_jax_imports_in_package():
   assert not bad, bad
 
 
-_BLOCKED_RUN = f'''
+_REFUSE_JAX = f'''
 import sys
 
 class RefuseJax:
@@ -63,6 +64,20 @@ class RefuseJax:
     return None
 
 sys.meta_path.insert(0, RefuseJax())
+'''
+
+# One rank of a spatial mesh run: bin/train.py's main (its arguments
+# after the script's), with JAX refused.
+_MESH_RANK = _REFUSE_JAX + f'''
+from hdrnet_torch.bin import train
+state = train.main(sys.argv[1:])
+assert state.step == 1, state.step
+loaded = sorted(m for m in sys.modules
+                if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
+assert not loaded, loaded
+'''
+
+_BLOCKED_RUN = _REFUSE_JAX + f'''
 
 import importlib, pkgutil
 import hdrnet_torch
@@ -253,6 +268,35 @@ loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in {FORBIDDEN_ROOTS!r})
 assert not loaded, loaded
 print('mesh training without jax')
+
+# The pyramid on a spatial axis: two gloo ranks at (1, 2), each a process
+# with JAX refused, one step of bin/train.py with its levels' halos
+# exchanged.
+import subprocess
+with socket.socket() as sock:
+  sock.bind(('localhost', 0))
+  port = sock.getsockname()[1]
+work = tempfile.mkdtemp()
+try:
+  images.imwrite(os.path.join(work, 'input', 'a.png'), rng.rand(80, 96, 3))
+  images.imwrite(os.path.join(work, 'output', 'a.png'), rng.rand(80, 96, 3))
+  with open(os.path.join(work, 'filelist.txt'), 'w') as f:
+    f.write('a.png')
+  argv = [os.path.join(work, 'ckpt'), work, '--batch_size', '2',
+          '--output_resolution', '64', '64', '--net_input_size', '32',
+          '--spatial_bin', '8', '--luma_bins', '4', '--model_name',
+          'HDRNetGaussianPyrNN', '--guide_complexity', '4', '--mesh_shape',
+          '1', '2', '--max_steps', '1', '--device', 'cpu']
+  ranks = [subprocess.Popen(
+      [sys.executable, '-c', {_MESH_RANK!r}, *argv],
+      env=dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE='2',
+               MASTER_PORT=str(port)), stdout=subprocess.PIPE,
+      stderr=subprocess.STDOUT, text=True) for r in range(2)]
+  outs = [p.communicate(timeout=240)[0] for p in ranks]
+  assert all(p.returncode == 0 for p in ranks), outs
+finally:
+  shutil.rmtree(work, ignore_errors=True)
+print('spatial mesh training without jax')
 '''
 
 
@@ -286,6 +330,7 @@ def test_package_serves_with_jax_refused(converted_checkpoint):
   assert 'triage without jax' in proc.stdout
   assert 'device data without jax' in proc.stdout
   assert 'mesh training without jax' in proc.stdout
+  assert 'spatial mesh training without jax' in proc.stdout
 
 
 def test_entry_points_refuse_a_missing_card():

@@ -8,15 +8,26 @@ once; the tests read what each rank ended with:
     regularizer at (2, 2)), and of the pyramid and UNet with batch norm
     on the 'data' axis (in float64, as below), against the one-process
     port step on the same global batch: loss to 1e-6, parameters to 1e-5
-    (the JAX multichip gate's tolerances, ``__graft_entry__.py``);
-  * one step of the NN guide with the backbone's batch norm at (2, 2)
+    (the JAX multichip gate's tolerances, ``__graft_entry__.py``), and
+    the gradients the step took, summed over the mesh, to ``GRAD_REL`` of
+    each leaf's max;
+  * one step of each of the other 15 models of the registry on a
+    'spatial' axis, (2, 2) or (1, 4), with batch norm, in float64, on
+    72-row frames (the pyramids' third level, 18 rows, cut 4, 5, 4, 5),
+    against the one-process step at the same tolerances: the halo
+    exchanges of the resizes and k x k convs (``parallel.halo``; the
+    dilated baseline's 32-row halos reach two bands away), each level's
+    band through the slice-apply, the stack's frame-wide preview;
+  * the exchange and the frame-wide row gather on their own: the rows,
+    bit for bit, and the cotangents summed at their owners;
+  * one step of the NN guide and of the pyramid with batch norm at (2, 2)
     against the JAX one-device step (``make_train_step``, the weights
     through the converter), in float64: in float32 a batch norm over a
     handful of samples leaves the two packages ~7e-4 of a leaf's max
     gradient apart even in one process (``test_torch_bn_step_f64.py``);
-  * ``train()`` over PNGs at (2, 2) against (4, 1) (the JAX test's
-    tolerances, ``tests/test_parallel.py``), and a checkpoint written at
-    (2, 2) resumed at (4, 1);
+  * ``train()`` over PNGs at (2, 2) against (4, 1), curves and the
+    pyramid (the JAX test's tolerances, ``tests/test_parallel.py``), and a
+    checkpoint written at (2, 2) resumed at (4, 1);
   * every rank of every job ends bit-identical to rank 0;
   * the refusals of a layout that does not fit, raised on every rank.
 
@@ -65,6 +76,40 @@ DATA_AXIS_MODELS = {
     'pyramid_4x1': ('HDRNetGaussianPyrNN', dict(guide_complexity=4)),
     'unet_4x1': ('UNet', dict(depth=2, width=4)),
 }
+# Every model but the two of STEP_MESHES on a 'spatial' axis, batch norm
+# on, in float64: {model name: (layout, extra config)}. The guide
+# regularizer where the levels' bands are uneven, its target 0.5 (above
+# any sigmoid guide's std, so that every image's hinge is active); UNet
+# at depth 4 (two
+# stride-2 levels, 72 -> 36 -> 18 rows); the dilated baseline at depth 6
+# (rates 1 .. 32).
+GC4 = dict(guide_complexity=4)
+SPATIAL_MODELS = {
+    'HDRNetGaussianPyrNN': ((1, 4), dict(GC4, guide_reg=0.5)),
+    'HDRNetGaussianPyr': ((2, 2), {}),
+    'HDRNet3x3NNGuide': ((1, 4), GC4),
+    'HDRNetStack': ((2, 2), GC4),
+    'HDRNetFullresFeatures': ((1, 4), GC4),
+    'HDRNetFullresFeaturesMultiscale': ((1, 4), GC4),
+    'HDRNetFullresFeaturesWithGuide': ((2, 2), GC4),
+    'HDRNetFeaturesPyrNN': ((1, 4), dict(GC4, guide_reg=0.5)),
+    'HDRNetFeaturesPyrNN2': ((2, 2), GC4),
+    'HDRNetFeaturesPyrNN3': ((1, 4), dict(GC4, channel_multiplier=2)),
+    'HDRNetFeaturesPyrSimpleGuideNN': ((1, 4), {}),
+    'StyleTransferNN': ((2, 2), dict(GC4, n_in=6)),
+    'StyleTransferCurves': ((1, 4), dict(n_in=6)),
+    'UNet': ((1, 4), dict(depth=4, width=4)),
+    'DilatedConvolutions': ((1, 4), dict(depth=6, width=4)),
+}
+SPATIAL_HW = (72, 64)
+# A mesh step's gradients (summed over the mesh) against the one-process
+# step's, of each leaf's max |g|: measured at most 4.4e-07 (float32, the
+# curves jobs) and 1.6e-12 (float64).
+GRAD_REL = {torch.float32: 1e-5, torch.float64: 1e-8}
+# The exchange and the gather alone at (1, 4): (rows, reach, gathered
+# rows); a reach of 9 takes rows of bands two away, 0 runs no exchange.
+HALO_CASES = [(18, 1, [0, 2, 5, 7, 10, 12, 15]), (30, 9, [29, 3, 3, 17]),
+              (13, 0, [12, 0, 5, 5])]
 
 
 def _free_port():
@@ -110,6 +155,15 @@ def _batch(seed, b=4, s=32, hw=64, dtype=np.float32):
           'image_output': target}
 
 
+def _spatial_batch(seed, n_in, b=4, s=32, hw=SPATIAL_HW):
+  rng = np.random.RandomState(seed)
+  full = rng.rand(b, *hw, n_in)
+  low = rng.rand(b, s, s, n_in)
+  target = np.clip(full[..., :3] * 1.3, 0.0, 1.0)
+  return {'lowres_input': low, 'lowres_output': low[..., :3],
+          'image_input': full, 'image_output': target}
+
+
 def _stash_grads():
   """Passes the gradients on and keeps them as its state."""
   return optax.GradientTransformation(
@@ -119,20 +173,24 @@ def _stash_grads():
 
 def _one_process_step(model_cfg, train_cfg, state_dict, batch):
   """The port's one-process step (no process group) on the global batch,
-  in the batch's float type."""
+  in the batch's float type: (state dict, metrics, the gradients the
+  optimizer stepped with)."""
   dtype = torch.from_numpy(batch['image_input']).dtype
   model = make_model(model_cfg).to(dtype)
   model.load_state_dict(state_dict)
   st = step.create_state(model, loop.make_optimizer(model, train_cfg))
-  st, m = step.make_train_step(guide_reg=train_cfg.guide_reg)(
-      st, {k: torch.from_numpy(v) for k, v in batch.items()})
-  return model.state_dict(), {k: float(v) for k, v in m.items()}
+  st, m = step.make_train_step(
+      guide_reg=train_cfg.guide_reg,
+      guide_reg_target=train_cfg.guide_reg_target)(
+          st, {k: torch.from_numpy(v) for k, v in batch.items()})
+  return (model.state_dict(), {k: float(v) for k, v in m.items()},
+          {k: p.grad for k, p in model.named_parameters()})
 
 
-def _jax_nn_bn_step(cfg_kw, batch):
-  """The JAX one-device step of the NN guide with the backbone's BN, in
-  float64, from a Flax init: (initial variables, params, batch_stats,
-  metrics), numpy."""
+def _jax_bn_step(cfg_kw, batch):
+  """The JAX one-device step of a model with batch norm, in float64, from
+  a Flax init: (initial variables, params, batch_stats, metrics),
+  numpy."""
   cfg = JaxModelConfig(**cfg_kw)
   model = jax_make_model(cfg)
   with jax.enable_x64(True):
@@ -203,11 +261,14 @@ REFUSALS = {
                'not divisible by spatial mesh degree 4'),
     # A 1x1 grid: half a cell is 32 rows, the bands 16.
     'band': (_train_config([1, 4], 1, spatial_bin=1), 'mirror padding'),
-    'pyramid': (_train_config([2, 2], 1, model_name='HDRNetGaussianPyrNN',
-                              guide_complexity=4), 'halos'),
-    'zoo': (_train_config([2, 2], 1, model_name='HDRNet3x3NNGuide',
-                          guide_complexity=4), 'halos'),
+    # 72 rows, a 2-row grid: the pyramid's third level (18 rows) cut in
+    # bands of 4 or 5, under its 5-row mirror padding.
+    'level': (_train_config([1, 4], 1, height=72, spatial_bin=2,
+                            model_name='HDRNetGaussianPyrNN',
+                            guide_complexity=4),
+              "pyramid level 2's 18 rows into bands of 4"),
 }
+PYR_TRAIN = dict(model_name='HDRNetGaussianPyrNN', guide_complexity=4)
 
 
 @pytest.fixture(scope='module')
@@ -247,20 +308,47 @@ def world4(tmp_path_factory):
     refs[name] = _one_process_step(cfg, TrainConfig(learning_rate=LR), sd64,
                                    batch64)
 
-  nn_kw = dict(model_name='HDRNetPointwiseNNGuide', batch_norm=True,
-               guide_complexity=4, **SMALL)
-  batch64 = _batch(2, dtype=np.float64)
-  variables, params, stats, jm = _jax_nn_bn_step(nn_kw, batch64)
-  torch.save({'state_dict': _state_dict64(variables),
-              'batch': {k: torch.from_numpy(v) for k, v in batch64.items()}},
-             work / 'nn_bn_2x2.in.pt')
-  jobs.append({'kind': 'step', 'name': 'nn_bn_2x2', 'mesh_shape': (2, 2),
-               'model': nn_kw, 'train': {'learning_rate': LR}})
-  refs['nn_bn_2x2'] = (params, stats, jm)
+  for i, (name, (mesh_shape, extra)) in enumerate(SPATIAL_MODELS.items()):
+    extra = dict(extra)
+    reg = extra.pop('guide_reg', 0.0)
+    train = {'learning_rate': LR, 'guide_reg': reg,
+             'guide_reg_target': 0.5}
+    kw = dict(SMALL, model_name=name, batch_norm=True,
+              output_resolution=list(SPATIAL_HW), **extra)
+    cfg = ModelConfig(**kw)
+    weights = make_model(cfg, generator=torch.Generator().manual_seed(i))
+    sd64 = {k: v.double() for k, v in weights.state_dict().items()}
+    batch64 = _spatial_batch(10 + i, cfg.n_in)
+    torch.save({'state_dict': sd64,
+                'batch': {k: torch.from_numpy(v) for k, v in
+                          batch64.items()}}, work / f'{name}.in.pt')
+    jobs.append({'kind': 'step', 'name': name, 'mesh_shape': mesh_shape,
+                 'model': kw, 'train': train})
+    refs[name] = _one_process_step(cfg, TrainConfig(**train), sd64, batch64)
+
+  jobs.append({'kind': 'halo', 'name': 'halo', 'mesh_shape': (1, 4),
+               'cases': HALO_CASES})
+
+  for name, model_name in (('nn_bn_2x2', 'HDRNetPointwiseNNGuide'),
+                           ('pyr_bn_2x2', 'HDRNetGaussianPyrNN')):
+    kw = dict(model_name=model_name, batch_norm=True, guide_complexity=4,
+              **SMALL)
+    batch64 = _batch(2, dtype=np.float64)
+    variables, params, stats, jm = _jax_bn_step(kw, batch64)
+    torch.save({'state_dict': _state_dict64(variables),
+                'batch': {k: torch.from_numpy(v) for k, v in
+                          batch64.items()}}, work / f'{name}.in.pt')
+    jobs.append({'kind': 'step', 'name': name, 'mesh_shape': (2, 2),
+                 'model': kw, 'train': {'learning_rate': LR}})
+    refs[name] = (params, stats, jm)
 
   jobs += [
       _train_job('train_4x1', 'ckpt_a', data, _train_config([4, 1], 3)),
       _train_job('train_2x2', 'ckpt_b', data, _train_config([2, 2], 3)),
+      _train_job('train_pyr_4x1', 'ckpt_pyr_a', data,
+                 _train_config([4, 1], 3, **PYR_TRAIN)),
+      _train_job('train_pyr_2x2', 'ckpt_pyr_b', data,
+                 _train_config([2, 2], 3, **PYR_TRAIN)),
       # Each directory's step-3 checkpoint resumed at (4, 1) to step 5.
       _train_job('resume_a', 'ckpt_a', data, _train_config([4, 1], 5)),
       _train_job('resume_b', 'ckpt_b', data, _train_config([4, 1], 5)),
@@ -280,10 +368,10 @@ def _assert_ranks_identical(results, what):
 
 
 @pytest.mark.parametrize('name', sorted(STEP_MESHES) + sorted(
-    DATA_AXIS_MODELS))
+    DATA_AXIS_MODELS) + sorted(SPATIAL_MODELS))
 def test_step_on_mesh_matches_one_process(world4, name):
   work, refs = world4
-  want_sd, want_m = refs[name]
+  want_sd, want_m, want_g = refs[name]
   results = _results(work, name, 4)
   _assert_ranks_identical(results, name)
   got = results[0]
@@ -294,6 +382,14 @@ def test_step_on_mesh_matches_one_process(world4, name):
   for k, v in want_sd.items():
     np.testing.assert_allclose(got['state_dict'][k].numpy(), v.numpy(),
                                rtol=1e-4, atol=1e-5, err_msg=k)
+  # A first Adam step moves each parameter by about lr * sign(g), so the
+  # parameters alone would not see a wrong gradient's magnitude: the
+  # gradients it stepped with are held too.
+  assert got['grads'].keys() == want_g.keys()
+  for k, v in want_g.items():
+    rel = GRAD_REL[v.dtype]
+    err = float((got['grads'][k] - v).abs().max())
+    assert err <= rel * float(v.abs().max()), (k, err, rel)
 
 
 @pytest.mark.parametrize('name', sorted(STEP_MESHES))
@@ -311,11 +407,14 @@ def test_mesh_coordinates_groups_and_bands(world4, name):
     assert res['band'] == (None if s == 1 else (j * 64 // s, 64))
 
 
-def test_nn_guide_bn_step_on_mesh_matches_jax(world4):
+def _hold_bn_step_to_jax(world4, name, guide_bn):
+  """The (2, 2) step `name` against the JAX one-device step: metrics at
+  1e-5 / 1e-6, parameters at 1e-4 / 1e-5, running statistics at 1e-5;
+  `guide_bn` a guide's batch norm that must be among them."""
   work, refs = world4
-  params, stats, jm = refs['nn_bn_2x2']
-  results = _results(work, 'nn_bn_2x2', 4)
-  _assert_ranks_identical(results, 'nn_bn_2x2')
+  params, stats, jm = refs[name]
+  results = _results(work, name, 4)
+  _assert_ranks_identical(results, name)
   got = results[0]
   for k in ('loss', 'psnr'):
     np.testing.assert_allclose(got['metrics'][k], jm[k], rtol=1e-5,
@@ -323,12 +422,23 @@ def test_nn_guide_bn_step_on_mesh_matches_jax(world4):
   want = convert_flax_variables({'params': params, 'batch_stats': stats})
   assert any('running_mean' in k for k in want)
   # Both guide BN (over the whole mesh) and backbone BN (over 'data').
-  assert 'guide.conv1.bn.running_var' in want
+  assert guide_bn in want
   for k, v in want.items():
     tol = ({'rtol': 0, 'atol': 1e-5} if 'running' in k
            else {'rtol': 1e-4, 'atol': 1e-5})
     np.testing.assert_allclose(got['state_dict'][k].numpy(), v.numpy(),
                                err_msg=k, **tol)
+
+
+def test_nn_guide_bn_step_on_mesh_matches_jax(world4):
+  _hold_bn_step_to_jax(world4, 'nn_bn_2x2', 'guide.conv1.bn.running_var')
+
+
+def test_pyramid_bn_step_on_mesh_matches_jax(world4):
+  """The pyramid's levels' halos exchanged, each level's band through the
+  slice-apply, its guides' batch norms over the whole mesh."""
+  _hold_bn_step_to_jax(world4, 'pyr_bn_2x2',
+                       'guide_level_2.conv1.bn.running_var')
 
 
 def test_train_on_spatial_mesh_matches_data_mesh(world4):
@@ -345,6 +455,61 @@ def test_train_on_spatial_mesh_matches_data_mesh(world4):
   # Rank 0 alone wrote the directory, and left no partial file.
   assert sorted(os.listdir(work / 'ckpt_b')) == [
       'ckpt_3.pt', 'ckpt_5.pt', 'config.json', 'summaries.jsonl']
+
+
+def test_pyramid_train_on_spatial_mesh_matches_data_mesh(world4):
+  work, _ = world4
+  dp = _results(work, 'train_pyr_4x1', 4)
+  sp = _results(work, 'train_pyr_2x2', 4)
+  _assert_ranks_identical(sp, 'train_pyr_2x2')
+  assert dp[0]['step'] == sp[0]['step'] == 3
+  for k, v in dp[0]['state_dict'].items():
+    np.testing.assert_allclose(sp[0]['state_dict'][k].numpy(), v.numpy(),
+                               rtol=1e-3, atol=2e-4, err_msg=k)
+  np.testing.assert_allclose(sp[0]['ema_loss'], dp[0]['ema_loss'],
+                             rtol=1e-5)
+
+
+def _halo_frame(n, seed):
+  """The worker's seeded frame of a halo case (``halo_frame``)."""
+  return torch.from_numpy(np.random.RandomState(seed).randn(2, n, 3))
+
+
+def _halo_cotangent(shape, rank, seed):
+  """The worker's seeded cotangent (``halo_cotangent``)."""
+  return torch.from_numpy(np.random.RandomState(1000 * seed + rank).randn(
+      *shape))
+
+
+@pytest.mark.parametrize('case', range(len(HALO_CASES)))
+def test_halo_exchange_and_gather_across_ranks(world4, case):
+  """Each rank's exchanged rows are the frame's rows bit for bit (from
+  bands two away where the reach asks), and its gradient is the sum of
+  every rank's cotangents of its own rows; every rank gathers the same
+  rows of the frame, and takes the summed cotangents of its own."""
+  work, _ = world4
+  n, reach, rows = HALO_CASES[case]
+  frame = _halo_frame(n, case)
+  results = [r['cases'][case] for r in _results(work, 'halo', 4)]
+  bounds = [r['band'] for r in results]
+  assert bounds == [(j * n // 4, (j + 1) * n // 4) for j in range(4)]
+  needs = [(max(lo - reach, 0), min(hi + reach, n)) for lo, hi in bounds]
+  grad = torch.zeros_like(frame)
+  total = 0
+  for q, (a, b) in enumerate(needs):
+    grad[:, a:b] += _halo_cotangent((2, b - a, 3), q, case)
+    total = total + _halo_cotangent((2, len(rows), 3), q, case + 100)
+  gather_grad = torch.zeros_like(frame)
+  for p, row in enumerate(rows):
+    gather_grad[:, row] += total[:, p]
+  for r, (res, (lo, hi), (a, b)) in enumerate(zip(results, bounds, needs)):
+    assert torch.equal(res['exchanged'], frame[:, a:b]), r
+    assert torch.equal(res['gathered'], frame[:, rows]), r
+    np.testing.assert_allclose(res['exchange_grad'].numpy(),
+                               grad[:, lo:hi].numpy(), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(res['gather_grad'].numpy(),
+                               gather_grad[:, lo:hi].numpy(), rtol=0,
+                               atol=1e-12)
 
 
 def test_checkpoint_from_spatial_mesh_resumes_on_data_mesh(world4):

@@ -35,8 +35,12 @@ and holds K2 to its plain version at the JAX row-gather variant's cases
 The last TPU kernel and the tools: K2x, the one-hot preview downsample
 on the tensor cores, through its main path, the port's experiment script
 ``hdrnet_torch/scripts/exp_downsample_v2.py``, then both row modes bit
-for bit against their plain versions and K2 at 4K b=1 and b=4, timed in
-turns with K2; ``bin/export.py``'s ``main`` on a seeded ``HDRNetCurves``
+for bit against their plain versions and K2 at 4K b=1 and b=4 and on
+both copy routes at small sizes, timed in CUDA graphs in turns with K2;
+K2, K2g and K2x are timed as kernels (CUDA graphs: an eager call of the
+wrapper is longer than the kernel), beside one ``aten::index`` call of
+the same function and the K2 wrapper's host microseconds a call;
+``bin/export.py``'s ``main`` on a seeded ``HDRNetCurves``
 and a seeded ``HDRNetGaussianPyrNN`` checkpoint (every ``.pt2`` reloaded
 and bit-identical to the eager Enhancer, ``serve_any_fn`` at two more
 sizes, the kernels' launches counted), and the host cost of a registered
@@ -133,7 +137,8 @@ its error, its time, its plain version's, and the least time the card
 could take for its work, from its bytes at 3.35 TB/s and its float32
 operations at 67 TFLOP/s; K2x computes K2's function and takes its
 bound, with the floors of its two formulations, their bf16 tensor-core
-operations at 989 TFLOP/s, beside it), and ``{"ok": true, "device":
+operations at 989 TFLOP/s, beside it; ``library_ms`` for K2, K2g and
+K2x), and ``{"ok": true, "device":
 ...}``. Without
 a CUDA device, or outside a checkout, it fails before printing any
 result. It imports nothing of JAX.
@@ -376,8 +381,8 @@ def _kernel_label(mangled):
     return mangled
   rest, i, args = k.group(2) or '', 1, []
   while i < len(rest) and rest[i] != 'E':
-    if rest[i] in 'fh':
-      args.append({'f': 'f32', 'h': 'u8'}[rest[i]])
+    if rest[i] in 'fhix':
+      args.append({'f': 'f32', 'h': 'u8', 'i': 'i32', 'x': 'i64'}[rest[i]])
       i += 1
     elif rest.startswith(('Li', 'Lb'), i):  # int or bool: L{i,b}<value>E
       n = re.match(r'L[ib](-?\d+)E', rest[i:])
@@ -439,6 +444,19 @@ def _time_ms(fn, iters, warmup=3):
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def _host_us(fn, n=2000):
+  """Host microseconds a call of an eager function: `n` calls back to
+  back between two synchronizations."""
+  for _ in range(20):
+    fn()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(n):
+    fn()
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) / n * 1e6
 
 
 def _u8_check(got, want, what):
@@ -973,41 +991,57 @@ def _check_k7(cases, x, x8, full_float32):
   return err
 
 # bf16 tensor-core rate (H100 SXM data sheet at 700 W), for K2x's
-# one-hot products; an m16n8k16 product is 2 * 16 * 8 * 16 operations.
+# one-hot products; a wgmma m64n8k16 is 2 * 64 * 8 * 16 operations.
 BF16_OPS_PER_S = 989e12
-MMA_OPS = 2 * 16 * 8 * 16
+WGMMA_OPS = 2 * 64 * 8 * 16
 
 
 def _k2x_work(b, h, w, s, rows):
   """(bytes, bf16 operations) of K2x as csrc/downsample_onehot.cu runs
-  it: one warp a 16x16 output tile, its column steps over the 16-column
-  blocks that hold its source columns; v1 reads the sampled rows, v2 the
-  slab iy[first] .. iy[last] of each row tile and multiplies it by Py
-  (row steps of 16), before the column product."""
+  it: units of (plane, output rows, 64 source columns), a chunk no output
+  samples skipped; v1 reads a unit's 64 sampled rows of its chunk and
+  runs one m64n8k16 a part, K-step and 8 output columns; v2 reads the
+  slab iy[first] .. iy[last] of its 8 output rows, one m64n8k16 a part and
+  K-step of the slab (in stages of 64 rows), then one a part, K-step and
+  64 output columns for the column product."""
   from hdrnet_torch.ops.resize import _nearest_indices
   iy, ix = _nearest_indices(h, s), _nearest_indices(w, s)
-  tiles = [(t, min(t + 16, s) - 1) for t in range(0, s, 16)]
-  col_steps = [(int(ix[last]) - (int(ix[first]) & ~15)) // 16 + 1
-               for first, last in tiles]
-  slab = [int(iy[last]) - int(iy[first]) + 1 for first, last in tiles]
+  chunks = []
+  for c0 in range(0, w, 64):
+    lo, hi = np.searchsorted(ix, [c0, c0 + 64])
+    if hi > lo:
+      cols = min(64, w - c0)
+      chunks.append((cols, -(-cols // 16), int(hi - lo)))
   planes = 3 * b
-  out_bytes = planes * s * s * 4
+  n_bytes = planes * s * s * 4
+  ops = 0
   if rows == 'gather':
-    mma = planes * len(tiles) * sum(col_steps) * 6
-    return planes * s * w * 4 + out_bytes, mma * MMA_OPS
-  mma = planes * sum(c * (-(-r // 16) * 6 + 6) for r in slab
-                     for c in col_steps)
-  return planes * sum(slab) * w * 4 + out_bytes, mma * MMA_OPS
+    for t in range(0, s, 64):
+      n = min(64, s - t)
+      for cols, steps, outs in chunks:
+        n_bytes += planes * n * cols * 4
+        ops += planes * -(-outs // 8) * steps * 3
+  else:
+    for t in range(0, s, 8):
+      slab = int(iy[min(t + 8, s) - 1]) - int(iy[t]) + 1
+      row_steps = sum(-(-min(64, slab - r) // 16) for r in range(0, slab, 64))
+      for cols, steps, outs in chunks:
+        n_bytes += planes * slab * cols * 4
+        ops += planes * (row_steps + -(-outs // 64) * steps) * 3
+  return n_bytes, ops * WGMMA_OPS
 
 
 def _check_k2x(dev, tag):
   """K2x's main path, the port's downsample experiment (counts reset just
   before, read just after); both row modes at 4K b=1 and b=4 f32 bit for
-  bit against their plain versions and K2; then each timed in turns with
-  K2. Returns (launches, max error, timings, the function's bound by
-  batch, the formulations' floors by (batch, rows))."""
+  bit against their plain versions and K2; then each timed in CUDA graphs
+  in turns with K2, beside one aten::index call of the same function.
+  Returns (launches, max error, timings, the function's bound by batch,
+  the formulations' floors by (batch, rows))."""
   from hdrnet_torch.ops import downsample
   from hdrnet_torch.scripts import exp_downsample_v2
+  from hdrnet_torch.scripts.time_kernels import k2x_library
+  from hdrnet_torch.utils.timing import graph_ms
   torch.cuda.synchronize()
   downsample.onehot_launches = 0
   results = exp_downsample_v2.main([])
@@ -1032,15 +1066,29 @@ def _check_k2x(dev, tag):
     v1 = lambda: downsample.nearest_lowres_onehot(cf, 256, 'gather')
     v2 = lambda: downsample.nearest_lowres_onehot(cf, 256, 'mma')
     k2_fn = lambda: downsample.nearest_lowres(nhwc, 256)
-    turns = [_time_ms(f, 100) for f in (k2_fn, v1, v2, v2, v1, k2_fn)]
+    turns = [graph_ms(f) for f in (k2_fn, v1, v2, v2, v1, k2_fn)]
     plain = [_time_ms(lambda r=r: downsample.nearest_lowres_onehot_plain(
         cf, 256, r), 5, warmup=1) for r in ('gather', 'mma')]
+    if not torch.equal(k2x_library(cf, 256), k2):
+      raise AssertionError(f'K2x b={b}: the aten::index call disagrees')
     times[b] = {'K2': (turns[0] + turns[5]) / 2,
                 'gather': (turns[1] + turns[4]) / 2,
                 'mma': (turns[2] + turns[3]) / 2,
                 'plain_gather': plain[0], 'plain_mma': plain[1],
+                'library': graph_ms(lambda: k2x_library(cf, 256)),
                 'turns': turns}
     del cf, nhwc
+  # The copy route for rows that are not 16-byte aligned (301 floats), and
+  # the bulk route's masks (s < 64, ragged chunks), at small sizes.
+  for b, h, w, s in ((2, 77, 301, 40), (2, 77, 300, 40), (1, 135, 241, 64)):
+    cf = torch.rand((b, 3, h, w), generator=gen, device=dev)
+    k2 = downsample.nearest_lowres(cf.permute(0, 2, 3, 1).contiguous(), s)
+    for rows in ('gather', 'mma'):
+      got = downsample.nearest_lowres_onehot(cf, s, rows)
+      if not (torch.equal(got, downsample.nearest_lowres_onehot_plain(
+          cf, s, rows)) and torch.equal(got, k2)):
+        raise AssertionError(f'K2x {rows} b={b} {h}x{w} -> {s}: not bit for '
+                             f'bit its plain version and K2')
   torch.cuda.synchronize()
   fn_bound = {b: _bound(b * 3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0)[0]
               for b in (1, 4)}
@@ -1049,12 +1097,15 @@ def _check_k2x(dev, tag):
   print(f'K2x nearest_lowres_onehot (tensor-core one-hot products): the '
         f'experiment script ran {launches} K2x launches, max|diff| 0 for '
         f'v0/v1/v2; rows gather and mma bit-identical to their plain '
-        f'versions and to K2 at 4K b=1 and b=4 f32 (max|diff| {err}); '
-        f'timing {tag} ms a call, '
+        f'versions and to K2 at 4K b=1 and b=4 f32 (max|diff| {err}) and '
+        f'on both copy routes at 77x300, 77x301 -> 40 and 135x241 -> 64; '
+        f'timing {tag} ms a call in CUDA graphs, '
         f'in turns K2 / v1 / v2 / v2 / v1 / K2: '
         + '; '.join(f'b={b} ' + ' / '.join(f'{t:.4f}' for t in
                                            times[b]['turns'])
                     for b in (1, 4))
+        + '; one aten::index call '
+        + ', '.join(f'b={b} {times[b]["library"]:.4f}' for b in (1, 4))
         + '; plain v1 / v2 '
         + '; '.join(f'b={b} {times[b]["plain_gather"]:.4f} / '
                     f'{times[b]["plain_mma"]:.4f}' for b in (1, 4))
@@ -1145,23 +1196,12 @@ def _check_export(dev, tag, gen, slice_launches):
                  f'also at 723x1085 and 2160x3840), launches {counts}')
     del enh, calls, others
     shutil.rmtree(ckpt, ignore_errors=True)
-  # One registered call against one direct call, host time a call, on a
-  # launch-bound K2 (1080p -> 256 preview), in turns.
-  x = torch.rand((1, *FHD, 3), generator=gen, device=dev)
-
-  def host_us(fn, n=2000):
-    for _ in range(20):
-      fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-      fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e6
-
+  # One registered call against one direct call, host time a call, on K2
+  # at 4K (its kernel is shorter than either call), in turns.
+  x = torch.rand((1, *UHD, 3), generator=gen, device=dev)
   direct = lambda: downsample.nearest_lowres(x, 256)
   registered = lambda: torch.ops.hdrnet.nearest_lowres(x, 256)
-  turns = [host_us(f) for f in (direct, registered, registered, direct)]
+  turns = [_host_us(f) for f in (direct, registered, registered, direct)]
   print(f'export (bin/export.py main, --fullres 1080 1920, seeded default '
         f'widths): ' + '; '.join(lines) + f'; timing {tag}: K2 through '
         f'hdrnet::nearest_lowres vs the direct call, host us a call in '
@@ -2868,6 +2908,8 @@ def main():
     return _mesh_worker(sys.argv[2])
   from hdrnet_torch.inference import Enhancer, ModelConfig, full_float32
   from hdrnet_torch.ops import _build, downsample, fused
+  from hdrnet_torch.scripts.time_kernels import k2_library
+  from hdrnet_torch.utils.timing import graph_ms
 
   dev = torch.device('cuda', 0)
   gen = torch.Generator(device=dev).manual_seed(1234)
@@ -3014,16 +3056,31 @@ def main():
       ('K1 f32', fused.enhance_fused, plain_k1, (g4k, x4k, params),
        {'clip_output': True}),
       ('K1 u8', fused.enhance_fused, plain_k1, (g4k8, x4k8, params),
-       {'clip_output': True, 'u8_output': True}),
-      ('K2 f32', downsample.nearest_lowres, downsample.nearest_lowres_plain,
-       (x4k, 256), {}),
-      ('K2 u8', downsample.nearest_lowres, downsample.nearest_lowres_plain,
-       (x4k8, 256), {})]:
+       {'clip_output': True, 'u8_output': True})]:
     plain_ms = _time_ms(lambda: plain(*args, **kw), 5, warmup=1)
     kernel_ms = _time_ms(lambda: kernel(*args, **kw), 100)
     times[name] = (kernel_ms, plain_ms)
     print(f'timing {tag}: {name} 4K kernel {kernel_ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms', flush=True)
+  # K2: its kernel is shorter than an eager call of its wrapper, so events
+  # around eager calls time the wrapper. The kernel's time is a CUDA
+  # graph's; the wrapper's is its own figure, host microseconds a call.
+  # Beside them one aten::index call that computes its f32 function.
+  library_ms, k2_host_us = {}, {}
+  for name, x in (('K2 f32', x4k), ('K2 u8', x4k8)):
+    plain_ms = _time_ms(lambda: downsample.nearest_lowres_plain(x, 256), 5,
+                        warmup=1)
+    kernel_ms = graph_ms(lambda: downsample.nearest_lowres(x, 256))
+    k2_host_us[name] = _host_us(lambda: downsample.nearest_lowres(x, 256))
+    times[name] = (kernel_ms, plain_ms)
+  library_ms['K2'] = graph_ms(lambda: k2_library(x4k, 256))
+  print(f'timing {tag}: K2 4K b=1 kernel (graph) f32 '
+        f'{times["K2 f32"][0]:.4f} ms, u8 {times["K2 u8"][0]:.4f} ms; plain '
+        f'{times["K2 f32"][1]:.4f} / {times["K2 u8"][1]:.4f} ms; the '
+        f'wrapper, host us a call, {k2_host_us["K2 f32"]:.2f} / '
+        f'{k2_host_us["K2 u8"]:.2f}; one aten::index call (f32; u8 has '
+        f'none: a gather and a division) {library_ms["K2"]:.4f} ms',
+        flush=True)
 
   # 8. K6 against its plain version at 4K: the NN-guide model's gc-16
   # guide (BN folded) and an odd gc, f32 clip off and on, u8, on the
@@ -3291,13 +3348,15 @@ def main():
                                     downsample.nearest_lowres_plain(x, s_out),
                                     0.0, f'K2g b={b} {hw} u8={u8}'))
   x4k_b4 = x
-  k2g_ms = _time_ms(lambda: downsample.nearest_lowres(x4k_b4, 256), 100)
+  k2g_ms = graph_ms(lambda: downsample.nearest_lowres(x4k_b4, 256))
   k2g_plain_ms = _time_ms(
       lambda: downsample.nearest_lowres_plain(x4k_b4, 256), 20)
+  library_ms['K2g'] = graph_ms(lambda: k2_library(x4k_b4, 256))
   times['K2g'] = (k2g_ms, k2g_plain_ms)
   print(f'K2g (K2 at the gather cases): max abs err {k2g_err} vs plain at '
         f'b=3 135x240 -> 64 f32/u8 and 4K b=4 -> 256 f32; timing {tag}: 4K '
-        f'b=4 kernel {k2g_ms:.4f} ms, plain {k2g_plain_ms:.4f} ms',
+        f'b=4 kernel (graph) {k2g_ms:.4f} ms, plain {k2g_plain_ms:.4f} ms, '
+        f'one aten::index call {library_ms["K2g"]:.4f} ms',
         flush=True)
   del x, x4k_b4
   torch.cuda.empty_cache()
@@ -3349,6 +3408,7 @@ def main():
   k2x_launches, k2x_err, k2x_times, k2x_bound, k2x_floors = _check_k2x(
       dev, tag)
   times['K2x'] = (k2x_times[1]['gather'], k2x_times[1]['plain_gather'])
+  library_ms['K2x'] = k2x_times[1]['library']
   _check_export(dev, tag, gen, slice_launches)
   _check_fit_grid(dev, tag, slice_launches)
 
@@ -3433,16 +3493,19 @@ def main():
        'hdrnet_torch/csrc/fused_slice_apply.cu',
        'hdrnet_tpu/ops/pallas.py:446', k7_launches,
        max(k7_err, sharded_err), 'K7'),
-      ('K2', 'K2 nearest_lowres (preview downsample)',
+      ('K2', 'K2 nearest_lowres (preview downsample; ms in a CUDA graph, '
+       '4K b=1 f32)',
        'hdrnet_torch/csrc/downsample.cu', 'hdrnet_tpu/ops/downsample.py:75',
        launches['K2'], k2_err, 'K2 f32'),
-      ('K2g', 'K2g nearest_lowres gather variant (K2\'s kernel)',
+      ('K2g', 'K2g nearest_lowres gather variant (K2\'s kernel; ms in a '
+       'CUDA graph, 4K b=4 f32)',
        'hdrnet_torch/csrc/downsample.cu',
        'hdrnet_tpu/ops/downsample.py:177', any_launches['K2'], k2g_err,
        'K2g'),
       ('K2x', 'K2x nearest_lowres_onehot (one-hot bf16 products on the '
-       'tensor cores; timed rows=\'gather\' at 4K b=1, rows=\'mma\' and b=4 '
-       'in its phase line)', 'hdrnet_torch/csrc/downsample_onehot.cu',
+       'tensor cores; ms in a CUDA graph, rows=\'gather\' at 4K b=1, '
+       'rows=\'mma\' and b=4 in its phase line and under "graph_ms")',
+       'hdrnet_torch/csrc/downsample_onehot.cu',
        'scripts/exp_downsample_v2.py:102', k2x_launches, k2x_err, 'K2x'),
       ('K3', 'K3 slice_apply_fwd (slice + apply, external guide; at 3 -> 3 '
        'K1\'s kernel with the guide loaded)',
@@ -3457,14 +3520,24 @@ def main():
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:757',
        slice_launches['K5'], train_errs['K5'], 'K5'),
   ]
-  # No single PyTorch call computes any of these functions: grid_sample
-  # has no smoothed depth tent and interpolate another nearest table.
+  # One aten::index call with the floor tables computes K2's f32 function
+  # (K2g's, and K2x's on the channel-first frame): its graph time is their
+  # library_ms. No single PyTorch call computes the others: grid_sample
+  # has no smoothed depth tent, interpolate another nearest table.
   kernels = [{'name': name, 'route': 'cuda', 'source': source,
               'replaces': replaces, 'launches': n, 'max_abs_err': err,
               'ms': times[key][0], 'plain_ms': times[key][1],
               'bound_ms': bounds[kid][0], 'bound_by': bounds[kid][1],
-              'library_ms': None}
+              'library_ms': library_ms.get(kid)}
              for kid, name, source, replaces, n, err, key in rows]
+  kernels[[r[0] for r in rows].index('K2')].update(
+      library='aten::index, frame.permute(0, 3, 1, 2)[:, :, iy[:, None], '
+      'ix], at f32; u8 has no single call (a gather and a division)',
+      wrapper_host_us=k2_host_us)
+  kernels[[r[0] for r in rows].index('K2g')]['library'] = (
+      'aten::index, as K2, at 4K b=4 f32')
+  kernels[[r[0] for r in rows].index('K2x')]['library'] = (
+      'aten::index, frame_cf[:, :, iy[:, None], ix], 4K b=1')
   for kid in ('K3', 'K4', 'K5'):
     kernels[[r[0] for r in rows].index(kid)]['levels'] = {
         **slice_levels[kid], **zoo_levels[kid]}
@@ -3472,6 +3545,9 @@ def main():
         label: kt[kid] for label, kt in band_times.items()}
   kernels[[r[0] for r in rows].index('K2x')]['formulation_floor_ms'] = {
       f'{r} b={b}': k2x_floors[b, r][0] for b in (1, 4)
+      for r in ('gather', 'mma')}
+  kernels[[r[0] for r in rows].index('K2x')]['graph_ms'] = {
+      f'{r} b={b}': k2x_times[b][r] for b in (1, 4)
       for r in ('gather', 'mma')}
   print(smi)
   print(json.dumps({'kernels': kernels}))

@@ -26,6 +26,7 @@ exp_downsample_v2`` runs it; serving runs K2.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -92,25 +93,40 @@ def _(frame, s):
                          dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _k2_tables(h, w, s, device):
+  """The row and column floor tables on `device` and their addresses, one
+  cached lookup a call."""
+  iy = nearest_index_tensor(h, s, device)
+  ix = nearest_index_tensor(w, s, device)
+  return iy, ix, iy.data_ptr(), ix.data_ptr()
+
+
 def _nearest_lowres(frame, s):
+  # The serving path calls this once a frame, and at 4K its kernel is
+  # shorter than the call, so the host work is kept to the checks, one
+  # table lookup, the output and the launch (scripts/time_kernels.py
+  # reports the host microseconds a call).
   global launches
   _check(frame, s)
-  if frame.device.type == 'cpu':
+  dev = frame.device
+  if dev.type == 'cpu':
     return nearest_lowres_plain(frame, s)
-  if frame.device.type != 'cuda':
-    raise ValueError(f'unsupported device {frame.device}')
+  if dev.type != 'cuda':
+    raise ValueError(f'unsupported device {dev}')
   if not frame.is_contiguous():
     raise ValueError('frame must be contiguous')
   b, h, w, c = frame.shape
-  iy = nearest_index_tensor(h, s, frame.device)
-  ix = nearest_index_tensor(w, s, frame.device)
-  out = torch.empty((b, c, s, s), dtype=torch.float32, device=frame.device)
-  lib = _build.library().lib
-  with torch.cuda.device(frame.device):
-    stream = torch.cuda.current_stream(frame.device).cuda_stream
-    err = lib.hdrnet_nearest_lowres(
-        frame.data_ptr(), int(frame.dtype == torch.uint8), iy.data_ptr(),
-        ix.data_ptr(), out.data_ptr(), b, h, w, c, s, stream)
+  _, _, iy, ix = _k2_tables(h, w, s, dev)
+  out = torch.empty((b, c, s, s), dtype=torch.float32, device=dev)
+  args = (frame.data_ptr(), int(frame.dtype == torch.uint8), iy, ix,
+          out.data_ptr(), b, h, w, c, s)
+  launch = _build.library().lib.hdrnet_nearest_lowres
+  if dev.index == torch.cuda.current_device():
+    err = launch(*args, torch.cuda.current_stream().cuda_stream)
+  else:  # the launcher runs on the current device: make it the frame's
+    with torch.cuda.device(dev):
+      err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
   _build.check(err, 'hdrnet_nearest_lowres')
   launches += 1
   return out

@@ -59,24 +59,46 @@ def _inputs(seed, b, h, w, dev, u8, gh=16, gw=16, gd=8):
   return grid.to(dev), frame.to(dev), _params(rng).to(dev)
 
 
-@pytest.mark.parametrize('u8', [False, True])
-@pytest.mark.parametrize('shape', [(2, 101, 61, 16), (1, 1080, 1920, 256),
-                                   (2, 257, 383, 64)])
-def test_downsample_kernel_bit_exact(cuda, shape, u8):
-  b, h, w, s = shape
-  rng = np.random.RandomState(0)
+def _frame(dev, shape, u8, seed=0):
+  """A seeded (B, H, W, C) frame on the card, f32 or u8."""
+  gen = torch.Generator(device=dev).manual_seed(seed)
   if u8:
-    x = torch.from_numpy(rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8))
-  else:
-    x = torch.from_numpy(rng.rand(b, h, w, 3).astype(np.float32))
-  x = x.to(cuda)
+    return torch.randint(0, 256, shape, generator=gen, device=dev,
+                         dtype=torch.uint8)
+  return torch.rand(shape, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize('u8', [False, True])
+@pytest.mark.parametrize('shape', [
+    (2, 101, 61, 3, 16), (1, 1080, 1920, 3, 256), (2, 257, 383, 3, 64),
+    (2, 101, 61, 1, 16), (2, 101, 61, 4, 16),  # C = 1 and C = 4
+    (1, 20, 30, 3, 64),  # s > H and s > W: rows and columns repeat
+    (1, 135, 241, 3, 64),  # rows of 241 x 3 values: not 16-byte aligned
+    (1, 4320, 7680, 3, 256), (4, 2160, 3840, 3, 256)])  # 8K b=1, 4K b=4
+def test_downsample_kernel_bit_exact(cuda, shape, u8):
+  b, h, w, c, s = shape
+  x = _frame(cuda, (b, h, w, c), u8)
   before = downsample.launches
   got = downsample.nearest_lowres(x, s)
   assert downsample.launches == before + 1
   want = downsample.nearest_lowres_plain(x, s)
   torch.cuda.synchronize()
-  assert got.shape == (b, 3, s, s) and got.dtype == torch.float32
+  assert got.shape == (b, c, s, s) and got.dtype == torch.float32
   assert torch.equal(got, want)
+
+
+def test_downsample_kernel_past_32_bit_index(cuda):
+  """A frame of 2^31 values or more takes K2's 64-bit offsets: 24576 x
+  32768 x 3 uint8 (2.4 G values a frame) at b=2, bit for bit its plain
+  version."""
+  x = torch.empty((2, 24576, 32768, 3), dtype=torch.uint8, device=cuda)
+  x[0].random_(0, 256, generator=torch.Generator(cuda).manual_seed(3))
+  x[1] = x[0].flip(0)
+  got = downsample.nearest_lowres(x, 256)
+  want = downsample.nearest_lowres_plain(x, 256)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want)
+  assert not torch.equal(got[0], got[1])
 
 
 @pytest.mark.parametrize('clip', [False, True])
@@ -457,18 +479,17 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize('u8', [False, True])
-def test_downsample_kernel_gather_cases(cuda, u8):
+@pytest.mark.parametrize('shape', [(3, 135, 240, 64), (4, 2160, 3840, 256)])
+def test_downsample_kernel_gather_cases(cuda, shape, u8):
   """K2g, the JAX row-gather variant (``tests/test_downsample.py``'s
-  batched gather case, b=3 135x240 -> 64): K2's kernel, bit-exact."""
-  rng = np.random.RandomState(2)
-  if u8:
-    x = torch.from_numpy(rng.randint(0, 256, (3, 135, 240, 3)).astype(
-        np.uint8))
-  else:
-    x = torch.from_numpy(rng.rand(3, 135, 240, 3).astype(np.float32))
-  x = x.to(cuda)
-  got = downsample.nearest_lowres(x, 64)
-  assert torch.equal(got, downsample.nearest_lowres_plain(x, 64))
+  batched gather case, b=3 135x240 -> 64) and the batched 4K preview:
+  K2's kernel, one launch, bit-exact."""
+  b, h, w, s = shape
+  x = _frame(cuda, (b, h, w, 3), u8, seed=2)
+  before = downsample.launches
+  got = downsample.nearest_lowres(x, s)
+  assert downsample.launches == before + 1
+  assert torch.equal(got, downsample.nearest_lowres_plain(x, s))
 
 
 @pytest.mark.parametrize('mode', ['curves', 'nn'])
@@ -579,14 +600,24 @@ def test_evaluate_cli_on_card(cuda, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('rows', ['gather', 'mma'])
-@pytest.mark.parametrize('shape', [(1, 2160, 3840, 256), (4, 2160, 3840, 256),
-                                   (3, 135, 240, 64), (2, 101, 60, 32),
-                                   (1, 10, 7, 32), (2, 77, 300, 40)])
-def test_onehot_downsample_kernel_bit_exact(cuda, shape, rows):
-  """K2x in both row modes: bit for bit its plain version and K2."""
+@pytest.mark.parametrize('shape,offset', [
+    # bulk copies: rows of a multiple of 16 bytes from an aligned frame
+    ((1, 2160, 3840, 256), 0), ((4, 2160, 3840, 256), 0),
+    ((3, 135, 240, 64), 0), ((2, 101, 60, 32), 0), ((2, 77, 300, 40), 0),
+    ((1, 64, 4096, 16), 0),  # W / s = 256: chunks that no output samples
+    ((1, 2048, 64, 16), 0),  # H / s = 128: v2's slabs span 15 stages
+    ((1, 8, 270000, 16), 0),  # 4219 chunks: past the block's start table
+    # plain loads: rows of 7, 61, 301 floats, or a frame 4 bytes off
+    ((1, 10, 7, 32), 0), ((2, 101, 61, 32), 0), ((2, 77, 301, 40), 0),
+    ((1, 135, 241, 64), 0), ((1, 2160, 3842, 256), 0),
+    ((2, 101, 60, 32), 1)])
+def test_onehot_downsample_kernel_bit_exact(cuda, shape, offset, rows):
+  """K2x in both row modes and both copy routes: bit for bit its plain
+  version and K2."""
   b, h, w, s = shape
-  x = torch.from_numpy(np.random.RandomState(1).rand(b, 3, h, w).astype(
-      np.float32)).to(cuda)
+  gen = torch.Generator(device=cuda).manual_seed(1)
+  x = torch.rand(b * 3 * h * w + offset, generator=gen, device=cuda)
+  x = x[offset:].view(b, 3, h, w)
   before = downsample.onehot_launches
   got = downsample.nearest_lowres_onehot(x, s, rows)
   assert downsample.onehot_launches == before + 1
@@ -596,6 +627,46 @@ def test_onehot_downsample_kernel_bit_exact(cuda, shape, rows):
   assert got.shape == (b, 3, s, s) and got.dtype == torch.float32
   assert torch.equal(got, want)
   assert torch.equal(got, k2)
+
+
+@pytest.mark.parametrize('kernel', ['K2 f32', 'K2 u8', 'K2x gather',
+                                    'K2x mma', 'K2x gather loads',
+                                    'K2x mma loads'])
+def test_downsample_kernels_replay_in_cuda_graph(cuda, kernel):
+  """Each preview kernel captured in a CUDA graph (K2x's launch makes its
+  one-time attribute calls before, not under, the capture) and replayed
+  on new frame contents: bit for bit the plain version each time."""
+  w = 301 if kernel.endswith('loads') else 300
+  if kernel.startswith('K2x'):
+    rows = kernel.split()[1]
+    x = torch.empty((2, 3, 77, w), device=cuda)
+    run = lambda: downsample.nearest_lowres_onehot(x, 40, rows)
+    plain = lambda: downsample.nearest_lowres_onehot_plain(x, 40, rows)
+  else:
+    u8 = kernel.endswith('u8')
+    x = torch.empty((2, 77, w, 3), device=cuda,
+                    dtype=torch.uint8 if u8 else torch.float32)
+    run = lambda: downsample.nearest_lowres(x, 40)
+    plain = lambda: downsample.nearest_lowres_plain(x, 40)
+  gen = torch.Generator(device=cuda).manual_seed(5)
+
+  def refill():
+    if x.dtype == torch.uint8:
+      x.random_(0, 256, generator=gen)
+    else:
+      x.uniform_(generator=gen)
+
+  refill()
+  run()  # warm-up outside the capture
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = run()
+  for _ in range(3):
+    refill()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain())
 
 
 def test_onehot_downsample_kernel_checks_its_arguments(cuda):

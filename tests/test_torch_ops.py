@@ -231,6 +231,25 @@ def test_nearest_lowres_plain_matches_jax_kernel(size):
   np.testing.assert_allclose(got8.numpy(), _np(want8), atol=1e-7)
 
 
+@pytest.mark.parametrize('size', DS_SIZES + [(3, 135, 240, 64),
+                                  (1, 10, 7, 32), (2, 77, 301, 40)])
+def test_k2_library_call_matches_plain_and_jax(size):
+  """The yardstick of K2's library_ms, one aten::index call with the floor
+  tables, computes K2's f32 function exactly: the plain version's and
+  the JAX kernel's (interpret mode) bits, at the JAX cases and odd sizes
+  (s above H and W, rows of 301 values)."""
+  from hdrnet_torch.scripts.time_kernels import k2_library
+  b, h, w, s = size
+  x = np.random.RandomState(11).rand(b, h, w, 3).astype(np.float32)
+  got = k2_library(_t(x), s)
+  assert got.shape == (b, 3, s, s)
+  np.testing.assert_array_equal(
+      got.numpy(), downsample.nearest_lowres_plain(_t(x), s).numpy())
+  want = nearest_lowres_cf(jnp.asarray(x.transpose(0, 3, 1, 2)), s,
+                           interpret=True)
+  np.testing.assert_array_equal(got.numpy(), _np(want))
+
+
 def test_resize_nearest_matches_jax():
   rng = np.random.RandomState(9)
   x = rng.rand(2, 37, 53, 3).astype(np.float32)

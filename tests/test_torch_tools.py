@@ -82,6 +82,26 @@ def test_onehot_plain_matches_jax_xla(b, h, w, s, rows):
   np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize('b,h,w,s', [(3, 135, 240, 64), (1, 101, 60, 32),
+                                     (1, 10, 7, 32), (2, 77, 301, 40),
+                                     (1, 64, 4096, 16)])
+def test_k2x_library_call_matches_plain_and_jax(b, h, w, s):
+  """The yardstick of K2x's library_ms, one aten::index call on the
+  channel-first frame, computes its function exactly: both row modes'
+  plain versions and JAX's ``nearest_lowres_cf`` bit for bit."""
+  from hdrnet_torch.scripts.time_kernels import k2x_library
+  x = np.random.RandomState(3).rand(b, 3, h, w).astype(np.float32)
+  got = k2x_library(torch.from_numpy(x), s)
+  assert got.shape == (b, 3, s, s)
+  for rows in ('gather', 'mma'):
+    want = downsample.nearest_lowres_onehot_plain(torch.from_numpy(x), s,
+                                                  rows)
+    assert torch.equal(got, want)
+  np.testing.assert_array_equal(
+      got.numpy(), np.asarray(nearest_lowres_cf(jnp.asarray(x), s,
+                                                variant='xla')))
+
+
 def test_split3_matches_jnp_astype_chain():
   """The experiment's split3, written out in jnp: bit for bit, and the
   parts add back to the value."""

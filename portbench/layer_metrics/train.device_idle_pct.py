@@ -1,0 +1,6 @@
+"""Share of the traced stretch of training steps in which nothing (no
+kernel, no copy, no set) ran on the card."""
+
+
+def read(s):
+  return s.idle_pct()

@@ -1,0 +1,6 @@
+"""Kernels, copies and sets that ran on the card, a step of the traced
+stretch."""
+
+
+def read(s):
+  return s.launches_per_iteration()

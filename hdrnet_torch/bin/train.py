@@ -70,7 +70,9 @@ def build_parser():
                  help='(data, spatial) mesh of the torchrun ranks; default '
                       'all ranks on data')
   t.add_argument('--profile_dir', default=None,
-                 help='write a torch.profiler trace of steps 10-15 here')
+                 help='write a torch.profiler Chrome trace of steps 10-15 '
+                      'here; its hdrnet.train.* ranges are the phases of '
+                      'a step (forward, backward, optimizer, metrics)')
   t.add_argument('--device', default='cuda',
                  help="torch device to train on ('cpu' for the plain "
                       'versions of the kernels)')

@@ -44,6 +44,7 @@ from hdrnet_torch.models.hdrnet import (HDRNetCurves, HDRNetGaussianPyrNN,
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
+from hdrnet_torch.utils.timing import span
 
 __all__ = ['Enhancer', 'FUSED_MODELS', 'ModelConfig', 'full_float32',
            'resolve_device']
@@ -203,9 +204,10 @@ class Enhancer:
     """Enhance with a given NHWC preview: (b, s, s, n_in), (b, H, W, n_in)."""
     self._check_frame(lowres)
     self._check_frame(fullres)
-    if not self.fused:
-      return self._composite_forward(lowres, fullres, clip)
-    return self._fused_forward(lowres.permute(0, 3, 1, 2), fullres, clip)
+    with span('hdrnet.serve.forward'):
+      if not self.fused:
+        return self._composite_forward(lowres, fullres, clip)
+      return self._fused_forward(lowres.permute(0, 3, 1, 2), fullres, clip)
 
   def enhance_any(self, lowres, fullres, clip=True):
     """Arbitrary-resolution serving (the reference run.py use case,
@@ -283,10 +285,11 @@ class Enhancer:
     pyramid); on the composite route the model's forward on K2's
     preview."""
     self._check_frame(frame)
-    low = nearest_lowres(frame, self.model_cfg.net_input_size)
-    if not self.fused:
-      return self._composite_forward(low.permute(0, 2, 3, 1), frame, clip)
-    return self._fused_forward(low, frame, clip)
+    with span('hdrnet.serve.forward'):
+      low = nearest_lowres(frame, self.model_cfg.net_input_size)
+      if not self.fused:
+        return self._composite_forward(low.permute(0, 2, 3, 1), frame, clip)
+      return self._fused_forward(low, frame, clip)
 
   def make_stream_fn(self, full_shape):
     """uint8-in, uint8-out pipeline step for frames of `full_shape`
@@ -303,16 +306,18 @@ class Enhancer:
         raise ValueError(f'expected uint8 {full_shape}, got '
                          f'{frame_u8.dtype} {tuple(frame_u8.shape)}')
       self._check_frame(frame_u8)
-      low = nearest_lowres(frame_u8, s)
-      if not self.fused:
-        out = self._composite_forward(low.permute(0, 2, 3, 1),
-                                      to_unit(frame_u8), clip=True)
-      elif not self.pyramid:
-        return self._fused_forward(low, frame_u8, clip=True, u8_output=True)
-      else:
-        out = self._fused_forward(low, to_unit(frame_u8), clip=True)
-      # Two roundings (the product, then the sum), then truncation.
-      return (out * 255.0 + 0.5).to(torch.int32).to(torch.uint8)
+      with span('hdrnet.serve.forward'):
+        low = nearest_lowres(frame_u8, s)
+        if not self.fused:
+          out = self._composite_forward(low.permute(0, 2, 3, 1),
+                                        to_unit(frame_u8), clip=True)
+        elif not self.pyramid:
+          return self._fused_forward(low, frame_u8, clip=True,
+                                     u8_output=True)
+        else:
+          out = self._fused_forward(low, to_unit(frame_u8), clip=True)
+        # Two roundings (the product, then the sum), then truncation.
+        return (out * 255.0 + 0.5).to(torch.int32).to(torch.uint8)
     return fn
 
   def stream(self, frames, depth=2):
@@ -323,6 +328,11 @@ class Enhancer:
     k-depth are queued behind the kernels of frame k (pinned host
     buffers, non-blocking copies); the generator waits only on the
     oldest frame in flight.
+
+    With a profiler recording, a frame's phases are the spans
+    ``hdrnet.stream.pin`` (the pageable-to-pinned copy), ``.upload``,
+    ``hdrnet.serve.forward``, ``hdrnet.stream.readback`` and, where the
+    oldest frame is waited for, ``hdrnet.stream.wait``.
     """
     cuda = self.device.type == 'cuda'
     fns = {}
@@ -332,18 +342,21 @@ class Enhancer:
         raise TypeError(f'stream() takes uint8 frames, got {f.dtype}')
       if f.shape not in fns:
         fns[f.shape] = self.make_stream_fn(f.shape)
-      x = torch.from_numpy(np.ascontiguousarray(f))
-      if cuda:
-        x = x.pin_memory().to(self.device, non_blocking=True)
-      out = fns[f.shape](x)
-      if cuda:
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        pending.append((host, done))
+      if not cuda:
+        pending.append((fns[f.shape](torch.from_numpy(
+            np.ascontiguousarray(f))), None))
       else:
-        pending.append((out, None))
+        with span('hdrnet.stream.pin'):
+          x = torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
+        with span('hdrnet.stream.upload'):
+          x = x.to(self.device, non_blocking=True)
+        out = fns[f.shape](x)
+        with span('hdrnet.stream.readback'):
+          host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+          host.copy_(out, non_blocking=True)
+          done = torch.cuda.Event()
+          done.record()
+        pending.append((host, done))
       if len(pending) > depth:
         yield _finish(*pending.popleft())
     while pending:
@@ -372,6 +385,7 @@ def _banded(packed, frame, params, mode, devices, clip):
 
 
 def _finish(out, done):
-  if done is not None:
-    done.synchronize()
-  return out.numpy()
+  with span('hdrnet.stream.wait'):
+    if done is not None:
+      done.synchronize()
+    return out.numpy()

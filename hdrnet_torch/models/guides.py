@@ -24,6 +24,7 @@ from torch import nn
 from hdrnet_torch.models.layers import BN_EPS, ConvBlock
 from hdrnet_torch.ops.fused import (curves_guide, pack_curves_params,
                                     pack_nn_params)
+from hdrnet_torch.utils.timing import span
 
 
 class CurveGuide(nn.Module):
@@ -53,8 +54,9 @@ class CurveGuide(nn.Module):
 
   def forward(self, x, band=None):
     del band  # pointwise
-    ccm_ext = torch.cat([self.ccm, self.ccm_bias[None, :]])
-    return curves_guide(x, ccm_ext, self.shifts, self.slopes, self._mix())
+    with span('hdrnet.model.guide'):
+      ccm_ext = torch.cat([self.ccm, self.ccm_bias[None, :]])
+      return curves_guide(x, ccm_ext, self.shifts, self.slopes, self._mix())
 
   @torch.no_grad()
   def packed_params(self):
@@ -88,7 +90,8 @@ class PointwiseNNGuide(nn.Module):
 
   def forward(self, x, band=None):
     del band  # pointwise
-    return self.forward_with_intermediates(x)[0]
+    with span('hdrnet.model.guide'):
+      return self.forward_with_intermediates(x)[0]
 
   def forward_with_intermediates(self, x):
     """The guide map and its layers' outputs, (b, h, w, c) each, under the
@@ -138,7 +141,8 @@ class Guide3x3NN(nn.Module):
                            generator=generator)
 
   def forward(self, x, band=None):
-    return self.conv2(self.conv1(x.permute(0, 3, 1, 2), band))[:, 0]
+    with span('hdrnet.model.guide'):
+      return self.conv2(self.conv1(x.permute(0, 3, 1, 2), band))[:, 0]
 
 
 class SimpleGuide(nn.Module):
@@ -152,4 +156,5 @@ class SimpleGuide(nn.Module):
 
   def forward(self, x, band=None):
     del band  # pointwise
-    return self.conv(x.permute(0, 3, 1, 2))[:, 0]
+    with span('hdrnet.model.guide'):
+      return self.conv(x.permute(0, 3, 1, 2))[:, 0]

@@ -29,6 +29,7 @@ from hdrnet_torch.models.guides import CurveGuide, PointwiseNNGuide
 from hdrnet_torch.models.layers import CenterBatchNorm, ConvBlock, DenseBlock
 from hdrnet_torch.ops.slice_ops import bilateral_slice_apply
 from hdrnet_torch.parallel import halo
+from hdrnet_torch.utils.timing import span
 
 
 class CoefficientBackbone(nn.Module):
@@ -82,24 +83,25 @@ class CoefficientBackbone(nn.Module):
         m.axis = 'data'
 
   def forward(self, lowres):
-    x = lowres
-    for i in range(self.n_ds):
-      x = getattr(self, f'splat_conv{i + 1}')(x)
-    splat = x
+    with span('hdrnet.model.backbone'):
+      x = lowres
+      for i in range(self.n_ds):
+        x = getattr(self, f'splat_conv{i + 1}')(x)
+      splat = x
 
-    g = self.global_conv2(self.global_conv1(splat))
-    # Flatten in NHWC order, (h*W + w)*C + c, as the Flax model does.
-    g = g.permute(0, 2, 3, 1).reshape(g.shape[0], -1)
-    g = self.global_fc3(self.global_fc2(self.global_fc1(g)))
+      g = self.global_conv2(self.global_conv1(splat))
+      # Flatten in NHWC order, (h*W + w)*C + c, as the Flax model does.
+      g = g.permute(0, 2, 3, 1).reshape(g.shape[0], -1)
+      g = self.global_fc3(self.global_fc2(self.global_fc1(g)))
 
-    l = self.local_conv2(self.local_conv1(splat))
-    fused = F.relu(l + g[:, :, None, None])
+      l = self.local_conv2(self.local_conv1(splat))
+      fused = F.relu(l + g[:, :, None, None])
 
-    # Conv channel (j*n_out + i)*gd + k -> grid entry [..., k, i, j].
-    y = self.prediction_conv(fused).permute(0, 2, 3, 1)
-    b, gh, gw, _ = y.shape
-    y = y.reshape(b, gh, gw, self.n_in_tot, self.n_out, self.gd)
-    return y.permute(0, 1, 2, 5, 4, 3).contiguous()
+      # Conv channel (j*n_out + i)*gd + k -> grid entry [..., k, i, j].
+      y = self.prediction_conv(fused).permute(0, 2, 3, 1)
+      b, gh, gw, _ = y.shape
+      y = y.reshape(b, gh, gw, self.n_in_tot, self.n_out, self.gd)
+      return y.permute(0, 1, 2, 5, 4, 3).contiguous()
 
 
 class HDRNetCurves(nn.Module):
@@ -178,11 +180,12 @@ def gaussian_pyramid(x, n_scales, band=None):
   ``halo.Band`` of x's rows, and then each level is its band's rows
   (``level_bands``)."""
   levels = [x]
-  for lb in level_bands(band, n_scales)[:-1]:
-    h = levels[-1].shape[1] if lb is None else lb.h_total
-    w = levels[-1].shape[2]
-    levels.append(halo.resize_bilinear(levels[-1], (h // 2, w // 2),
-                                       align_corners=True, band=lb))
+  with span('hdrnet.model.levels'):
+    for lb in level_bands(band, n_scales)[:-1]:
+      h = levels[-1].shape[1] if lb is None else lb.h_total
+      w = levels[-1].shape[2]
+      levels.append(halo.resize_bilinear(levels[-1], (h // 2, w // 2),
+                                         align_corners=True, band=lb))
   return levels
 
 
@@ -192,8 +195,9 @@ def upsample_add(current, level_out, band=None, out_band=None):
   and `level_out`'s."""
   size = (level_out.shape[1:3] if out_band is None
           else (out_band.h_total, level_out.shape[2]))
-  return halo.resize_bilinear(current, size, align_corners=True,
-                              band=band) + level_out
+  with span('hdrnet.model.levels'):
+    return halo.resize_bilinear(current, size, align_corners=True,
+                                band=band) + level_out
 
 
 def level_slice_apply(grid, guide, image, il, band=None):

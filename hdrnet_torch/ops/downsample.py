@@ -33,6 +33,7 @@ import torch
 
 from hdrnet_torch.ops import _build
 from hdrnet_torch.ops.resize import _nearest_indices, nearest_index_tensor
+from hdrnet_torch.utils.timing import span
 
 # Kernel launches by nearest_lowres (never by the plain version).
 launches = 0
@@ -77,7 +78,8 @@ def nearest_lowres(frame, s):
   """
   if torch.compiler.is_compiling():
     return torch.ops.hdrnet.nearest_lowres(frame, s)
-  return _nearest_lowres(frame, s)
+  with span('hdrnet.ops.preview'):
+    return _nearest_lowres(frame, s)
 
 
 @torch.library.custom_op('hdrnet::nearest_lowres', mutates_args=(),

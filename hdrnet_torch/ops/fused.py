@@ -30,6 +30,7 @@ import torch
 from hdrnet_torch.ops import _build
 from hdrnet_torch.ops import reference as ref
 from hdrnet_torch.ops.downsample import to_unit
+from hdrnet_torch.utils.timing import span
 
 N_IN = 3
 N_OUT = 3
@@ -281,8 +282,9 @@ def enhance_fused(grid5, frame, params, guide_mode='curves',
     return torch.ops.hdrnet.enhance_fused(
         grid5, frame, params, guide_mode, clip_output, u8_output, y_offset,
         x_offset, h_total, w_total)
-  return _enhance_fused(grid5, frame, params, guide_mode, clip_output,
-                        u8_output, y_offset, x_offset, h_total, w_total)
+  with span('hdrnet.ops.fused'):
+    return _enhance_fused(grid5, frame, params, guide_mode, clip_output,
+                          u8_output, y_offset, x_offset, h_total, w_total)
 
 
 @torch.library.custom_op('hdrnet::enhance_fused', mutates_args=(),

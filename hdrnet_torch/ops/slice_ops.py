@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from hdrnet_torch.ops import slice_apply as sa
+from hdrnet_torch.utils.timing import span
 
 
 class _SliceApply(torch.autograd.Function):
@@ -73,9 +74,10 @@ def bilateral_slice_apply(grid, guide, image, has_offset=True, band=None):
   elif not ni_tot or grid.shape[-1] % ni_tot:
     raise ValueError(
         f'packed grid channels {grid.shape[-1]} not divisible by {ni_tot}')
-  return _SliceApply.apply(grid.contiguous(), guide.contiguous(),
-                           image.contiguous(), bool(has_offset),
-                           None if band is None else tuple(band))
+  with span('hdrnet.ops.slice_apply'):
+    return _SliceApply.apply(grid.contiguous(), guide.contiguous(),
+                             image.contiguous(), bool(has_offset),
+                             None if band is None else tuple(band))
 
 
 def bilateral_slice(grid, guide):

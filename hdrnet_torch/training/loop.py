@@ -54,6 +54,7 @@ from hdrnet_torch.parallel import mesh as pm
 from hdrnet_torch.training.checkpoint import Checkpointer
 from hdrnet_torch.training.step import (create_state, make_eval_step,
                                         make_train_step, to_device)
+from hdrnet_torch.utils.timing import span
 
 log = logging.getLogger('hdrnet_torch.train')
 
@@ -173,8 +174,9 @@ def augment_batch(augment, ins, outs, params):
   """Gather (the samples `params['idx']` of the resident arrays) and
   augment one batch on the device."""
   idx = params['idx']
-  return augment([ins[int(i)] for i in idx], [outs[int(i)] for i in idx],
-                 params)
+  with span('hdrnet.data.augment'):
+    return augment([ins[int(i)] for i in idx], [outs[int(i)] for i in idx],
+                   params)
 
 
 def _host_batches(pipeline, seed, device, mesh=None):
@@ -328,6 +330,9 @@ def train(config: Config, checkpoint_dir, data_dir, eval_data_dir=None,
 
   runahead = collections.deque()
   profiler = None
+  if lead and tc.profile_dir and state.step > 10:
+    log.warning('profile_dir: the trace covers steps 10-15 and this run '
+                'starts at step %d; no trace is written', state.step)
   # Whether every rank ended the loop normally, and so reaches the final
   # save's barrier; after a failure no rank waits for the others.
   ended = False

@@ -19,6 +19,11 @@ the global mean, the gradients are summed over the mesh in one flat
 all-reduce after ``backward`` (a sum, not DDP's average: a spatial
 band's gradient is a part, not a sample), the batch norms reduce over
 their groups, and the metrics and EMAs are the global ones.
+
+With a profiler recording, a step's phases are the spans
+``hdrnet.train.forward`` (normalize, learning rates, forward, loss),
+``hdrnet.train.backward`` (with the mesh's gradient all-reduce),
+``hdrnet.train.optimizer`` and ``hdrnet.train.metrics``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from hdrnet_torch.inference import full_float32
 from hdrnet_torch.parallel.collectives import (all_reduce, all_reduce_grads,
                                                all_reduce_sum_)
 from hdrnet_torch.training import metrics
+from hdrnet_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -155,39 +161,43 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2,
   """
 
   def step(state, batch, band=None):
-    batch = normalize_batch(batch)
     model, opt = state.model, state.optimizer
-    model.train()
-    set_learning_rates(state)
     kw = {} if band is None else {'band': band}
     with full_float32():
-      target = batch['image_output']
-      if guide_reg > 0.0:
-        out, inter = model.forward_with_intermediates(
-            batch['lowres_input'], batch['image_input'], **kw)
-        guides = top_level_guides(model, inter)
-        hinges = [guide_range_hinge(g, guide_reg_target, mesh)
-                  for g in guides]
-        loss = (metrics.l2_loss(target, out, mesh)
-                + guide_reg * sum(hinges) / len(hinges))
-      else:
-        out = model(batch['lowres_input'], batch['image_input'], **kw)
-        loss = metrics.l2_loss(target, out, mesh)
-      opt.zero_grad(set_to_none=True)
-      loss.backward()
+      with span('hdrnet.train.forward'):
+        batch = normalize_batch(batch)
+        model.train()
+        set_learning_rates(state)
+        target = batch['image_output']
+        if guide_reg > 0.0:
+          out, inter = model.forward_with_intermediates(
+              batch['lowres_input'], batch['image_input'], **kw)
+          guides = top_level_guides(model, inter)
+          hinges = [guide_range_hinge(g, guide_reg_target, mesh)
+                    for g in guides]
+          loss = (metrics.l2_loss(target, out, mesh)
+                  + guide_reg * sum(hinges) / len(hinges))
+        else:
+          out = model(batch['lowres_input'], batch['image_input'], **kw)
+          loss = metrics.l2_loss(target, out, mesh)
+      with span('hdrnet.train.backward'):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if mesh is not None:
+          all_reduce_grads(model.parameters(), mesh.group)
+      with span('hdrnet.train.optimizer'):
+        opt.step()
+    with span('hdrnet.train.metrics'):
+      loss = loss.detach()
       if mesh is not None:
-        all_reduce_grads(model.parameters(), mesh.group)
-      opt.step()
-    loss = loss.detach()
-    if mesh is not None:
-      loss = all_reduce_sum_(loss.clone(), mesh.group)
-    p = metrics.psnr(target, out.detach(), mesh)
-    if state.step == 0:
-      state.ema_loss, state.ema_psnr = loss, p
-    else:
-      d = ema_decay
-      state.ema_loss = d * state.ema_loss + (1 - d) * loss
-      state.ema_psnr = d * state.ema_psnr + (1 - d) * p
+        loss = all_reduce_sum_(loss.clone(), mesh.group)
+      p = metrics.psnr(target, out.detach(), mesh)
+      if state.step == 0:
+        state.ema_loss, state.ema_psnr = loss, p
+      else:
+        d = ema_decay
+        state.ema_loss = d * state.ema_loss + (1 - d) * loss
+        state.ema_psnr = d * state.ema_psnr + (1 - d) * p
     state.step += 1
     return state, {'loss': loss, 'psnr': p, 'ema_loss': state.ema_loss,
                    'ema_psnr': state.ema_psnr}

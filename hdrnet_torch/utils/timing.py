@@ -1,9 +1,32 @@
-"""Device time of a call on a CUDA card, with no host gaps between its
-launches."""
+"""Timing of the port: device time of a call on a CUDA card, with no host
+gaps between its launches (``graph_ms``), and the named ranges the port
+opens at its layer boundaries (``span``), which a profiler lays on one
+clock with the device's activities."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.profiler import record_function
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name):
+  """``record_function(name)`` while a profiler is recording, else one
+  shared context that does nothing.
+
+  The gate keeps a span's cost with no profiler running to a flag check
+  (an ungated ``record_function`` enters a profiler op on every call),
+  and keeps profiler ops out of compiled and exported graphs. The ranges
+  land in the profiler's own trace, beside the CUDA activities and on
+  their clock: ``torch.profiler.profile`` around a call, or
+  ``bin/train.py --profile_dir``, shows them with no other switch.
+  """
+  if not torch.autograd._profiler_enabled() or torch.compiler.is_compiling():
+    return _NULL
+  return record_function(name)
 
 
 def graph_ms(call, iters=20, replays=5):

@@ -444,10 +444,16 @@ cudaError_t launch(const float* grid, const void* frame, const float* params,
   const int win_bytes = staged ? static_cast<int>(want) : 0;
   auto kernel = staged ? enhance_fused_kernel<Guide, TIn, TOut, true>
                        : enhance_fused_kernel<Guide, TIn, TOut, false>;
-  if (win_bytes > 48 * 1024) {  // above the default dynamic limit
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, win_bytes);
-    if (err != cudaSuccess) return err;
+  // A block takes 48 KB of shared memory by default, static and dynamic
+  // together; the static arrays (staged parameters, the uint8 table) hold
+  // at most 2.3 KB. Above that the window needs the attribute, set once to
+  // the largest window: it never drops below a launch that a CUDA graph
+  // has captured.
+  if (win_bytes > 44 * 1024) {
+    static const cudaError_t allowed = cudaFuncSetAttribute(
+        enhance_fused_kernel<Guide, TIn, TOut, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, hdrnet::kMaxWindowBytes);
+    if (allowed != cudaSuccess) return allowed;
   }
   // Vectors need rows of whole 4-pixel groups and aligned pointers.
   const std::uintptr_t align = sizeof(TIn) == 1 ? 4 : 16;

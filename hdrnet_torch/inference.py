@@ -41,8 +41,10 @@ from hdrnet_torch.models import make_model
 from hdrnet_torch.models.hdrnet import (HDRNetCurves, HDRNetGaussianPyrNN,
                                         HDRNetPointwiseNNGuide,
                                         gaussian_pyramid, upsample_add)
+from hdrnet_torch.ops import downsample, fused as fused_ops
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
+from hdrnet_torch.ops.resize import holding_tables
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 from hdrnet_torch.utils.timing import span
 
@@ -55,6 +57,21 @@ log = logging.getLogger('hdrnet_torch.inference')
 # another guide (HDRNet3x3NNGuide is an HDRNetCurves) takes the composite
 # route.
 FUSED_MODELS = (HDRNetCurves, HDRNetPointwiseNNGuide, HDRNetGaussianPyrNN)
+
+# Frame shapes whose stream forward an Enhancer holds as a CUDA graph (the
+# least recently used dropped), and shapes seen once that it remembers.
+_GRAPH_SHAPES = 4
+_SEEN_SHAPES = 64
+
+# CUDA graphs captured and replayed by Enhancer.stream in this process.
+graph_captures = 0
+graph_replays = 0
+
+# The launch counters of the kernels a stream forward runs (K2, K1, K6). A
+# capture launches nothing and a replay launches what it captured, so they
+# go on counting kernels on the card.
+_LAUNCH_COUNTERS = ((downsample, 'launches'), (fused_ops, 'launches'),
+                    (fused_ops, 'nn_launches'))
 
 
 @contextlib.contextmanager
@@ -119,6 +136,10 @@ class Enhancer:
                   '%s is served by the composite route in float32',
                   type(model).__name__)
     self.coeff_bf16 = bool(coeff_bf16) and self.fused
+    # stream()'s graphs by frame shape (None: the shape runs eagerly), and
+    # the shapes seen once.
+    self._graphs = collections.OrderedDict()
+    self._seen = collections.OrderedDict()
     if not self.fused:
       return
     self.pyramid = type(model) is HDRNetGaussianPyrNN
@@ -327,14 +348,26 @@ class Enhancer:
     On a CUDA device, the upload of frame k+1 and the readback of frame
     k-depth are queued behind the kernels of frame k (pinned host
     buffers, non-blocking copies); the generator waits only on the
-    oldest frame in flight.
+    oldest frame in flight. Each result is a fresh array of the caller's.
+
+    On the fused route on a CUDA device, the forward (``make_stream_fn``'s
+    function) of a frame shape seen before is replayed as one CUDA graph,
+    captured at the shape's second frame and kept by the Enhancer for
+    later streams (a few shapes); the first frame of a shape runs
+    eagerly, as does a shape whose capture failed. The frame is uploaded
+    into the graph's input and the result read back from its output, all
+    on the current stream, so a frame's upload waits for the replay
+    before it and a replay for the readback before it.
 
     With a profiler recording, a frame's phases are the spans
     ``hdrnet.stream.pin`` (the pageable-to-pinned copy), ``.upload``,
-    ``hdrnet.serve.forward``, ``hdrnet.stream.readback`` and, where the
-    oldest frame is waited for, ``hdrnet.stream.wait``.
+    ``hdrnet.serve.forward`` (around ``hdrnet.serve.replay`` where the
+    graph runs), ``hdrnet.stream.readback`` and, where the oldest frame
+    is waited for, ``hdrnet.stream.wait``; a capture is
+    ``hdrnet.serve.capture``.
     """
     cuda = self.device.type == 'cuda'
+    graphed = cuda and self.fused
     fns = {}
     pending = collections.deque()
     for f in frames:
@@ -348,9 +381,16 @@ class Enhancer:
       else:
         with span('hdrnet.stream.pin'):
           x = torch.from_numpy(np.ascontiguousarray(f)).pin_memory()
-        with span('hdrnet.stream.upload'):
-          x = x.to(self.device, non_blocking=True)
-        out = fns[f.shape](x)
+        graph = self._stream_graph(f.shape, fns[f.shape]) if graphed else None
+        if graph is None:
+          with span('hdrnet.stream.upload'):
+            x = x.to(self.device, non_blocking=True)
+          out = fns[f.shape](x)
+        else:
+          with span('hdrnet.stream.upload'):
+            graph.frame.copy_(x, non_blocking=True)
+          with span('hdrnet.serve.forward'), span('hdrnet.serve.replay'):
+            out = graph.replay()
         with span('hdrnet.stream.readback'):
           host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
           host.copy_(out, non_blocking=True)
@@ -361,6 +401,74 @@ class Enhancer:
         yield _finish(*pending.popleft())
     while pending:
       yield _finish(*pending.popleft())
+
+  def _stream_graph(self, shape, fn):
+    """The captured forward `fn` of frames of `shape`, or None where the
+    frame runs eagerly: the shape's first frame, whose eager run builds
+    the tables and handles that a capture must find made, and a shape
+    whose capture failed."""
+    if shape in self._graphs:
+      self._graphs.move_to_end(shape)
+      return self._graphs[shape]
+    if shape not in self._seen:
+      self._seen[shape] = None
+      if len(self._seen) > _SEEN_SHAPES:
+        self._seen.popitem(last=False)
+      return None
+    del self._seen[shape]
+    try:
+      graph = _StreamGraph(fn, shape, self.device)
+    except RuntimeError:
+      log.warning('Enhancer.stream: capturing the forward of %s frames '
+                  'as a CUDA graph failed; they run eagerly', shape,
+                  exc_info=True)
+      graph = None
+    self._graphs[shape] = graph
+    # The capture waited for the device, so no replay of a dropped graph
+    # is in flight.
+    if len(self._graphs) > _GRAPH_SHAPES:
+      self._graphs.popitem(last=False)
+    return graph
+
+
+class _StreamGraph:
+  """`fn` on a uint8 frame of `shape`, captured as a CUDA graph: the
+  frame goes into ``frame``, and ``replay()`` runs the captured launches
+  and returns the output, which the next replay overwrites. ``tables``
+  keeps the cached device tables that the launches read."""
+
+  def __init__(self, fn, shape, device):
+    global graph_captures
+    self.frame = torch.empty(shape, dtype=torch.uint8, device=device)
+    self.graph = torch.cuda.CUDAGraph()
+    counts = [getattr(m, name) for m, name in _LAUNCH_COUNTERS]
+    # cuBLAS holds a 32 MiB workspace a stream. Dropped before the capture
+    # and after it, as torch's own graph trees do: the capture's then lies
+    # in the graph's pool, allocated to nothing, and the eager stream's is
+    # not held while the graphs run.
+    torch._C._cuda_clearCublasWorkspaces()
+    try:
+      # Relaxed: a launcher may set a kernel attribute on its first call
+      # at a shape, which global capture mode refuses as unsafe.
+      with (span('hdrnet.serve.capture'), torch.no_grad(),
+            holding_tables() as self.tables,
+            torch.cuda.graph(self.graph, capture_error_mode='relaxed')):
+        self.out = fn(self.frame)
+    finally:
+      torch._C._cuda_clearCublasWorkspaces()
+      self.launches = [getattr(m, name) - n
+                       for (m, name), n in zip(_LAUNCH_COUNTERS, counts)]
+      for (m, name), n in zip(_LAUNCH_COUNTERS, counts):
+        setattr(m, name, n)
+    graph_captures += 1
+
+  def replay(self):
+    global graph_replays
+    self.graph.replay()
+    for (m, name), n in zip(_LAUNCH_COUNTERS, self.launches):
+      setattr(m, name, getattr(m, name) + n)
+    graph_replays += 1
+    return self.out
 
 
 def _banded(packed, frame, params, mode, devices, clip):

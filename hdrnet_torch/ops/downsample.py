@@ -26,13 +26,13 @@ exp_downsample_v2`` runs it; serving runs K2.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from hdrnet_torch.ops import _build
-from hdrnet_torch.ops.resize import _nearest_indices, nearest_index_tensor
+from hdrnet_torch.ops.resize import (_nearest_indices, device_table_cache,
+                                     nearest_index_tensor)
 from hdrnet_torch.utils.timing import span
 
 # Kernel launches by nearest_lowres (never by the plain version).
@@ -47,8 +47,23 @@ def to_unit(x):
   device tensor divisor: a Python scalar divisor may become a multiply by
   the reciprocal)."""
   if x.dtype == torch.uint8:
-    return x.to(torch.float32) / torch.tensor(255.0, device=x.device)
+    return x.to(torch.float32) / _unit_divisor(x.device)
   return x
+
+
+def _unit_divisor(device):
+  """255 as a float32 tensor on `device`, made once a device: making one
+  copies it from the host and waits, which a CUDA graph's capture
+  refuses. While ``torch.export`` traces, a new tensor (the graph's own
+  constant)."""
+  if torch.compiler.is_compiling():
+    return torch.tensor(255.0, device=device)
+  return _cached_unit_divisor(device)
+
+
+@device_table_cache(maxsize=8)
+def _cached_unit_divisor(device):
+  return torch.tensor(255.0, device=device)
 
 
 def _check(frame, s):
@@ -95,7 +110,7 @@ def _(frame, s):
                          dtype=torch.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@device_table_cache(maxsize=64)
 def _k2_tables(h, w, s, device):
   """The row and column floor tables on `device` and their addresses, one
   cached lookup a call."""

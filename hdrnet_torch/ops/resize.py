@@ -19,10 +19,45 @@ whole resize is the rows [0, h) of the whole input. Mesh training's
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
+
+# The device tables handed out inside ``holding_tables``, or None.
+_held = None
+
+
+@contextlib.contextmanager
+def holding_tables():
+  """Inside the block, each table that a ``device_table_cache`` hands out
+  is also appended to the list this yields. A CUDA graph's capture keeps
+  the tables its launches read: a replay reads them long after the cache
+  may have dropped them."""
+  global _held
+  saved, _held = _held, []
+  try:
+    yield _held
+  finally:
+    _held = saved
+
+
+def device_table_cache(maxsize):
+  """``functools.lru_cache(maxsize)`` for a function that builds tables on
+  a device; each lookup's result is also held by ``holding_tables``."""
+  def wrap(build):
+    cached = functools.lru_cache(maxsize=maxsize)(build)
+
+    @functools.wraps(build)
+    def lookup(*args, **kwargs):
+      tables = cached(*args, **kwargs)
+      if _held is not None:
+        _held.append(tables)
+      return tables
+    lookup.cache_clear = cached.cache_clear
+    return lookup
+  return wrap
 
 
 def _nearest_indices(n_in, n_out):
@@ -44,7 +79,7 @@ def _nearest_rows(n_in, n_out, a, lo, hi):
   return (_nearest_indices(n_in, n_out)[lo:hi] - a).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=64)
+@device_table_cache(maxsize=64)
 def nearest_index_tensor(n_in, n_out, device, a=0, lo=0, hi=None):
   """The floor table (of outputs lo .. hi - 1, as rows from input row a:
   ``_nearest_rows``) as an int32 tensor on `device`; cached, so a serving
@@ -113,7 +148,7 @@ def _sources_of(idx, n_in):
   return table
 
 
-@functools.lru_cache(maxsize=256)
+@device_table_cache(maxsize=256)
 def linear_tap_tensors(n_in, n_out, align_corners, device, a=0, b=None,
                        lo=0, hi=None):
   """(i0, i1, frac, src0, src1) of one axis on `device`, for outputs lo ..

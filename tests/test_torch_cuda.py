@@ -195,6 +195,24 @@ def test_fused_nn_kernel_identity_grid(cuda):
   torch.testing.assert_close(got, frame, rtol=0, atol=2e-4)
 
 
+@pytest.mark.parametrize('mode', ['curves', 'nn'])
+@pytest.mark.parametrize('u8', [False, True])
+def test_fused_kernel_window_at_the_default_limit(cuda, mode, u8):
+  """At 50x80 on a 16x16x8 grid a tile's window is 48 KB, which with the
+  kernel's static shared memory passes a block's default 48 KB (the
+  pyramid's coarsest level of a 200x320 frame): the launcher allows more
+  first. It failed with an invalid value unless a larger window had been
+  launched before in the process."""
+  if mode == 'nn':
+    grid, frame, params = _nn_inputs(8, 1, 50, 80, 16, cuda, u8)
+  else:
+    grid, frame, params = _inputs(8, 1, 50, 80, cuda, u8)
+  got = fused.enhance_fused(grid, frame, params, mode, clip_output=True)
+  want = fused.enhance_fused_plain(grid, frame, params, mode,
+                                   clip_output=True)
+  torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
 def test_fused_nn_kernel_checks_its_arguments(cuda):
   grid, frame, params = _nn_inputs(7, 1, 32, 48, 16, cuda, u8=False)
   too_wide = torch.zeros(5 * (fused.MAX_GUIDE_COMPLEXITY + 1) + 1,
@@ -1231,3 +1249,176 @@ def test_native_runner_serves_any_size(cuda, name, mode, tmp_path):
     assert report['hdrnet_op_calls'] == {k: 3 * per_run.get(k, 0)
                                          for k in NATIVE_OPS}
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# --- Enhancer.stream's CUDA graphs ---------------------------------------------
+
+def _u8_frames(n, shape, seed=0):
+  """n seeded uint8 numpy frames of `shape`, each tagged by its index in
+  a corner, so that a frame out of order shows."""
+  rng = np.random.RandomState(seed)
+  frames = [rng.randint(0, 256, shape).astype(np.uint8) for _ in range(n)]
+  for i, f in enumerate(frames):
+    f[0, :16, :16] = 20 * i
+  return frames
+
+
+def _eager(enh, frame):
+  """``make_stream_fn``'s function run eagerly on the frame."""
+  x = torch.from_numpy(frame).to(enh.device)
+  return enh.make_stream_fn(frame.shape)(x).cpu().numpy()
+
+
+def _graph_counts():
+  import hdrnet_torch.inference as inference
+  return inference.graph_captures, inference.graph_replays
+
+
+@pytest.mark.parametrize('hw', [(2160, 3840), (723, 1085)])
+@pytest.mark.parametrize('name,bf16', [('HDRNetCurves', False),
+                                       ('HDRNetPointwiseNNGuide', False),
+                                       ('HDRNetGaussianPyrNN', False),
+                                       ('HDRNetCurves', True)])
+def test_stream_graph_matches_eager_bit_for_bit(cuda, name, bf16, hw):
+  """The fused route's stream: the first frame eager, the second captured
+  and every later one replayed, each bit for bit ``make_stream_fn`` run
+  eagerly, in order, with one K2 and one K1 (three K6 for the pyramid)
+  counted a frame."""
+  enh = Enhancer(ModelConfig(model_name=name), device=cuda, seed=2,
+                 coeff_bf16=bf16)
+  frames = _u8_frames(5, (1, *hw, 3))
+  captures, replays = _graph_counts()
+  k2, k1, k6 = downsample.launches, fused.launches, fused.nn_launches
+  outs = list(enh.stream(iter(frames)))
+  assert _graph_counts() == (captures + 1, replays + 4)
+  per_frame = ((0, 3) if name == 'HDRNetGaussianPyrNN'
+               else (0, 1) if name == 'HDRNetPointwiseNNGuide' else (1, 0))
+  assert (downsample.launches - k2, fused.launches - k1,
+          fused.nn_launches - k6) == (5, 5 * per_frame[0], 5 * per_frame[1])
+  assert len(outs) == len(frames)
+  for f, out in zip(frames, outs):
+    assert out.dtype == np.uint8 and out.shape == f.shape
+    assert np.array_equal(out, _eager(enh, f))
+
+
+def test_stream_graph_captured_once_for_later_streams(cuda):
+  enh = Enhancer(ModelConfig(), device=cuda, seed=1)
+  frames = _u8_frames(4, (1, 270, 480, 3))
+  captures, replays = _graph_counts()
+  first = list(enh.stream(iter(frames)))
+  second = list(enh.stream(iter(frames)))
+  assert _graph_counts() == (captures + 1, replays + 3 + 4)
+  for f, a, b in zip(frames, first, second):
+    want = _eager(enh, f)
+    assert np.array_equal(a, want) and np.array_equal(b, want)
+
+
+def test_stream_graph_shape_changes_mid_stream(cuda):
+  """Two shapes in turns and a third seen once: each shape's second frame
+  captures, the third never does, and every result is the eager one, in
+  order."""
+  enh = Enhancer(ModelConfig(model_name='HDRNetGaussianPyrNN'), device=cuda,
+                 seed=3)
+  a = _u8_frames(3, (1, 200, 320, 3), seed=1)
+  b = _u8_frames(3, (1, 123, 457, 3), seed=2)
+  c = _u8_frames(1, (1, 96, 96, 3), seed=3)
+  frames = [a[0], b[0], a[1], c[0], b[1], a[2], b[2]]
+  captures, replays = _graph_counts()
+  outs = list(enh.stream(iter(frames), depth=2))
+  assert _graph_counts() == (captures + 2, replays + 4)
+  assert set(enh._graphs) == {a[0].shape, b[0].shape}
+  for f, out in zip(frames, outs):
+    assert np.array_equal(out, _eager(enh, f))
+
+
+def test_stream_graph_yields_arrays_it_never_reuses(cuda):
+  """Every yielded array is the caller's: unchanged after the stream has
+  gone on replaying into the same graph."""
+  enh = Enhancer(ModelConfig(), device=cuda, seed=5)
+  frames = _u8_frames(8, (1, 300, 533, 3))
+  kept, copies = [], []
+  for out in enh.stream(iter(frames), depth=2):
+    kept.append(out)
+    copies.append(out.copy())
+  for f, out, copy in zip(frames, kept, copies):
+    assert np.array_equal(out, copy)
+    assert np.array_equal(out, _eager(enh, f))
+
+
+def test_stream_graph_outlives_the_table_caches(cuda):
+  """A replay reads the preview's and the levels' tables after their
+  caches were cleared and the freed memory written over: the graph
+  holds the tables it read."""
+  from hdrnet_torch.ops import resize
+  enh = Enhancer(ModelConfig(model_name='HDRNetGaussianPyrNN'), device=cuda,
+                 seed=6)
+  frames = _u8_frames(4, (1, 240, 424, 3))
+  stream = enh.stream(iter(frames), depth=0)
+  outs = [next(stream), next(stream)]  # eager, then captured
+  assert enh._graphs[frames[0].shape].tables
+  for cached in (resize.nearest_index_tensor, resize.linear_tap_tensors,
+                 downsample._k2_tables, downsample._cached_unit_divisor):
+    cached.cache_clear()
+  # Small blocks of the sizes the tables took, which a freed table's
+  # memory would serve.
+  junk = [torch.full((n,), -1, dtype=torch.int64, device=cuda)
+          for n in (64, 256, 1024, 4096) for _ in range(64)]
+  outs += list(stream)
+  del junk
+  for f, out in zip(frames, outs):
+    assert np.array_equal(out, _eager(enh, f))
+
+
+def test_stream_graph_holds_its_buffers_and_no_workspace(cuda):
+  """Once captured, the stream holds the graph's input and output and no
+  cuBLAS workspace: the capture's lies in the graph's pool, and the eager
+  stream's was dropped (32 MiB each on the card)."""
+  enh = Enhancer(ModelConfig(), device=cuda, seed=9)
+  frames = _u8_frames(3, (1, 1080, 1920, 3))
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated(cuda)
+  list(enh.stream(iter(frames)))
+  torch.cuda.synchronize()
+  assert enh._graphs
+  held = torch.cuda.memory_allocated(cuda) - base
+  assert held <= 2 * frames[0].nbytes + (4 << 20)
+
+
+def test_stream_composite_route_never_captures(cuda):
+  enh = Enhancer(ModelConfig(model_name='HDRNet3x3NNGuide'), device=cuda,
+                 seed=7)
+  assert not enh.fused
+  frames = _u8_frames(3, (1, 270, 480, 3))
+  counts = _graph_counts()
+  outs = list(enh.stream(iter(frames)))
+  assert _graph_counts() == counts and not enh._graphs
+  for f, out in zip(frames, outs):
+    assert np.array_equal(out, _eager(enh, f))
+
+
+def test_stream_graph_failed_capture_runs_eagerly(cuda, monkeypatch, caplog):
+  """A forward that reads a value back to the host cannot be captured:
+  one warning, and the shape is served eagerly, correct and in order."""
+  import logging
+  make = Enhancer.make_stream_fn
+
+  def reading(self, shape):
+    fn = make(self, shape)
+
+    def run(x):
+      out = fn(x)
+      if int(out[0, 0, 0, 0]) < 0:  # never: a uint8; the read is the point
+        raise AssertionError
+      return out
+    return run
+  monkeypatch.setattr(Enhancer, 'make_stream_fn', reading)
+  enh = Enhancer(ModelConfig(), device=cuda, seed=8)
+  frames = _u8_frames(4, (1, 270, 480, 3))
+  counts = _graph_counts()
+  with caplog.at_level(logging.WARNING, logger='hdrnet_torch.inference'):
+    outs = list(enh.stream(iter(frames)))
+  assert _graph_counts() == counts
+  assert len([r for r in caplog.records
+              if 'CUDA graph' in r.getMessage()]) == 1
+  for f, out in zip(frames, outs):
+    assert np.array_equal(out, _eager(enh, f))

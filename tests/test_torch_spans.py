@@ -4,7 +4,7 @@ they nest, that no profiler op runs or is exported without a profiler,
 and ``train()``'s ``profile_dir`` trace.
 
 The CPU cases run the plain versions of the kernels; the one case marked
-``gpu`` checks the stream's copy and wait spans on the card (run with
+``gpu`` checks the stream's copy, wait and replay spans on the card (run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_spans.py``).
 This file imports no JAX.
 """
@@ -267,15 +267,22 @@ def test_stream_spans_on_the_card():
                 'pytest --noconftest -m gpu tests/test_torch_spans.py`')
   enh = Enhancer(_cfg('HDRNetCurves'), device='cuda')
   frames = _frames(4, 64, 96)
-  list(enh.stream(iter(frames)))  # builds the kernels
+  list(enh.stream(iter(frames)))  # builds the kernels, captures the graph
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     outs = list(enh.stream(iter(frames)))
   torch.cuda.synchronize()
   spans = _spans(prof)
+  # Every frame replays the graph, which opens no span inside it; the
+  # device rows still name its kernels, K1 once a frame.
   for name in ('hdrnet.stream.pin', 'hdrnet.stream.upload',
                'hdrnet.stream.readback', 'hdrnet.stream.wait',
-               'hdrnet.serve.forward', 'hdrnet.ops.fused'):
+               'hdrnet.serve.forward', 'hdrnet.serve.replay'):
     assert len(spans[name]) == len(frames), name
-  assert _inside(spans, 'hdrnet.ops.fused', 'hdrnet.serve.forward')
+  assert _inside(spans, 'hdrnet.serve.replay', 'hdrnet.serve.forward')
+  assert 'hdrnet.ops.fused' not in spans
+  k1 = [e for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and 'enhance_fused_kernel' in e.name()]
+  assert len(k1) == len(frames)
   assert len(outs) == len(frames) and outs[0].dtype == np.uint8

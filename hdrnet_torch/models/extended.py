@@ -45,6 +45,7 @@ from hdrnet_torch.models.layers import ConvBlock
 from hdrnet_torch.ops.resize import _nearest_indices, resize_nearest
 from hdrnet_torch.ops.slice_ops import bilateral_slice_apply
 from hdrnet_torch.parallel import halo
+from hdrnet_torch.utils.timing import span
 
 
 class HDRNet3x3NNGuide(HDRNetCurves):
@@ -125,10 +126,11 @@ class FeatureExtractor(nn.Module):
                                               generator=generator))
 
   def forward(self, x, band=None):
-    x = x.permute(0, 3, 1, 2)
-    for conv in self.children():
-      x = conv(x, band)
-    return x.permute(0, 2, 3, 1)
+    with span('hdrnet.model.features'):
+      x = x.permute(0, 3, 1, 2)
+      for conv in self.children():
+        x = conv(x, band)
+      return x.permute(0, 2, 3, 1)
 
 
 class HDRNetFullresFeatures(nn.Module):

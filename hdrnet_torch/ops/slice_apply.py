@@ -48,6 +48,7 @@ _MAX_SMEM = 227 * 1024
 # Kernel launches by the wrappers (never by the plain versions).
 fwd_launches = 0       # K3
 pix_bwd_launches = 0   # K4
+pix_bwd_image_launches = 0  # K4 launches that also give the image's cotangent
 grid_bwd_launches = 0  # K5
 
 
@@ -227,7 +228,7 @@ def slice_apply_pix_bwd(grid5, guide, image, ct, has_offset=True,
   ``need_input``). CUDA tensors: kernel K4. CPU tensors: the plain
   version.
   """
-  global pix_bwd_launches
+  global pix_bwd_launches, pix_bwd_image_launches
   n_in, n_out = _check(tuple(grid5.shape), guide, image, ct, has_offset)
   y_off, h_total = _band(band, guide.shape[1])
   if not _on_card('slice_apply_pix_bwd', grid5, guide, image, ct):
@@ -246,6 +247,8 @@ def slice_apply_pix_bwd(grid5, guide, image, ct, has_offset=True,
         gh / h_total, gw / w, _stream(dev))
   _build.check(err, 'hdrnet_slice_apply_pix_bwd')
   pix_bwd_launches += 1
+  if need_input:
+    pix_bwd_image_launches += 1
   return d_guide, d_image
 
 

@@ -3,8 +3,9 @@
 they nest, that no profiler op runs or is exported without a profiler,
 and ``train()``'s ``profile_dir`` trace.
 
-The CPU cases run the plain versions of the kernels; the one case marked
-``gpu`` checks the stream's copy, wait and replay spans on the card (run with
+The CPU cases run the plain versions of the kernels; the cases marked
+``gpu`` check the stream's copy, wait and replay spans and K4's launch
+counters on the card (run with
 ``python -m pytest --noconftest -m gpu tests/test_torch_spans.py``).
 This file imports no JAX.
 """
@@ -25,6 +26,7 @@ from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from hdrnet_torch.data.device import DeviceDataset, make_device_augment
 from hdrnet_torch.inference import Enhancer
 from hdrnet_torch.models import make_model
+from hdrnet_torch.ops import slice_apply
 from hdrnet_torch.training import loop
 from hdrnet_torch.training.step import create_state, make_train_step
 from hdrnet_torch.utils import timing
@@ -117,9 +119,9 @@ def test_composite_route_records_its_spans():
     assert _inside(spans, child, 'hdrnet.serve.forward'), child
 
 
-def _train_setup(name='HDRNetGaussianPyrNN', crop=48):
+def _train_setup(name='HDRNetGaussianPyrNN', crop=48, device='cpu'):
   torch.manual_seed(0)
-  net = make_model(_cfg(name))
+  net = make_model(_cfg(name)).to(device)
   tc = TrainConfig(learning_rate=1e-3)
   state = create_state(net, loop.make_optimizer(net, tc))
   cfg = DataConfig(batch_size=1, output_resolution=[crop, crop],
@@ -127,7 +129,8 @@ def _train_setup(name='HDRNetGaussianPyrNN', crop=48):
   gen = torch.Generator().manual_seed(1)
   pairs = tuple(torch.randint(0, 256, (2, 56, 56, 3), generator=gen,
                               dtype=torch.uint8) for _ in range(2))
-  dds = DeviceDataset(None, cfg, 'cpu', arrays=pairs)
+  dds = DeviceDataset(None, cfg, device, arrays=tuple(
+      p.to(device) for p in pairs))
   augment = make_device_augment(cfg.output_resolution, cfg.net_input_size,
                                 cfg.rotate)
   draws = dds.param_stream(7, cfg.batch_size)
@@ -153,6 +156,39 @@ def test_train_step_records_its_phases():
   for child in ('hdrnet.model.backbone', 'hdrnet.model.levels',
                 'hdrnet.model.guide', 'hdrnet.ops.slice_apply'):
     assert _inside(spans, child, 'hdrnet.train.forward'), child
+
+
+def test_feature_towers_record_their_span():
+  """One ``hdrnet.model.features`` a level's tower, inside the step's
+  forward."""
+  state, feed = _train_setup('HDRNetFeaturesPyrNN3')
+  spans = _profile(lambda: make_train_step()(state, feed()))
+  counts = _counts(spans)
+  assert counts['hdrnet.model.features'] == 3
+  assert counts['hdrnet.ops.slice_apply'] == 3
+  assert _inside(spans, 'hdrnet.model.features', 'hdrnet.train.forward')
+
+
+@pytest.mark.parametrize('name,image', [('HDRNetFeaturesPyrNN3', 3),
+                                        ('HDRNetGaussianPyrNN', 0)])
+def test_k4_gives_the_image_cotangent_only_to_learned_features(
+    name, image, monkeypatch):
+  """K4 is asked for the image's cotangent once a level where the image
+  is learned (the towers' features), never where it is the frame; on the
+  CPU the plain versions run and no launch is counted."""
+  whole = slice_apply.slice_apply_pix_bwd
+  asked = []
+
+  def spy(*args, **kwargs):
+    asked.append(kwargs['need_input'])
+    return whole(*args, **kwargs)
+  monkeypatch.setattr(slice_apply, 'slice_apply_pix_bwd', spy)
+  state, feed = _train_setup(name)
+  before = (slice_apply.pix_bwd_launches, slice_apply.pix_bwd_image_launches)
+  make_train_step()(state, feed())
+  assert len(asked) == 3 and sum(asked) == image
+  assert (slice_apply.pix_bwd_launches,
+          slice_apply.pix_bwd_image_launches) == before
 
 
 def test_no_profiler_enters_no_range(monkeypatch):
@@ -286,3 +322,23 @@ def test_stream_spans_on_the_card():
         and 'enhance_fused_kernel' in e.name()]
   assert len(k1) == len(frames)
   assert len(outs) == len(frames) and outs[0].dtype == np.uint8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,image', [('HDRNetFeaturesPyrNN3', 3),
+                                        ('HDRNetGaussianPyrNN', 0)])
+def test_k4_image_launches_on_the_card(name, image):
+  """``pix_bwd_image_launches``: 3 a step where the towers learn, 0 in the
+  pyramid of the frame; ``pix_bwd_launches`` 3 a step in both."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device: run on the card with `python -m '
+                'pytest --noconftest -m gpu tests/test_torch_spans.py`')
+  state, feed = _train_setup(name, device='cuda')
+  step = make_train_step()
+  state, _ = step(state, feed())  # builds the kernels
+  before = (slice_apply.pix_bwd_launches, slice_apply.pix_bwd_image_launches)
+  for _ in range(2):
+    state, _ = step(state, feed())
+  torch.cuda.synchronize()
+  assert (slice_apply.pix_bwd_launches - before[0],
+          slice_apply.pix_bwd_image_launches - before[1]) == (6, 2 * image)

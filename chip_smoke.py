@@ -8,8 +8,11 @@ on the card. Serving: it drives ``Enhancer.process`` and
 ``Enhancer.stream`` of the default ``HDRNetCurves`` (256^2 preview,
 l8/s16, seeded weights) on 4K frames (kernels K2, K1), then those of
 ``HDRNetPointwiseNNGuide`` (K2, K6) and ``HDRNetGaussianPyrNN`` (K2, one
-K6 a pyramid level) at the same widths with gc 16 and perturbed guide
-batch-norm statistics. Training: it holds the CUDA path's gradients of
+K6 a pyramid level, the level kernels ``pyramid_down`` and
+``pyramid_up_add``) at the same widths with gc 16 and perturbed guide
+batch-norm statistics, each against its plain chain (the stream's run
+eagerly); the level kernels alone bit for bit against their plain
+versions at 4K, timed in CUDA graphs in turns with them. Training: it holds the CUDA path's gradients of
 one 2048^2 step of ``HDRNetCurves`` and of ``HDRNetGaussianPyrNN`` to the
 plain versions', then trains ``HDRNetCurves`` at the width of
 ``scripts/ll/train_std.sh`` (l8/s16/cm1, 256^2 preview, 2048^2, batch 1,
@@ -912,26 +915,113 @@ def _nn_enhancer(enh_cls, name, dev, seed):
 @contextlib.contextmanager
 def _plain_serving(full_float32):
   """Inside the block the Enhancer's entry points and bin/run.py's
-  per-image function run the plain versions of K2 and K1/K6/K7 (in full
-  float32), for comparison only."""
+  per-image function run the plain versions of K2, K1/K6/K7 (in full
+  float32) and the pyramid's level kernels, for comparison only; the
+  stream runs that plain forward eagerly on every frame (a graph it
+  captured before would replay the kernels)."""
   import hdrnet_torch.inference as inference
   from hdrnet_torch.bin import run
-  from hdrnet_torch.ops import downsample, fused
+  from hdrnet_torch.ops import downsample, fused, levels
 
   def plain(*args, **kw):
     with full_float32():
       return fused.enhance_fused_plain(*args, **kw)
 
   saved = (inference.enhance_fused, inference.nearest_lowres,
-           run.nearest_lowres)
+           inference.pyramid_down, inference.pyramid_up_add,
+           inference.Enhancer._stream_graph, run.nearest_lowres)
   inference.enhance_fused = plain
   inference.nearest_lowres = downsample.nearest_lowres_plain
+  inference.pyramid_down = levels.pyramid_down_plain
+  inference.pyramid_up_add = levels.pyramid_up_add_plain
+  inference.Enhancer._stream_graph = lambda self, shape, fn: None
   run.nearest_lowres = downsample.nearest_lowres_plain
   try:
     yield
   finally:
     (inference.enhance_fused, inference.nearest_lowres,
-     run.nearest_lowres) = saved
+     inference.pyramid_down, inference.pyramid_up_add,
+     inference.Enhancer._stream_graph, run.nearest_lowres) = saved
+
+
+def _level_ops(out, up):
+  """float32 operations of a level kernel's output: three lerps of three
+  an output value, and for ``pyramid_up_add`` the add, the clip and the
+  requantize."""
+  return out.numel() * (9 + (5 if up else 0))
+
+
+def _check_levels(x4k8, tag):
+  """The pyramid's level kernels at 4K b=1 against their plain versions,
+  bit for bit: ``pyramid_down`` on the uint8 frame, on its float32 copy
+  and on the float32 first level; ``pyramid_up_add`` onto the first level
+  and onto the frame, with each clip and u8 choice. Then each kernel's
+  two launches of a stream frame (down from the uint8 frame, then from
+  the first level; up-add onto the first level, then onto the frame with
+  the clip and the requantize) timed in CUDA graphs in turns with their
+  plain versions (plain / kernel / kernel / plain), beside the bound of
+  that work from its tensors' bytes and operations. Returns
+  {kid: (max_abs_err, (ms, plain_ms), bound)}."""
+  from hdrnet_torch.ops import levels
+  from hdrnet_torch.ops.downsample import to_unit
+  from hdrnet_torch.utils.timing import graph_ms
+  gen = torch.Generator(device=x4k8.device).manual_seed(20)
+  level1 = levels.pyramid_down(x4k8)
+  level2 = levels.pyramid_down(level1)
+
+  def spread(like):
+    """A level's K6 output, past [0, 1] so that the clip acts."""
+    return (torch.rand(like.shape, generator=gen, device=like.device) * 1.6
+            - 0.3)
+
+  out0, out1 = spread(x4k8), spread(level1)
+  sum1 = levels.pyramid_up_add(level2, out1)
+  ends = ((False, False), (True, False), (True, True))
+  cases = ([('pyramid_down', (x,)) for x in (x4k8, to_unit(x4k8), level1)]
+           + [('pyramid_up_add', (cur, lvl, clip, u8))
+              for cur, lvl in ((level2, out1), (sum1, out0))
+              for clip, u8 in ends])
+  errs = {'pyramid_down': 0.0, 'pyramid_up_add': 0.0}
+  for kid, args in cases:
+    got = getattr(levels, kid)(*args)
+    want = getattr(levels, f'{kid}_plain')(*args)
+    what = f'{kid} {tuple(args[0].shape)} {args[0].dtype} {args[2:]}'
+    if got.dtype != want.dtype or got.shape != want.shape:
+      raise AssertionError(f'{what}: {got.dtype} {tuple(got.shape)}, plain '
+                           f'{want.dtype} {tuple(want.shape)}')
+    errs[kid] = max(errs[kid], _max_err(got.float(), want.float(), 0.0,
+                                        what))
+
+  def frame_down(down):
+    return lambda: down(down(x4k8))
+
+  def frame_up(up_add):
+    return lambda: up_add(up_add(level2, out1), out0, True, True)
+
+  # Each input read once and each output written once (the last one
+  # uint8, a byte a value).
+  result = {}
+  for kid, timed, n_bytes, ops in (
+      ('pyramid_down', frame_down, _nbytes(x4k8, level1, level1, level2),
+       _level_ops(level1, False) + _level_ops(level2, False)),
+      ('pyramid_up_add', frame_up,
+       _nbytes(level2, out1, sum1, sum1, out0) + out0.numel(),
+       _level_ops(sum1, True) + _level_ops(out0, True))):
+    kernel, plain = timed(getattr(levels, kid)), timed(
+        getattr(levels, f'{kid}_plain'))
+    turns = [graph_ms(f) for f in (plain, kernel, kernel, plain)]
+    bound = _bound(n_bytes, ops)
+    result[kid] = (errs[kid], ((turns[1] + turns[2]) / 2,
+                               (turns[0] + turns[3]) / 2), bound)
+    print(f'timing {tag}: {kid}, a 4K frame\'s two launches (graphs), in '
+          f'turns plain / kernel / kernel / plain '
+          f'{" / ".join(f"{t:.4f}" for t in turns)} ms; bound '
+          f'{bound[0]:.4f} ms ({bound[1]})', flush=True)
+  print(f'pyramid levels: pyramid_down max abs err '
+        f'{errs["pyramid_down"]} vs plain (bit-exact) at 4K u8, 4K f32 and '
+        f'the f32 first level; pyramid_up_add {errs["pyramid_up_add"]} onto '
+        f'the first level and the 4K frame, clip off/on, u8 out', flush=True)
+  return result
 
 
 def _check_k7(cases, x, x8, full_float32):
@@ -2907,7 +2997,7 @@ def main():
   if sys.argv[1:2] == ['--mesh_worker']:
     return _mesh_worker(sys.argv[2])
   from hdrnet_torch.inference import Enhancer, ModelConfig, full_float32
-  from hdrnet_torch.ops import _build, downsample, fused
+  from hdrnet_torch.ops import _build, downsample, fused, levels
   from hdrnet_torch.scripts.time_kernels import k2_library
   from hdrnet_torch.utils.timing import graph_ms
 
@@ -3160,22 +3250,29 @@ def main():
         flush=True)
 
   # 10. HDRNetGaussianPyrNN end to end: K2, the bilinear pyramid
-  # 2160x3840 -> 1080x1920 -> 540x960, one K6 a level, upsample-add, clip.
+  # 2160x3840 -> 1080x1920 -> 540x960 (pyramid_down), one K6 a level, the
+  # coarse-to-fine sum with the clip (pyramid_up_add); then the level
+  # kernels alone against their plain versions.
   pyr_enh = _nn_enhancer(Enhancer, PYR, dev, seed=2)
   pyr_frames_u8 = frames_u8[:4]
   torch.cuda.synchronize()
   downsample.launches = fused.launches = fused.nn_launches = 0
+  levels.down_launches = levels.up_launches = 0
   pyr_outs = [pyr_enh.process(f) for f in frames[:2]]
   torch.cuda.synchronize()
-  after_process = (downsample.launches, fused.launches, fused.nn_launches)
+  after_process = (downsample.launches, fused.launches, fused.nn_launches,
+                   levels.down_launches, levels.up_launches)
   pyr_outs_u8 = list(pyr_enh.stream(pyr_frames_u8))
   pyr_launches = {'K2': downsample.launches, 'K1': fused.launches,
-                  'K6': fused.nn_launches}
-  if after_process != (2, 0, 6) or pyr_launches != {'K2': 6, 'K1': 0,
-                                                    'K6': 18}:
+                  'K6': fused.nn_launches,
+                  'pyramid_down': levels.down_launches,
+                  'pyramid_up_add': levels.up_launches}
+  if after_process != (2, 0, 6, 4, 4) or pyr_launches != {
+      'K2': 6, 'K1': 0, 'K6': 18, 'pyramid_down': 12, 'pyramid_up_add': 12}:
     raise AssertionError(f'{PYR} launches: process {after_process}, after '
-                         f'stream {pyr_launches}; expected one K2 and three '
-                         f'K6 a frame')
+                         f'stream {pyr_launches}; expected one K2, three '
+                         f'K6, two pyramid_down and two pyramid_up_add a '
+                         f'frame')
   with _plain_serving(full_float32):
     want_outs = [pyr_enh.process(f) for f in frames[:2]]
     want_u8 = list(pyr_enh.stream(pyr_frames_u8))
@@ -3193,6 +3290,7 @@ def main():
         f'1080x1920 -> 540x960): process x2 at 4K f32 max abs err '
         f'{pyr_err:.3e} vs the plain chain; stream x4 at 4K u8 in order, '
         f'worst {max(pyr_stream)}; launches {pyr_launches}', flush=True)
+  level_rows = _check_levels(x4k8, tag)
 
   # 11. Timing of K6 and of the two new serving paths.
   for name, args, kw in [
@@ -3311,17 +3409,21 @@ def main():
   photos[-1] = photos[-1].cpu().numpy()  # a host array, as main reads
   torch.cuda.synchronize()
   downsample.launches = fused.launches = fused.nn_launches = 0
-  fused.band_launches = 0
+  fused.band_launches = levels.down_launches = levels.up_launches = 0
   any_outs = {name: [run_cli.enhance_image(e, p)[0] for p in photos]
               for name, e in (('HDRNetCurves', enh), (NN, nn_enh),
                               (PYR, pyr_enh))}
   torch.cuda.synchronize()
   any_launches = {'K2': downsample.launches, 'K1': fused.launches,
-                  'K6': fused.nn_launches, 'K7': fused.band_launches}
-  if any_launches != {'K2': 12, 'K1': 4, 'K6': 16, 'K7': 0}:
+                  'K6': fused.nn_launches, 'K7': fused.band_launches,
+                  'pyramid_down': levels.down_launches,
+                  'pyramid_up_add': levels.up_launches}
+  if any_launches != {'K2': 12, 'K1': 4, 'K6': 16, 'K7': 0,
+                      'pyramid_down': 8, 'pyramid_up_add': 8}:
     raise AssertionError(f'enhance_any launches {any_launches}; expected '
-                         f'one K2 a photo, one K1 or K6 a photo (three '
-                         f'for the pyramid)')
+                         f'one K2 a photo, one K1 or K6 a photo (three, '
+                         f'two pyramid_down and two pyramid_up_add for the '
+                         f'pyramid)')
   any_err, any_ms = 0.0, {}
   for name, e in (('HDRNetCurves', enh), (NN, nn_enh), (PYR, pyr_enh)):
     with _plain_serving(full_float32):
@@ -3478,7 +3580,10 @@ def main():
       'K2g': _bound(4 * 3 * 256 * 256 * (4 + 4) + 2 * 256 * 4, 0),
       # K3, K4 (d_guide only, as timed) and K5 at 2048^2.
       **_slice_bounds(TRAIN_HW[0], tuple(g5.shape)),
+      # The two launches of each level kernel on a 4K stream frame.
+      **{kid: row[2] for kid, row in level_rows.items()},
   }
+  times.update({kid: row[1] for kid, row in level_rows.items()})
   rows = [
       ('K1', 'K1 enhance_fused (curves guide + slice + apply)',
        'hdrnet_torch/csrc/fused_slice_apply.cu',
@@ -3519,6 +3624,18 @@ def main():
       ('K5', 'K5 slice_apply_grid_bwd (grid cotangent, deterministic)',
        'hdrnet_torch/csrc/slice_apply.cu', 'hdrnet_tpu/ops/pallas.py:757',
        slice_launches['K5'], train_errs['K5'], 'K5'),
+      ('pyramid_down', 'pyramid_down (one Gaussian-pyramid level; timed as '
+       'a 4K u8 stream frame\'s two launches, in a CUDA graph)',
+       'hdrnet_torch/csrc/pyramid_levels.cu',
+       'none (XLA fused this work on the TPU)',
+       pyr_launches['pyramid_down'] + any_launches['pyramid_down'],
+       level_rows['pyramid_down'][0], 'pyramid_down'),
+      ('pyramid_up_add', 'pyramid_up_add (one coarse-to-fine step, clip, '
+       'u8 requantize; timed as a 4K stream frame\'s two launches, in a '
+       'CUDA graph)', 'hdrnet_torch/csrc/pyramid_levels.cu',
+       'none (XLA fused this work on the TPU)',
+       pyr_launches['pyramid_up_add'] + any_launches['pyramid_up_add'],
+       level_rows['pyramid_up_add'][0], 'pyramid_up_add'),
   ]
   # One aten::index call with the floor tables computes K2's f32 function
   # (K2g's, and K2x's on the channel-first frame): its graph time is their

@@ -67,4 +67,20 @@ int hdrnet_slice_apply_grid_bwd(const void* guide, const void* image,
                                 int pad_y, int pad_x, int strips,
                                 void* stream);
 
+// pyramid_down (pyramid_levels.cu): one level of the Gaussian pyramid,
+// float32 or uint8 in, float32 out, with the taps of both axes.
+int hdrnet_pyramid_down(const void* src, int u8_in, const void* iy0,
+                        const void* iy1, const void* fy, const void* ix0,
+                        const void* ix1, const void* fx, void* dst, int b,
+                        int h_in, int w_in, int h_out, int w_out,
+                        void* stream);
+
+// pyramid_up_add (pyramid_levels.cu): one coarse-to-fine step, with the
+// clip and the uint8 requantize.
+int hdrnet_pyramid_up_add(const void* coarse, const void* level,
+                          const void* iy0, const void* iy1, const void* fy,
+                          const void* ix0, const void* ix1, const void* fx,
+                          void* dst, int clip, int u8_out, int b, int h_in,
+                          int w_in, int h_out, int w_out, void* stream);
+
 }  // extern "C"

@@ -9,8 +9,10 @@ on it (plain torch convs in full float32, or a bfloat16 copy with
 ``coeff_bf16``), and do the guide, slice, affine apply and clip at full
 resolution in one pass (``ops.fused``): kernel K1 for the curves guide,
 K6 for the NN guide. For the pyramid the frame's bilinear pyramid is
-built in torch, K6 runs once a level on its 3-output block of the grid,
-and the levels are upsampled and added coarse to fine before one clip.
+built by kernel ``pyramid_down`` (``ops.levels``), K6 runs once a level on
+its 3-output block of the grid (the finest straight from the frame,
+uint8 or float32), and kernel ``pyramid_up_add`` sums the levels coarse
+to fine, the last step with the clip (and, streaming, the requantize).
 A giant frame can be cut into H-bands, one a device, each band running
 K1 or K6 with K7's offset arguments (``enhance_sharded``).
 
@@ -42,8 +44,12 @@ from hdrnet_torch.models.hdrnet import (HDRNetCurves, HDRNetGaussianPyrNN,
                                         HDRNetPointwiseNNGuide,
                                         gaussian_pyramid, upsample_add)
 from hdrnet_torch.ops import downsample, fused as fused_ops
+from hdrnet_torch.ops import levels as level_ops
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
+from hdrnet_torch.ops.levels import (gaussian_levels, pyramid_down,
+                                     pyramid_down_plain, pyramid_up_add,
+                                     pyramid_up_add_plain, requantize)
 from hdrnet_torch.ops.resize import holding_tables
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 from hdrnet_torch.utils.timing import span
@@ -67,11 +73,12 @@ _SEEN_SHAPES = 64
 graph_captures = 0
 graph_replays = 0
 
-# The launch counters of the kernels a stream forward runs (K2, K1, K6). A
-# capture launches nothing and a replay launches what it captured, so they
-# go on counting kernels on the card.
+# The launch counters of the kernels a stream forward runs (K2, K1, K6, the
+# pyramid's levels). A capture launches nothing and a replay launches what
+# it captured, so they go on counting kernels on the card.
 _LAUNCH_COUNTERS = ((downsample, 'launches'), (fused_ops, 'launches'),
-                    (fused_ops, 'nn_launches'))
+                    (fused_ops, 'nn_launches'), (level_ops, 'down_launches'),
+                    (level_ops, 'up_launches'))
 
 
 @contextlib.contextmanager
@@ -203,23 +210,37 @@ class Enhancer:
     return torch.clamp(out, 0.0, 1.0) if clip else out
 
   def _fused_forward(self, lowres, frame, clip, u8_output=False):
-    """Backbone on the NCHW preview, then K1 or K6 on the NHWC frame; for
-    the pyramid, K6 on each level, the coarse-to-fine sum, then the clip
-    (the levels are summed before it, so it cannot ride on the kernel)."""
+    """Backbone on the NCHW preview, then K1 or K6 on the NHWC frame
+    (float32, or uint8 divided by 255 in the kernels), clipped if `clip`
+    and requantized to uint8 with `u8_output`. For the pyramid: its levels
+    (``pyramid_down``), K6 on each, and the coarse-to-fine sum
+    (``pyramid_up_add``), whose last step clips and requantizes (the levels
+    are summed before the clip, so it cannot ride on K6)."""
     grid = self._backbone_grid(lowres)
     b, gh, gw, gd, _, ni1 = grid.shape
     if not self.pyramid:
       packed = grid.reshape(b, gh, gw, gd, -1)
       return enhance_fused(packed, frame, self.guide_params, self.guide_mode,
                            clip_output=clip, u8_output=u8_output)
-    levels = gaussian_pyramid(frame, len(self.guide_params))
+    # The level kernels, or under torch.export their torch forms (whose
+    # resizes the graph records as hdrnet::resize_bilinear): the same values.
+    if torch.compiler.is_compiling():
+      down, up_add = pyramid_down_plain, pyramid_up_add_plain
+    else:
+      down, up_add = pyramid_down, pyramid_up_add
+    levels = gaussian_levels(frame.contiguous(), len(self.guide_params), down)
     current = None
     for il, (lvl, params) in enumerate(zip(levels[::-1],
                                            self.guide_params[::-1])):
       sub = grid[..., 3 * il:3 * (il + 1), :].reshape(b, gh, gw, gd, 3 * ni1)
-      out = enhance_fused(sub.contiguous(), lvl.contiguous(), params, 'nn')
-      current = out if current is None else upsample_add(current, out)
-    return torch.clamp(current, 0.0, 1.0) if clip else current
+      last = il == len(levels) - 1
+      ends = dict(clip_output=clip and last, u8_output=u8_output and last)
+      if current is None:
+        current = enhance_fused(sub.contiguous(), lvl, params, 'nn', **ends)
+      else:
+        current = up_add(current, enhance_fused(sub.contiguous(), lvl, params,
+                                                'nn'), **ends)
+    return current
 
   def __call__(self, lowres, fullres, clip=True):
     """Enhance with a given NHWC preview: (b, s, s, n_in), (b, H, W, n_in)."""
@@ -314,11 +335,12 @@ class Enhancer:
 
   def make_stream_fn(self, full_shape):
     """uint8-in, uint8-out pipeline step for frames of `full_shape`
-    (B, H, W, n_in) on the device: K2 and K1 (K6) dequantize in the
-    kernel and K1 (K6) requantizes the clipped result, so the frame stays
-    uint8. The pyramid and the composite route dequantize the frame to
-    float32 (exact /255), run, clip and requantize as trunc(x * 255 +
-    0.5) in torch, as the JAX package's composite stream does."""
+    (B, H, W, n_in) on the device: on the fused route K2, K1 or K6 and the
+    pyramid's level kernels dequantize in the kernel, and K1 (or the
+    pyramid's last ``pyramid_up_add``) requantizes the clipped result as
+    trunc(x * 255 + 0.5), so the frame stays uint8. The composite route
+    dequantizes the frame to float32 (exact /255), runs, clips and
+    requantizes in torch, as the JAX package's composite stream does."""
     full_shape = tuple(full_shape)
     s = self.model_cfg.net_input_size
 
@@ -329,16 +351,11 @@ class Enhancer:
       self._check_frame(frame_u8)
       with span('hdrnet.serve.forward'):
         low = nearest_lowres(frame_u8, s)
-        if not self.fused:
-          out = self._composite_forward(low.permute(0, 2, 3, 1),
-                                        to_unit(frame_u8), clip=True)
-        elif not self.pyramid:
+        if self.fused:
           return self._fused_forward(low, frame_u8, clip=True,
                                      u8_output=True)
-        else:
-          out = self._fused_forward(low, to_unit(frame_u8), clip=True)
-        # Two roundings (the product, then the sum), then truncation.
-        return (out * 255.0 + 0.5).to(torch.int32).to(torch.uint8)
+        return requantize(self._composite_forward(
+            low.permute(0, 2, 3, 1), to_unit(frame_u8), clip=True))
     return fn
 
   def stream(self, frames, depth=2):

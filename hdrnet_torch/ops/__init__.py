@@ -4,6 +4,6 @@ registers the ``hdrnet::`` ops that exported graphs call
 ``resize_bilinear``) and builds nothing: the kernels are built at their
 first launch."""
 
-from hdrnet_torch.ops import downsample, fused, resize, slice_apply
+from hdrnet_torch.ops import downsample, fused, levels, resize, slice_apply
 
-__all__ = ['downsample', 'fused', 'resize', 'slice_apply']
+__all__ = ['downsample', 'fused', 'levels', 'resize', 'slice_apply']

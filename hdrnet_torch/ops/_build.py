@@ -69,6 +69,14 @@ _SIGNATURES = {
     'hdrnet_slice_apply_grid_bwd_plan': (_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                          ctypes.POINTER(_I),
                                          ctypes.POINTER(ctypes.c_longlong)),
+    # src, u8_in, iy0, iy1, fy, ix0, ix1, fx, dst, b, h_in, w_in, h_out,
+    # w_out, stream
+    'hdrnet_pyramid_down': (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _P),
+    # coarse, level, iy0, iy1, fy, ix0, ix1, fx, dst, clip, u8_out, b,
+    # h_in, w_in, h_out, w_out, stream
+    'hdrnet_pyramid_up_add': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _P),
 }
 
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Times this tree's K3, K4, K5, fused K1/K6/K7 and preview K2/K2x
-kernels in turns with a baseline tree's, on one CUDA card, at the shapes
-the port's paths run.
+kernels in turns with a baseline tree's, and the pyramid's level kernels
+in turns with their plain versions, on one CUDA card, at the shapes the
+port's paths run.
 
   python -m hdrnet_torch.scripts.time_kernels --baseline_csrc DIR \
-      [--cases slice fused downsample]
+      [--cases slice fused downsample levels]
 
 DIR is another checkout's ``hdrnet_torch/csrc`` (for example the parent
 commit unpacked with ``git archive`` into the gitignored ``build/``); it
@@ -34,8 +35,16 @@ the baseline tree's ``hdrnet_torch/ops/downsample.py`` where DIR has one
 beside it (both launch this tree's kernel: the difference is the
 wrapper's own host work).
 Each case also reports the largest difference between the two trees'
-outputs. ``--cases`` picks the groups (all three by default). Prints the
-card's name and power limit, then one JSON object.
+outputs. The pyramid's levels (``levels``; no baseline tree needed):
+``pyramid_down`` on the 4K uint8 frame and on its float32 first level,
+``pyramid_up_add`` of the coarsest sum onto the first level and of that
+onto the 4K frame with the clip and the uint8 requantize, as the stream
+runs them, then the four in a row (a frame's level work); each in turns
+with its plain version (the ATen chain the stream ran before them; plain
+/ kernel / kernel / plain), bit for bit, beside its bound (each byte read
+and written once at 3.35 TB/s). ``--cases`` picks the groups (all four
+by default). Prints the card's name and power limit, then one JSON
+object.
 """
 
 from __future__ import annotations
@@ -63,7 +72,9 @@ EIGHT_K = (4320, 7680)
 SIZES = (2048, 1024, 512)
 GRID = (16, 16, 8)
 PREVIEW = 256
-CASES = ('slice', 'fused', 'downsample')
+CASES = ('slice', 'fused', 'downsample', 'levels')
+# Device memory bytes a second (NVIDIA's data sheet), for the bounds.
+HBM_BYTES_PER_S = 3.35e12
 
 _FUSED = ('hdrnet_enhance_fused', 'hdrnet_enhance_fused_nn')
 
@@ -281,11 +292,15 @@ def _seeded_params(dev):
 
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-  parser.add_argument('--baseline_csrc', required=True,
-                      help="another tree's hdrnet_torch/csrc")
+  parser.add_argument('--baseline_csrc',
+                      help="another tree's hdrnet_torch/csrc (every group "
+                      "but levels)")
   parser.add_argument('--cases', nargs='+', choices=CASES, default=CASES,
                       help='groups of cases to time')
   args = parser.parse_args(argv)
+  if args.baseline_csrc is None and set(args.cases) - {'levels'}:
+    parser.error('--baseline_csrc is needed for the groups slice, fused '
+                 'and downsample')
   if not torch.cuda.is_available():
     raise SystemExit('time_kernels: needs a CUDA device')
   dev = torch.device('cuda', 0)
@@ -294,8 +309,8 @@ def main(argv=None):
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   root = _build.BUILD_ROOT
   cur = load(_build.CSRC, root)
-  base = load(Path(args.baseline_csrc).resolve(),
-              root.parent / 'hdrnet_torch_baseline')
+  base = args.baseline_csrc and load(Path(args.baseline_csrc).resolve(),
+                                     root.parent / 'hdrnet_torch_baseline')
   rng = np.random.RandomState(0)
   results = {}
 
@@ -348,6 +363,8 @@ def main(argv=None):
                       baseline_wrapper(args.baseline_csrc))
   if 'fused' in args.cases:
     _fused_cases(base, cur, rng, dev, put)
+  if 'levels' in args.cases:
+    _levels_cases(rng, dev, results)
   print(smi)
   print(json.dumps({'device': smi, 'iters_a_graph': ITERS,
                     'cases': results}))
@@ -427,6 +444,61 @@ def _fused_cases(base, cur, rng, dev, put):
     b_fn, b_out = fused_call(base, grid, frame, params[mode], mode, False, 4)
     c_fn, c_out = fused_call(cur, grid, frame, params[mode], mode, False, 4)
     put(f'K7 four 1080-row 8K bands {mode}', b_fn, c_fn, b_out, c_out)
+
+
+def _levels_cases(rng, dev, results):
+  """The pyramid's level kernels at 4K b=1 in turns with their plain
+  versions, each bit for bit, beside its bound."""
+  from hdrnet_torch.ops import levels
+  f32 = lambda *s: torch.from_numpy(rng.uniform(
+      -0.2, 1.2, s).astype(np.float32)).to(dev)
+  frame = torch.from_numpy(rng.randint(0, 256, (1, *UHD, 3)).astype(
+      np.uint8)).to(dev)
+  level1 = levels.pyramid_down(frame)
+  level2 = levels.pyramid_down(level1)
+  out0, out1 = f32(*frame.shape), f32(*level1.shape)
+  sum1 = levels.pyramid_up_add(level2, out1)
+  steps = (
+      ('pyramid_down 4K u8 -> level 1', levels.pyramid_down,
+       levels.pyramid_down_plain, (frame,), {}),
+      ('pyramid_down level 1 -> level 2', levels.pyramid_down,
+       levels.pyramid_down_plain, (level1,), {}),
+      ('pyramid_up_add level 2 onto level 1', levels.pyramid_up_add,
+       levels.pyramid_up_add_plain, (level2, out1), {}),
+      ('pyramid_up_add level 1 onto 4K, clip, u8', levels.pyramid_up_add,
+       levels.pyramid_up_add_plain, (sum1, out0),
+       {'clip_output': True, 'u8_output': True}))
+
+  def timed(name, kernel, plain, nbytes):
+    turns = [graph_ms(f, ITERS) for f in (plain, kernel, kernel, plain)]
+    results[name] = {'ms': (turns[1] + turns[2]) / 2,
+                     'plain_ms': (turns[0] + turns[3]) / 2, 'turns': turns,
+                     'bound_ms': nbytes / HBM_BYTES_PER_S * 1e3}
+    print(f'{name}: turns plain / kernel / kernel / plain '
+          f'{" / ".join(f"{t:.4f}" for t in turns)} ms; bound '
+          f'{results[name]["bound_ms"]:.4f} ms', flush=True)
+
+  total = 0
+  for name, kernel, plain, args, kwargs in steps:
+    out = kernel(*args, **kwargs)
+    if not torch.equal(out, plain(*args, **kwargs)):
+      raise AssertionError(f'{name}: the kernel and its plain version differ')
+    nbytes = sum(t.nbytes for t in args) + out.nbytes
+    total += nbytes
+    timed(name, lambda: kernel(*args, **kwargs),
+          lambda: plain(*args, **kwargs), nbytes)
+
+  def frame_levels(down, up_add):
+    def run():
+      a = down(frame)
+      b = down(a)
+      return up_add(up_add(b, out1), out0, clip_output=True, u8_output=True)
+    return run
+
+  timed('a 4K frame\'s level work (2 pyramid_down, 2 pyramid_up_add)',
+        frame_levels(levels.pyramid_down, levels.pyramid_up_add),
+        frame_levels(levels.pyramid_down_plain, levels.pyramid_up_add_plain),
+        total)
 
 
 if __name__ == '__main__':

@@ -295,4 +295,5 @@ def test_build_finds_nvcc_from_cuda_home_first(tmp_path, monkeypatch):
   assert {p.name for p in _build._sources()} == {'downsample.cu',
                                                  'downsample_onehot.cu',
                                                  'fused_slice_apply.cu',
+                                                 'pyramid_levels.cu',
                                                  'slice_apply.cu'}

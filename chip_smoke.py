@@ -337,6 +337,48 @@ K4_GUIDE_OPS = 290
 K5_OPS = 234
 
 
+# The keys of ``hdrnet_torch.ops._build.launches`` by this script's names
+# of the kernels (K7: a K1 or K6 launch on a band, also counted as K1 or
+# K6).
+KERNEL_KEYS = {
+    'K1': 'hdrnet_enhance_fused', 'K2': 'hdrnet_nearest_lowres',
+    'K2x': 'hdrnet_downsample_onehot', 'K3': 'hdrnet_slice_apply_fwd',
+    'K4': 'hdrnet_slice_apply_pix_bwd', 'K5': 'hdrnet_slice_apply_grid_bwd',
+    'K6': 'hdrnet_enhance_fused_nn', 'K7': 'enhance_fused_band',
+    'pyramid_down': 'hdrnet_pyramid_down',
+    'pyramid_up_add': 'hdrnet_pyramid_up_add'}
+
+
+def _reset_launch_counts():
+  from hdrnet_torch.ops import _build
+  _build.launches.clear()
+
+
+def _n(kernel):
+  """The launches of `kernel` (a key of KERNEL_KEYS) counted since the
+  last ``_reset_launch_counts``."""
+  from hdrnet_torch.ops import _build
+  return _build.launches[KERNEL_KEYS[kernel]]
+
+
+def _launches(*kernels):
+  """{kernel: ``_n(kernel)``} of `kernels`."""
+  return {k: _n(k) for k in kernels}
+
+
+@contextlib.contextmanager
+def _launching_nothing(what):
+  """Raises on leaving the block if a kernel launched inside it: a plain
+  comparison that ran a kernel would compare the kernels with
+  themselves."""
+  from hdrnet_torch.ops import _build
+  before = _build.launches.copy()
+  yield
+  if _build.launches != before:
+    raise AssertionError(f'{what} launched kernels: '
+                         f'{dict(_build.launches - before)}')
+
+
 def _tally_slice(slice_launches, k3, k4=0, k5=0):
   """Adds one path's K3, K4 and K5 launches, counted between a reset of
   the wrappers' counters and their read, to the run's tally (the kernels
@@ -646,7 +688,8 @@ def _check_train_kernels(gen, dev, full_float32):
 def _plain_slice_apply_ops():
   """Inside the block the slice-apply op of every model (forward and
   both backward passes) runs the plain versions of K3, K4 and K5, and the
-  Enhancer's preview the plain version of K2; for comparison only."""
+  Enhancer's preview the plain version of K2; for comparison only. Raises
+  on leaving it if a kernel launched inside."""
   import hdrnet_torch.inference as inference
   from hdrnet_torch.ops import downsample
   from hdrnet_torch.ops import slice_apply as sa
@@ -657,7 +700,8 @@ def _plain_slice_apply_ops():
   sa.slice_apply_grid_bwd = sa.slice_apply_grid_bwd_plain
   inference.nearest_lowres = downsample.nearest_lowres_plain
   try:
-    yield
+    with _launching_nothing('the plain slice-apply block'):
+      yield
   finally:
     (sa.slice_apply_fwd, sa.slice_apply_pix_bwd, sa.slice_apply_grid_bwd,
      inference.nearest_lowres) = saved
@@ -770,8 +814,6 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
   import shutil
   from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
   from hdrnet_torch.models import make_model
-  from hdrnet_torch.ops import downsample, fused
-  from hdrnet_torch.ops import slice_apply as sa
   from hdrnet_torch.training import loop, step
   per_step = 3 if model_name == PYR else 1
   cfg = Config(
@@ -792,7 +834,7 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
   state = fresh(1234)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
+  _reset_launch_counts()
   losses, emas = [], []
   t0 = time.perf_counter()
   for i in range(steps):
@@ -801,8 +843,7 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
     emas.append(m['ema_loss'])
   torch.cuda.synchronize()
   first_s = time.perf_counter() - t0
-  launches = {'K3': sa.fwd_launches, 'K4': sa.pix_bwd_launches,
-              'K5': sa.grid_bwd_launches}
+  launches = _slice_counts()
   peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
   n = steps * per_step
   if launches != {'K3': n, 'K4': n, 'K5': n}:
@@ -828,11 +869,10 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
   for serving in (False, True):
     fwd = evaluate.make_forward(cfg.model, weights, dev, serving)
     torch.cuda.synchronize()
-    sa.fwd_launches = fused.launches = fused.nn_launches = 0
+    _reset_launch_counts()
     psnrs[serving] = [evaluate.evaluate_batch(fwd, b, dev)[0] for b in host]
     torch.cuda.synchronize()
-    eval_launches[serving] = (sa.fwd_launches, fused.launches,
-                              fused.nn_launches)
+    eval_launches[serving] = (_n('K3'), _n('K1'), _n('K6'))
   want = {False: (4 * per_step, 0, 0),
           True: (0, 0, 12) if model_name == PYR else (0, 4, 0)}
   if eval_launches != want:
@@ -849,14 +889,14 @@ def _train_full_width(dev, tag, enh_cls, slice_launches,
   # for a 4K frame.
   enh = enh_cls.from_checkpoint(ckpt_dir, device=dev)
   x = torch.rand((1, *UHD, 3), device=dev)
-  downsample.launches = fused.launches = fused.nn_launches = 0
+  _reset_launch_counts()
   out = enh.process(x)
   torch.cuda.synchronize()
   want = (1, 0, 3) if model_name == PYR else (1, 1, 0)
-  if (downsample.launches, fused.launches, fused.nn_launches) != want:
+  if (_n('K2'), _n('K1'), _n('K6')) != want:
     raise AssertionError(f'serving the checkpoint: launches K2 '
-                         f'{downsample.launches}, K1 {fused.launches}, K6 '
-                         f'{fused.nn_launches}; expected {want}')
+                         f'{_n("K2")}, K1 {_n("K1")}, K6 '
+                         f'{_n("K6")}; expected {want}')
   if out.shape != x.shape or not torch.isfinite(out).all():
     raise AssertionError('serving the checkpoint: output malformed')
   if keep is None:
@@ -918,7 +958,8 @@ def _plain_serving(full_float32):
   per-image function run the plain versions of K2, K1/K6/K7 (in full
   float32) and the pyramid's level kernels, for comparison only; the
   stream runs that plain forward eagerly on every frame (a graph it
-  captured before would replay the kernels)."""
+  captured before would replay the kernels). Raises on leaving the block
+  if a kernel launched inside."""
   import hdrnet_torch.inference as inference
   from hdrnet_torch.bin import run
   from hdrnet_torch.ops import downsample, fused, levels
@@ -937,7 +978,8 @@ def _plain_serving(full_float32):
   inference.Enhancer._stream_graph = lambda self, shape, fn: None
   run.nearest_lowres = downsample.nearest_lowres_plain
   try:
-    yield
+    with _launching_nothing('the plain serving block'):
+      yield
   finally:
     (inference.enhance_fused, inference.nearest_lowres,
      inference.pyramid_down, inference.pyramid_up_add,
@@ -1133,10 +1175,10 @@ def _check_k2x(dev, tag):
   from hdrnet_torch.scripts.time_kernels import k2x_library
   from hdrnet_torch.utils.timing import graph_ms
   torch.cuda.synchronize()
-  downsample.onehot_launches = 0
+  _reset_launch_counts()
   results = exp_downsample_v2.main([])
   torch.cuda.synchronize()
-  launches = downsample.onehot_launches
+  launches = _n('K2x')
   if launches < 2 or any(r['max_diff'] != 0.0 for r in results):
     raise AssertionError(f'K2x experiment: {launches} launches, {results}')
   gen = torch.Generator(device=dev).manual_seed(77)
@@ -1234,8 +1276,7 @@ def _check_export(dev, tag, gen, slice_launches):
   import shutil
   from hdrnet_torch.bin import export
   from hdrnet_torch.inference import Enhancer, full_float32
-  from hdrnet_torch.ops import downsample, fused
-  from hdrnet_torch.ops import slice_apply as sa
+  from hdrnet_torch.ops import downsample
   lines = []
   for seed, name in enumerate(('HDRNetCurves', PYR)):
     ckpt = f'build/chip_smoke_export_{name}'
@@ -1262,16 +1303,14 @@ def _check_export(dev, tag, gen, slice_launches):
           ('serve_any_fn', (low, full), enh(low, full))]
       calls += [('serve_any_fn', (low, x), enh(low, x)) for x in others]
     torch.cuda.synchronize()
-    downsample.launches = fused.launches = fused.nn_launches = 0
-    sa.fwd_launches = 0
+    _reset_launch_counts()
     for fn_name, args, want in calls:
       got = export.load_artifact(f'{ckpt}/{fn_name}.pt2')(*args)
       if got.shape != want.shape or not torch.equal(got, want):
         raise AssertionError(f'{name} {fn_name} {tuple(args[-1].shape)}: '
                              f'not bit-identical to the eager Enhancer')
     torch.cuda.synchronize()
-    counts = {'K2': downsample.launches, 'K1': fused.launches,
-              'K6': fused.nn_launches, 'K3': sa.fwd_launches}
+    counts = _launches('K2', 'K1', 'K6', 'K3')
     fused_per = 3 if name == PYR else 1
     expect = {'K2': 1, 'K1': 0 if name == PYR else 5,
               'K6': 5 * fused_per if name == PYR else 0,
@@ -1601,7 +1640,6 @@ def _triage_tools(dev, tag, pyr_ckpt, data, slice_launches):
   (_triage_tol)."""
   import shutil
   from hdrnet_torch.config import Config
-  from hdrnet_torch.ops import slice_apply as sa
   from hdrnet_torch.scripts import diagnose_pyramid, guide_stats
   cfg = Config.load(pyr_ckpt)
   cfg.data.output_resolution = [QUALITY_SIZE, QUALITY_SIZE]
@@ -1612,7 +1650,7 @@ def _triage_tools(dev, tag, pyr_ckpt, data, slice_launches):
       name = tool.__name__.rsplit('.', 1)[1]
       if device == 'cuda':
         torch.cuda.synchronize()
-        sa.fwd_launches = 0
+        _reset_launch_counts()
       t0 = time.perf_counter()
       # The tools' own per-image lines and summary go to a log file.
       with open(f'{TRIAGE_DIR}/{name}.log', 'a') as log, \
@@ -1624,8 +1662,8 @@ def _triage_tools(dev, tag, pyr_ckpt, data, slice_launches):
       if device == 'cuda':
         torch.cuda.synchronize()
         want = TRIAGE_LIMIT * (18 if name == 'diagnose_pyramid' else 3)
-        if sa.fwd_launches != want:
-          raise AssertionError(f'{name} on the card: {sa.fwd_launches} K3 '
+        if _n('K3') != want:
+          raise AssertionError(f'{name} on the card: {_n("K3")} K3 '
                                f'launches; expected {want}')
         _tally_slice(slice_launches, want)
   for name in ('guide_stats', 'diagnose_pyramid'):
@@ -1669,7 +1707,6 @@ def _check_fit_grid(dev, tag, slice_launches):
   initial parameters move by one float32 ulp."""
   from hdrnet_torch.bin import fit_grid
   from hdrnet_torch.models.guides import CurveGuide
-  from hdrnet_torch.ops import slice_apply as sa
   rng = np.random.RandomState(31)
 
   def pair(n):
@@ -1680,20 +1717,20 @@ def _check_fit_grid(dev, tag, slice_launches):
   identity = fit_grid.psnr_of(((inp - tgt) ** 2).mean())
   fit_grid.fit_pair(inp, tgt, steps=2, guide='curves', device=dev)  # warm
   torch.cuda.synchronize()
-  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
+  _reset_launch_counts()
   t0 = time.perf_counter()
   psnr, _ = fit_grid.fit_pair(inp, tgt, steps=50, guide='curves', device=dev)
   torch.cuda.synchronize()
   step_ms = (time.perf_counter() - t0) * 1e3 / 50
-  counts = (sa.fwd_launches, sa.pix_bwd_launches, sa.grid_bwd_launches)
+  counts = (_n('K3'), _n('K4'), _n('K5'))
   if counts != (51, 50, 50) or not psnr > identity:
     raise AssertionError(f'fit_grid 1024^2: launches (K3, K4, K5) {counts}, '
                          f'PSNR {psnr} vs identity {identity}')
   _tally_slice(slice_launches, *counts)
   small = pair(256)
-  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
+  _reset_launch_counts()
   card, cpu = (_fit_grads(fit_grid, small, w) for w in (dev, 'cpu'))
-  counts_256 = (sa.fwd_launches, sa.pix_bwd_launches, sa.grid_bwd_launches)
+  counts_256 = (_n('K3'), _n('K4'), _n('K5'))
   if counts_256 != (1, 1, 1):
     raise AssertionError(f'fit_grid gradients: launches (K3, K4, K5) '
                          f'{counts_256} on the card')
@@ -1759,15 +1796,8 @@ def _k4_input_flags():
     sa.slice_apply_pix_bwd = kernel
 
 
-def _reset_slice_counts():
-  from hdrnet_torch.ops import slice_apply as sa
-  sa.fwd_launches = sa.pix_bwd_launches = sa.grid_bwd_launches = 0
-
-
 def _slice_counts():
-  from hdrnet_torch.ops import slice_apply as sa
-  return {'K3': sa.fwd_launches, 'K4': sa.pix_bwd_launches,
-          'K5': sa.grid_bwd_launches}
+  return _launches('K3', 'K4', 'K5')
 
 
 def _plain_first_grads(cfg, seed, batch, dev, full_float32):
@@ -1873,7 +1903,7 @@ def _zoo_train_full_width(dev, tag, slice_launches, full_float32):
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
-  _reset_slice_counts()
+  _reset_launch_counts()
   step_ms, losses = [], []
   with _k4_input_flags() as flags:
     for i in range(ZOO_STEPS):
@@ -1902,7 +1932,7 @@ def _zoo_train_full_width(dev, tag, slice_launches, full_float32):
     raise AssertionError(f'{FPYR} training: losses {losses}')
 
   ckpt_dir = 'build/chip_smoke_zoo_ckpt'
-  _reset_slice_counts()
+  _reset_launch_counts()
   resume_err = _check_resume(cfg, state, fresh, step.to_device(host[0], dev),
                              train_step, ckpt_dir, FPYR)
   _tally_slice(slice_launches, *_slice_counts().values())
@@ -1920,7 +1950,7 @@ def _zoo_train_full_width(dev, tag, slice_launches, full_float32):
         f'synchronized); peak memory allocated {peak_mib:.1f} MiB',
         flush=True)
   batch = step.to_device(host[1], dev)
-  _reset_slice_counts()
+  _reset_launch_counts()
   _print_breakdown(f'{FPYR} train step', tag, steady,
                    lambda: train_step(state, batch))
   _tally_slice(slice_launches, *_slice_counts().values())
@@ -1936,7 +1966,6 @@ def _zoo_serve_4k(dev, tag, model_cfg, weights, slice_launches, full_float32):
   frames, one K2 and three K3 a frame and no K1 or K6, held to the plain
   chain (K1_TOL; u8 1 code on < 1%); then the time of a frame."""
   from hdrnet_torch.inference import Enhancer
-  from hdrnet_torch.ops import downsample, fused
   enh = Enhancer(model_cfg, weights, device=dev)
   if enh.fused:
     raise AssertionError(f'{FPYR} took the fused route')
@@ -1947,13 +1976,11 @@ def _zoo_serve_4k(dev, tag, model_cfg, weights, slice_launches, full_float32):
                .to(torch.uint8) for _ in range(2)]
   fn = enh.make_stream_fn((1, *UHD, 3))
   torch.cuda.synchronize()
-  _reset_slice_counts()
-  downsample.launches = fused.launches = fused.nn_launches = 0
+  _reset_launch_counts()
   outs = [enh.process(f) for f in frames]
   outs_u8 = [fn(f) for f in frames_u8]
   torch.cuda.synchronize()
-  counts = {'K2': downsample.launches, 'K1': fused.launches,
-            'K6': fused.nn_launches, **_slice_counts()}
+  counts = _launches('K2', 'K1', 'K6', 'K3', 'K4', 'K5')
   want = {'K2': 4, 'K1': 0, 'K6': 0, 'K3': 12, 'K4': 0, 'K5': 0}
   if counts != want:
     raise AssertionError(f'{FPYR} composite serving launches {counts}; '
@@ -1972,7 +1999,7 @@ def _zoo_serve_4k(dev, tag, model_cfg, weights, slice_launches, full_float32):
   del outs, wants, outs_u8, wants_u8
   proc_ms = _time_ms(lambda: enh.process(frames[0]), 10)
   stream_ms = _time_ms(lambda: fn(frames_u8[0]), 10)
-  _reset_slice_counts()
+  _reset_launch_counts()
   _print_breakdown(f'{FPYR} composite 4K frame', tag, proc_ms,
                    lambda: enh.process(frames[0]))
   _tally_slice(slice_launches, _slice_counts()['K3'])
@@ -1994,7 +2021,6 @@ def _zoo_others(dev, tag, slice_launches, full_float32):
   from hdrnet_torch.config import ModelConfig, TrainConfig
   from hdrnet_torch.inference import Enhancer
   from hdrnet_torch.models import make_model
-  from hdrnet_torch.ops import downsample, fused
   from hdrnet_torch.training import loop, step
   gen = torch.Generator(device=dev).manual_seed(78)
   results, grad_worst, failures = {}, {}, []
@@ -2012,7 +2038,7 @@ def _zoo_others(dev, tag, slice_launches, full_float32):
     state = step.create_state(model, loop.make_optimizer(
         model, TrainConfig(learning_rate=1e-4)))
     torch.cuda.synchronize()
-    _reset_slice_counts()
+    _reset_launch_counts()
     t0 = time.perf_counter()
     state, m = step.make_train_step()(state, step.to_device(batch, dev))
     torch.cuda.synchronize()
@@ -2029,13 +2055,12 @@ def _zoo_others(dev, tag, slice_launches, full_float32):
     enh = Enhancer(cfg, model.state_dict(), device=dev)
     x = torch.rand((1, *FHD, n_in), generator=gen, device=dev)
     torch.cuda.synchronize()
-    _reset_slice_counts()
-    downsample.launches = fused.launches = fused.nn_launches = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     out = enh.process(x)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
-    served = (downsample.launches, fused.launches + fused.nn_launches,
+    served = (_n('K2'), _n('K1') + _n('K6'),
               _slice_counts()['K3'])
     if enh.fused or served != (1, 0, n_slices):
       raise AssertionError(f'{name} serving (K2, K1 + K6, K3) {served}, '
@@ -2079,7 +2104,7 @@ def _bf16_serving(dev, tag, x4k):
   of a frame and of the backbone alone; still one K2 and one K1 or K6 a
   frame."""
   from hdrnet_torch.inference import Enhancer, ModelConfig
-  from hdrnet_torch.ops import downsample, fused
+  from hdrnet_torch.ops import downsample
   results = {}
   for name in ('HDRNetCurves', NN):
     f32 = Enhancer(ModelConfig(model_name=name), device=dev, seed=5)
@@ -2088,12 +2113,12 @@ def _bf16_serving(dev, tag, x4k):
     if not (bf16.fused and bf16.coeff_bf16):
       raise AssertionError(f'{name}: the bf16 backbone is not on')
     torch.cuda.synchronize()
-    downsample.launches = fused.launches = fused.nn_launches = 0
+    _reset_launch_counts()
     got = bf16.process(x4k)
     torch.cuda.synchronize()
-    if (downsample.launches, fused.launches + fused.nn_launches) != (1, 1):
-      raise AssertionError(f'{name} bf16 launches K2 {downsample.launches}, '
-                           f'K1 + K6 {fused.launches + fused.nn_launches}')
+    if (_n('K2'), _n('K1') + _n('K6')) != (1, 1):
+      raise AssertionError(f'{name} bf16 launches K2 {_n("K2")}, '
+                           f'K1 + K6 {_n("K1") + _n("K6")}')
     want = f32.process(x4k)
     diff = float((got - want).abs().max())
     psnr = float(10 * torch.log10(1.0 / ((got - want) ** 2).mean()))
@@ -2238,15 +2263,7 @@ def _step_ms(clock, warmup):
 
 
 def _launch_counts():
-  from hdrnet_torch.ops import downsample, fused
-  return {'K1': fused.launches, 'K2': downsample.launches, **_slice_counts()}
-
-
-def _reset_launch_counts():
-  from hdrnet_torch.ops import downsample, fused
-  fused.launches = fused.nn_launches = fused.band_launches = 0
-  downsample.launches = 0
-  _reset_slice_counts()
+  return _launches('K1', 'K2', 'K3', 'K4', 'K5')
 
 
 def _counted(fn):
@@ -2997,7 +3014,7 @@ def main():
   if sys.argv[1:2] == ['--mesh_worker']:
     return _mesh_worker(sys.argv[2])
   from hdrnet_torch.inference import Enhancer, ModelConfig, full_float32
-  from hdrnet_torch.ops import _build, downsample, fused, levels
+  from hdrnet_torch.ops import _build, downsample, fused
   from hdrnet_torch.scripts.time_kernels import k2_library
   from hdrnet_torch.utils.timing import graph_ms
 
@@ -3091,12 +3108,12 @@ def main():
   for i, f in enumerate(frames_u8):  # tag each frame: order mistakes show
     f[0, :64, :64] = 30 * i
   torch.cuda.synchronize()
-  downsample.launches = fused.launches = 0
+  _reset_launch_counts()
   outs = [enh.process(f) for f in frames]
   torch.cuda.synchronize()
-  after_process = (downsample.launches, fused.launches)
+  after_process = (_n('K2'), _n('K1'))
   outs_u8 = list(enh.stream(frames_u8))
-  launches = {'K2': downsample.launches, 'K1': fused.launches}
+  launches = _launches('K2', 'K1')
   if after_process != (3, 3) or launches != {'K2': 11, 'K1': 11}:
     raise AssertionError(f'launches: process {after_process}, after stream '
                          f'{launches}; expected one K2 and one K1 a frame')
@@ -3220,13 +3237,12 @@ def main():
 
   # 9. HDRNetPointwiseNNGuide end to end, counts reset just before.
   torch.cuda.synchronize()
-  downsample.launches = fused.launches = fused.nn_launches = 0
+  _reset_launch_counts()
   nn_outs = [nn_enh.process(f) for f in frames]
   torch.cuda.synchronize()
-  after_process = (downsample.launches, fused.launches, fused.nn_launches)
+  after_process = (_n('K2'), _n('K1'), _n('K6'))
   nn_outs_u8 = list(nn_enh.stream(frames_u8))
-  nn_launches = {'K2': downsample.launches, 'K1': fused.launches,
-                 'K6': fused.nn_launches}
+  nn_launches = _launches('K2', 'K1', 'K6')
   if after_process != (3, 0, 3) or nn_launches != {'K2': 11, 'K1': 0,
                                                    'K6': 11}:
     raise AssertionError(f'{NN} launches: process {after_process}, after '
@@ -3256,17 +3272,14 @@ def main():
   pyr_enh = _nn_enhancer(Enhancer, PYR, dev, seed=2)
   pyr_frames_u8 = frames_u8[:4]
   torch.cuda.synchronize()
-  downsample.launches = fused.launches = fused.nn_launches = 0
-  levels.down_launches = levels.up_launches = 0
+  _reset_launch_counts()
   pyr_outs = [pyr_enh.process(f) for f in frames[:2]]
   torch.cuda.synchronize()
-  after_process = (downsample.launches, fused.launches, fused.nn_launches,
-                   levels.down_launches, levels.up_launches)
+  after_process = (_n('K2'), _n('K1'), _n('K6'),
+                   _n('pyramid_down'), _n('pyramid_up_add'))
   pyr_outs_u8 = list(pyr_enh.stream(pyr_frames_u8))
-  pyr_launches = {'K2': downsample.launches, 'K1': fused.launches,
-                  'K6': fused.nn_launches,
-                  'pyramid_down': levels.down_launches,
-                  'pyramid_up_add': levels.up_launches}
+  pyr_launches = _launches('K2', 'K1', 'K6', 'pyramid_down',
+                           'pyramid_up_add')
   if after_process != (2, 0, 6, 4, 4) or pyr_launches != {
       'K2': 6, 'K1': 0, 'K6': 18, 'pyramid_down': 12, 'pyramid_up_add': 12}:
     raise AssertionError(f'{PYR} launches: process {after_process}, after '
@@ -3328,17 +3341,18 @@ def main():
   for name, e in (('HDRNetCurves', enh), (NN, nn_enh), (PYR, pyr_enh)):
     want = e.process(x8k)
     torch.cuda.synchronize()
-    downsample.launches = fused.launches = fused.nn_launches = 0
-    fused.band_launches = 0
+    _reset_launch_counts()
     got = e.enhance_sharded(low8k, x8k, bands)
     torch.cuda.synchronize()
-    counts = (fused.launches, fused.nn_launches, fused.band_launches)
-    k7_launches += fused.band_launches
-    expect = {'HDRNetCurves': (4, 0, 4), NN: (0, 4, 4), PYR: (0, 12, 12)}
-    if counts != expect[name] or downsample.launches:
-      raise AssertionError(f'{name} enhance_sharded launches (K1, K6, K7) '
-                           f'{counts}, K2 {downsample.launches}; expected '
-                           f'{expect[name]} and no K2')
+    counts = (_n('K1'), _n('K6'), _n('K7'), _n('pyramid_down'),
+              _n('pyramid_up_add'))
+    k7_launches += _n('K7')
+    expect = {'HDRNetCurves': (4, 0, 4, 0, 0), NN: (0, 4, 4, 0, 0),
+              PYR: (0, 12, 12, 2, 2)}
+    if counts != expect[name] or _n('K2'):
+      raise AssertionError(f'{name} enhance_sharded launches (K1, K6, K7, '
+                           f'pyramid_down, pyramid_up_add) {counts}, K2 '
+                           f'{_n("K2")}; expected {expect[name]} and no K2')
     if got.shape != x8k.shape or not torch.equal(got, want):
       raise AssertionError(f'{name} enhance_sharded: not bit-identical to '
                            f'process, max diff '
@@ -3356,9 +3370,10 @@ def main():
              _time_ms(sharded, 10), _time_ms(lambda: e.process(x8k), 10)]
     print(f'enhance_sharded {name} at 8K f32 (4320x7680, four bands on '
           f'one card): bit-identical to process; max abs err {err:.3e} (<= '
-          f'{K1_TOL:.0e}) vs the plain bands; launches (K1, K6, K7) '
-          f'{counts}; timing {tag}, in turns process / sharded / sharded / '
-          f'process: {" / ".join(f"{t:.4f}" for t in turns)} ms',
+          f'{K1_TOL:.0e}) vs the plain bands; launches (K1, K6, K7, '
+          f'pyramid_down, pyramid_up_add) {counts}; timing {tag}, in turns '
+          f'process / sharded / sharded / process: '
+          f'{" / ".join(f"{t:.4f}" for t in turns)} ms',
           flush=True)
 
   # K7's time on the bands counted above: the four 1080-row bands of the
@@ -3408,16 +3423,13 @@ def main():
   photos = [frame(1, hw)[0] for hw in PHOTO_SIZES]
   photos[-1] = photos[-1].cpu().numpy()  # a host array, as main reads
   torch.cuda.synchronize()
-  downsample.launches = fused.launches = fused.nn_launches = 0
-  fused.band_launches = levels.down_launches = levels.up_launches = 0
+  _reset_launch_counts()
   any_outs = {name: [run_cli.enhance_image(e, p)[0] for p in photos]
               for name, e in (('HDRNetCurves', enh), (NN, nn_enh),
                               (PYR, pyr_enh))}
   torch.cuda.synchronize()
-  any_launches = {'K2': downsample.launches, 'K1': fused.launches,
-                  'K6': fused.nn_launches, 'K7': fused.band_launches,
-                  'pyramid_down': levels.down_launches,
-                  'pyramid_up_add': levels.up_launches}
+  any_launches = _launches('K2', 'K1', 'K6', 'K7', 'pyramid_down',
+                           'pyramid_up_add')
   if any_launches != {'K2': 12, 'K1': 4, 'K6': 16, 'K7': 0,
                       'pyramid_down': 8, 'pyramid_up_add': 8}:
     raise AssertionError(f'enhance_any launches {any_launches}; expected '

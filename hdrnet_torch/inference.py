@@ -33,6 +33,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import logging
 
 import numpy as np
@@ -41,15 +42,12 @@ import torch
 from hdrnet_torch.config import Config, ModelConfig
 from hdrnet_torch.models import make_model
 from hdrnet_torch.models.hdrnet import (HDRNetCurves, HDRNetGaussianPyrNN,
-                                        HDRNetPointwiseNNGuide,
-                                        gaussian_pyramid, upsample_add)
-from hdrnet_torch.ops import downsample, fused as fused_ops
-from hdrnet_torch.ops import levels as level_ops
+                                        HDRNetPointwiseNNGuide)
+from hdrnet_torch.ops import _build
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
 from hdrnet_torch.ops.levels import (gaussian_levels, pyramid_down,
-                                     pyramid_down_plain, pyramid_up_add,
-                                     pyramid_up_add_plain, requantize)
+                                     pyramid_up_add, requantize)
 from hdrnet_torch.ops.resize import holding_tables
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 from hdrnet_torch.utils.timing import span
@@ -72,13 +70,6 @@ _SEEN_SHAPES = 64
 # CUDA graphs captured and replayed by Enhancer.stream in this process.
 graph_captures = 0
 graph_replays = 0
-
-# The launch counters of the kernels a stream forward runs (K2, K1, K6, the
-# pyramid's levels). A capture launches nothing and a replay launches what
-# it captured, so they go on counting kernels on the card.
-_LAUNCH_COUNTERS = ((downsample, 'launches'), (fused_ops, 'launches'),
-                    (fused_ops, 'nn_launches'), (level_ops, 'down_launches'),
-                    (level_ops, 'up_launches'))
 
 
 @contextlib.contextmanager
@@ -210,25 +201,26 @@ class Enhancer:
     return torch.clamp(out, 0.0, 1.0) if clip else out
 
   def _fused_forward(self, lowres, frame, clip, u8_output=False):
-    """Backbone on the NCHW preview, then K1 or K6 on the NHWC frame
-    (float32, or uint8 divided by 255 in the kernels), clipped if `clip`
-    and requantized to uint8 with `u8_output`. For the pyramid: its levels
-    (``pyramid_down``), K6 on each, and the coarse-to-fine sum
-    (``pyramid_up_add``), whose last step clips and requantizes (the levels
-    are summed before the clip, so it cannot ride on K6)."""
-    grid = self._backbone_grid(lowres)
+    """Backbone on the NCHW preview, then ``_apply_grid`` with K1 or K6 on
+    the whole frame."""
+    return self._apply_grid(self._backbone_grid(lowres), frame,
+                            enhance_fused, clip, u8_output)
+
+  def _apply_grid(self, grid, frame, fused, clip, u8_output=False):
+    """The rank-6 grid applied to the NHWC frame (float32, or uint8 divided
+    by 255 in the kernels) by `fused`, ``enhance_fused`` or its banded form:
+    K1 or K6, clipped if `clip` and requantized to uint8 with `u8_output`.
+    For the pyramid: its levels (``pyramid_down``), K6 on each, and the
+    coarse-to-fine sum (``pyramid_up_add``), whose last step clips and
+    requantizes (the levels are summed before the clip, so it cannot ride
+    on K6)."""
     b, gh, gw, gd, _, ni1 = grid.shape
     if not self.pyramid:
       packed = grid.reshape(b, gh, gw, gd, -1)
-      return enhance_fused(packed, frame, self.guide_params, self.guide_mode,
-                           clip_output=clip, u8_output=u8_output)
-    # The level kernels, or under torch.export their torch forms (whose
-    # resizes the graph records as hdrnet::resize_bilinear): the same values.
-    if torch.compiler.is_compiling():
-      down, up_add = pyramid_down_plain, pyramid_up_add_plain
-    else:
-      down, up_add = pyramid_down, pyramid_up_add
-    levels = gaussian_levels(frame.contiguous(), len(self.guide_params), down)
+      return fused(packed, frame, self.guide_params, self.guide_mode,
+                   clip_output=clip, u8_output=u8_output)
+    levels = gaussian_levels(frame.contiguous(), len(self.guide_params),
+                             pyramid_down)
     current = None
     for il, (lvl, params) in enumerate(zip(levels[::-1],
                                            self.guide_params[::-1])):
@@ -236,10 +228,10 @@ class Enhancer:
       last = il == len(levels) - 1
       ends = dict(clip_output=clip and last, u8_output=u8_output and last)
       if current is None:
-        current = enhance_fused(sub.contiguous(), lvl, params, 'nn', **ends)
+        current = fused(sub.contiguous(), lvl, params, 'nn', **ends)
       else:
-        current = up_add(current, enhance_fused(sub.contiguous(), lvl, params,
-                                                'nn'), **ends)
+        current = pyramid_up_add(
+            current, fused(sub.contiguous(), lvl, params, 'nn'), **ends)
     return current
 
   def __call__(self, lowres, fullres, clip=True):
@@ -281,10 +273,10 @@ class Enhancer:
     i H/n and h_total = H, so every pixel is sliced as in the whole
     frame and the result is bit-identical to ``__call__``'s. The bands
     are gathered on ``devices[0]``, where the result is returned. The
-    pyramid builds its levels and does the upsample-adds on
-    ``devices[0]`` over whole levels (what the JAX package gets from
-    XLA's halo exchanges), and runs each level's K6 band by band with
-    that level's offsets. Copies between distinct cards are plain tensor
+    pyramid runs ``__call__``'s loop: its levels and coarse-to-fine sum
+    on ``devices[0]`` over whole levels (what the JAX package gets from
+    XLA's halo exchanges), each level's K6 band by band with that
+    level's offsets. Copies between distinct cards are plain tensor
     copies; no test here runs more than one card.
     """
     if not self.fused:
@@ -307,19 +299,8 @@ class Enhancer:
       raise ValueError(f'height {h} is not divisible by {len(devices)} '
                        f'bands x 2^{n_levels - 1} pyramid halvings')
     grid = self._backbone_grid(lowres.permute(0, 3, 1, 2))
-    b, gh, gw, gd, _, ni1 = grid.shape
-    home = devices[0]
-    if not self.pyramid:
-      return _banded(grid.reshape(b, gh, gw, gd, -1), fullres.to(home),
-                     self.guide_params, self.guide_mode, devices, clip)
-    levels = gaussian_pyramid(fullres.to(home), n_levels)
-    current = None
-    for il, (lvl, params) in enumerate(zip(levels[::-1],
-                                           self.guide_params[::-1])):
-      sub = grid[..., 3 * il:3 * (il + 1), :].reshape(b, gh, gw, gd, 3 * ni1)
-      out = _banded(sub, lvl, params, 'nn', devices, clip=False)
-      current = out if current is None else upsample_add(current, out)
-    return torch.clamp(current, 0.0, 1.0) if clip else current
+    return self._apply_grid(grid, fullres.to(devices[0]),
+                            functools.partial(_banded, devices=devices), clip)
 
   def process(self, frame, clip=True):
     """Enhance one (B, H, W, n_in) float32 frame end to end: preview
@@ -458,7 +439,7 @@ class _StreamGraph:
     global graph_captures
     self.frame = torch.empty(shape, dtype=torch.uint8, device=device)
     self.graph = torch.cuda.CUDAGraph()
-    counts = [getattr(m, name) for m, name in _LAUNCH_COUNTERS]
+    counts = _build.launches.copy()
     # cuBLAS holds a 32 MiB workspace a stream. Dropped before the capture
     # and after it, as torch's own graph trees do: the capture's then lies
     # in the graph's pool, allocated to nothing, and the eager stream's is
@@ -473,26 +454,25 @@ class _StreamGraph:
         self.out = fn(self.frame)
     finally:
       torch._C._cuda_clearCublasWorkspaces()
-      self.launches = [getattr(m, name) - n
-                       for (m, name), n in zip(_LAUNCH_COUNTERS, counts)]
-      for (m, name), n in zip(_LAUNCH_COUNTERS, counts):
-        setattr(m, name, n)
+      # A capture launches nothing and a replay launches what it
+      # captured: the capture's counts move to its replays.
+      self.launches = _build.launches - counts
+      _build.launches.subtract(self.launches)
     graph_captures += 1
 
   def replay(self):
     global graph_replays
     self.graph.replay()
-    for (m, name), n in zip(_LAUNCH_COUNTERS, self.launches):
-      setattr(m, name, getattr(m, name) + n)
+    _build.launches.update(self.launches)
     graph_replays += 1
     return self.out
 
 
-def _banded(packed, frame, params, mode, devices, clip):
-  """K1 or K6 on the len(devices) H-bands of `frame`, band i on devices[i]
-  with y_offset = i * h_local and h_total = H; the bands concatenated on
-  the frame's device. Each device gets one copy of the grid and the
-  parameters, however often it repeats."""
+def _banded(packed, frame, params, mode, devices, **ends):
+  """``enhance_fused`` (its keywords `ends`) on the len(devices) H-bands of
+  `frame`, band i on devices[i] with y_offset = i * h_local and h_total =
+  H; the bands concatenated on the frame's device. Each device gets one
+  copy of the grid and the parameters, however often it repeats."""
   h = frame.shape[1]
   h_local = h // len(devices)
   copies = {}
@@ -503,8 +483,8 @@ def _banded(packed, frame, params, mode, devices, clip):
     grid_d, params_d = copies[dev]
     # A band of a batch of frames is not contiguous: copied here.
     band = frame[:, i * h_local:(i + 1) * h_local].to(dev).contiguous()
-    out = enhance_fused(grid_d, band, params_d, mode, clip_output=clip,
-                        y_offset=i * h_local, h_total=h)
+    out = enhance_fused(grid_d, band, params_d, mode, y_offset=i * h_local,
+                        h_total=h, **ends)
     outs.append(out.to(frame.device))
   return torch.cat(outs, dim=1)
 

@@ -9,6 +9,11 @@ flags, so a fresh checkout builds once and an edited source rebuilds.
 ``compile_parallel`` and ``install`` are the build steps that
 ``hdrnet_torch.native`` shares for its ``g++`` builds.
 
+The op wrappers reach the library through one seam: ``on_card`` picks the
+kernel or the plain twin from the tensors' device, and ``launch`` calls a
+launcher on the current stream, raises on its error and counts it in
+``launches``.
+
 No ``--use_fast_math``: the kernels rely on IEEE division (u8 / 255),
 IEEE ``sqrt`` (the smoothed depth tent) and the accurate ``expf`` (the NN
 guide's sigmoid) to match the plain versions.
@@ -16,6 +21,7 @@ guide's sigmoid) to match the plain versions.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -26,6 +32,8 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'hdrnet_torch'
@@ -203,3 +211,48 @@ def check(err, name):
   """Raises if a launcher returned a CUDA error code."""
   if err:
     raise RuntimeError(f'{name}: CUDA error {err} at launch')
+
+
+# Kernel launches by the wrappers (never by the plain twins), keyed by
+# launcher name, plus two counts that are not launchers: 'enhance_fused_band'
+# (K7, a K1 or K6 launch with a band offset or a total extent) and
+# 'slice_apply_pix_bwd_image' (a K4 launch that also gives the image's
+# cotangent). A CUDA graph's replay adds the launches it captured.
+launches = collections.Counter()
+
+
+def on_card(name, *tensors):
+  """False for CPU tensors (the wrapper runs its plain twin); True for
+  contiguous CUDA tensors on one device; raises otherwise."""
+  device = tensors[0].device
+  for t in tensors[1:]:
+    if t.device != device:
+      raise ValueError(f'{name}: tensors on different devices: '
+                       f'{sorted({str(t.device) for t in tensors})}')
+  if device.type == 'cpu':
+    return False
+  if device.type != 'cuda':
+    raise ValueError(f'{name}: unsupported device {device}')
+  for t in tensors:
+    if not t.is_contiguous():
+      raise ValueError(f'{name}: tensors must be contiguous')
+  return True
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(name):
+  return getattr(library().lib, name)
+
+
+def launch(name, device, *args):
+  """Calls launcher `name` of ``_SIGNATURES`` with `args` and the current
+  stream of `device` (made the current device if it is not), raises on
+  its error and counts it."""
+  if device.index == torch.cuda.current_device():
+    err = _launcher(name)(*args, torch.cuda.current_stream().cuda_stream)
+  else:  # the launcher runs on the current device: make it `device`
+    with torch.cuda.device(device):
+      err = _launcher(name)(*args,
+                            torch.cuda.current_stream(device).cuda_stream)
+  check(err, name)
+  launches[name] += 1

@@ -35,10 +35,6 @@ from hdrnet_torch.ops.resize import (_nearest_indices, device_table_cache,
                                      nearest_index_tensor)
 from hdrnet_torch.utils.timing import span
 
-# Kernel launches by nearest_lowres (never by the plain version).
-launches = 0
-# Kernel launches by nearest_lowres_onehot (K2x; never by the plain one).
-onehot_launches = 0
 ONEHOT_ROWS = {'gather': 0, 'mma': 1}
 
 
@@ -124,28 +120,16 @@ def _nearest_lowres(frame, s):
   # shorter than the call, so the host work is kept to the checks, one
   # table lookup, the output and the launch (scripts/time_kernels.py
   # reports the host microseconds a call).
-  global launches
   _check(frame, s)
-  dev = frame.device
-  if dev.type == 'cpu':
+  if not _build.on_card('nearest_lowres', frame):
     return nearest_lowres_plain(frame, s)
-  if dev.type != 'cuda':
-    raise ValueError(f'unsupported device {dev}')
-  if not frame.is_contiguous():
-    raise ValueError('frame must be contiguous')
+  dev = frame.device
   b, h, w, c = frame.shape
   _, _, iy, ix = _k2_tables(h, w, s, dev)
   out = torch.empty((b, c, s, s), dtype=torch.float32, device=dev)
-  args = (frame.data_ptr(), int(frame.dtype == torch.uint8), iy, ix,
-          out.data_ptr(), b, h, w, c, s)
-  launch = _build.library().lib.hdrnet_nearest_lowres
-  if dev.index == torch.cuda.current_device():
-    err = launch(*args, torch.cuda.current_stream().cuda_stream)
-  else:  # the launcher runs on the current device: make it the frame's
-    with torch.cuda.device(dev):
-      err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
-  _build.check(err, 'hdrnet_nearest_lowres')
-  launches += 1
+  _build.launch('hdrnet_nearest_lowres', dev, frame.data_ptr(),
+                int(frame.dtype == torch.uint8), iy, ix, out.data_ptr(), b,
+                h, w, c, s)
   return out
 
 
@@ -229,24 +213,14 @@ def nearest_lowres_onehot(frame_cf, s, rows='gather'):
   tensor: ``nearest_lowres_onehot_plain``. Float32 only, as the TPU
   kernel; raises on another dtype.
   """
-  global onehot_launches
   _check_onehot(frame_cf, s, rows)
-  if frame_cf.device.type == 'cpu':
+  if not _build.on_card('nearest_lowres_onehot', frame_cf):
     return nearest_lowres_onehot_plain(frame_cf, s, rows)
-  if frame_cf.device.type != 'cuda':
-    raise ValueError(f'unsupported device {frame_cf.device}')
-  if not frame_cf.is_contiguous():
-    raise ValueError('frame must be contiguous')
   b, c, h, w = frame_cf.shape
   iy = nearest_index_tensor(h, s, frame_cf.device)
   ix = nearest_index_tensor(w, s, frame_cf.device)
   out = torch.empty((b, c, s, s), dtype=torch.float32, device=frame_cf.device)
-  lib = _build.library().lib
-  with torch.cuda.device(frame_cf.device):
-    stream = torch.cuda.current_stream(frame_cf.device).cuda_stream
-    err = lib.hdrnet_downsample_onehot(
-        frame_cf.data_ptr(), iy.data_ptr(), ix.data_ptr(), out.data_ptr(),
-        b * c, h, w, s, ONEHOT_ROWS[rows], stream)
-  _build.check(err, 'hdrnet_downsample_onehot')
-  onehot_launches += 1
+  _build.launch('hdrnet_downsample_onehot', frame_cf.device,
+                frame_cf.data_ptr(), iy.data_ptr(), ix.data_ptr(),
+                out.data_ptr(), b * c, h, w, s, ONEHOT_ROWS[rows])
   return out

@@ -44,14 +44,6 @@ N_PARAMS = (N_IN + 1) * N_IN + 2 * N_IN * N_PTS + N_IN + 1
 MAX_GUIDE_COMPLEXITY = 64
 GUIDE_MODES = ('curves', 'nn')
 
-# Kernel launches by enhance_fused (never by the plain version): K1 in
-# curves mode, K6 in NN mode; K7 counts the launches of either with a
-# nonzero offset or a total extent beyond the frame's (they also count as
-# K1 or K6).
-launches = 0
-nn_launches = 0
-band_launches = 0
-
 
 def pack_curves_params(ccm_ext, curves, mix):
   """Packs the curves guide's parameters into one (112,) float32 vector.
@@ -308,21 +300,12 @@ def _(grid5, frame, params, guide_mode, clip_output, u8_output, *band):
 
 def _enhance_fused(grid5, frame, params, guide_mode, clip_output, u8_output,
                    y_offset, x_offset, h_total, w_total):
-  global launches, nn_launches, band_launches
   _check(grid5, frame, params, clip_output, u8_output, guide_mode)
   y_off, x_off, h_total, w_total = _band(frame, y_offset, x_offset, h_total,
                                          w_total)
-  devices = {grid5.device, frame.device, params.device}
-  if len(devices) != 1:
-    raise ValueError(f'tensors on different devices: {devices}')
-  if frame.device.type == 'cpu':
+  if not _build.on_card('enhance_fused', grid5, frame, params):
     return enhance_fused_plain(grid5, frame, params, guide_mode, clip_output,
                                u8_output, y_off, x_off, h_total, w_total)
-  if frame.device.type != 'cuda':
-    raise ValueError(f'unsupported device {frame.device}')
-  for name, t in (('grid', grid5), ('frame', frame), ('params', params)):
-    if not t.is_contiguous():
-      raise ValueError(f'{name} must be contiguous')
   if grid5.data_ptr() % 16:
     raise ValueError('grid must be 16-byte aligned (the kernel reads float4)')
   b, h, w, _ = frame.shape
@@ -334,30 +317,19 @@ def _enhance_fused(grid5, frame, params, guide_mode, clip_output, u8_output,
   out = torch.empty((b, h, w, N_OUT),
                     dtype=torch.uint8 if u8_output else torch.float32,
                     device=frame.device)
-  lib = _build.library().lib
-  u8_in = int(frame.dtype == torch.uint8)
   # The scales in double, rounded to float32 by ctypes: the same value a
   # whole frame of h_total x w_total gets, so its bands slice alike.
   band = (y_off, x_off, h_total, w_total, gh / h_total, gw / w_total)
-  with torch.cuda.device(frame.device):
-    stream = torch.cuda.current_stream(frame.device).cuda_stream
-    if guide_mode == 'curves':
-      name = 'hdrnet_enhance_fused'
-      err = lib.hdrnet_enhance_fused(
-          grid5.data_ptr(), frame.data_ptr(), u8_in, params.data_ptr(),
-          out.data_ptr(), int(u8_output), int(clip_output), b, h, w, gh, gw,
-          gd, *band, stream)
-    else:
-      name = 'hdrnet_enhance_fused_nn'
-      err = lib.hdrnet_enhance_fused_nn(
-          grid5.data_ptr(), frame.data_ptr(), u8_in, params.data_ptr(),
-          nn_guide_complexity(params), out.data_ptr(), int(u8_output),
-          int(clip_output), b, h, w, gh, gw, gd, *band, stream)
-  _build.check(err, name)
+  ptrs = (grid5.data_ptr(), frame.data_ptr(), int(frame.dtype == torch.uint8),
+          params.data_ptr())
   if guide_mode == 'curves':
-    launches += 1
+    _build.launch('hdrnet_enhance_fused', frame.device, *ptrs,
+                  out.data_ptr(), int(u8_output), int(clip_output), b, h, w,
+                  gh, gw, gd, *band)
   else:
-    nn_launches += 1
+    _build.launch('hdrnet_enhance_fused_nn', frame.device, *ptrs,
+                  nn_guide_complexity(params), out.data_ptr(), int(u8_output),
+                  int(clip_output), b, h, w, gh, gw, gd, *band)
   if (y_off, x_off, h_total, w_total) != (0, 0, h, w):
-    band_launches += 1
+    _build.launches['enhance_fused_band'] += 1
   return out

@@ -10,10 +10,10 @@ requantize trunc(v * 255 + 0.5). Both are bit for bit the ATen chain that
 ``models.hdrnet.gaussian_pyramid``, ``upsample_add``, ``torch.clamp`` and
 ``requantize`` compute, with ``ops.resize``'s float64 tap tables.
 
-On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
-the plain versions (``*_plain``), which are that chain, as does the
-serving route under ``torch.export`` (its resizes recorded as
-``hdrnet::resize_bilinear``). The training path (autograd, bands) keeps
+On a CUDA tensor the wrappers launch the kernels; on a CPU tensor, and
+under ``torch.export`` (which records the resizes as
+``hdrnet::resize_bilinear``), they run the plain versions (``*_plain``),
+which are that chain. The training path (autograd, bands) keeps
 ``ops.resize``.
 """
 
@@ -27,10 +27,6 @@ from hdrnet_torch.ops.resize import linear_tap_tensors, resize_bilinear
 from hdrnet_torch.utils.timing import span
 
 N_CHANNELS = 3
-
-# Kernel launches by the wrappers (never by the plain versions).
-down_launches = 0
-up_launches = 0
 
 
 def requantize(out):
@@ -59,30 +55,19 @@ def pyramid_up_add_plain(current, level_out, clip_output=False,
 
 
 def _check_image(name, x, dtypes):
+  """A contiguous (B, H, W, 3) image of `dtypes` whose rows the kernels'
+  32-bit index reaches; raises otherwise."""
   if x.ndim != 4 or x.shape[-1] != N_CHANNELS:
     raise ValueError(f'{name} must be (B, H, W, {N_CHANNELS}), got '
                      f'{tuple(x.shape)}')
   if x.dtype not in dtypes:
     raise TypeError(f'{name} must be {" or ".join(map(str, dtypes))}, got '
                     f'{x.dtype}')
-
-
-def _check_device(*tensors):
-  """'cpu' or 'cuda' for contiguous tensors on one such device; raises
-  otherwise, and for a row past the kernels' 32-bit index."""
-  devices = {t.device for t in tensors}
-  if len(devices) != 1:
-    raise ValueError(f'tensors on different devices: {devices}')
-  kind = tensors[0].device.type
-  if kind not in ('cpu', 'cuda'):
-    raise ValueError(f'unsupported device {tensors[0].device}')
-  if not all(t.is_contiguous() for t in tensors):
-    raise ValueError('the images must be contiguous')
-  w = max(t.shape[2] for t in tensors)
-  if w * N_CHANNELS >= 2**31:
-    raise ValueError(f'a row of {w} pixels exceeds the kernels\' 32-bit '
-                     f'index')
-  return kind
+  if not x.is_contiguous():
+    raise ValueError(f'{name} must be contiguous')
+  if x.shape[2] * N_CHANNELS >= 2**31:
+    raise ValueError(f'a row of {x.shape[2]} pixels exceeds the kernels\' '
+                     f'32-bit index')
 
 
 def _taps(h_in, w_in, h_out, w_out, device):
@@ -96,11 +81,12 @@ def _taps(h_in, w_in, h_out, w_out, device):
 def pyramid_down(frame):
   """One level of the Gaussian pyramid: (B, H, W, 3) float32, or uint8
   (divided by 255), -> (B, H // 2, W // 2, 3) float32, the bilinear
-  (align_corners) resize. CUDA tensors: the kernel; CPU tensors:
-  ``pyramid_down_plain``."""
-  global down_launches
+  (align_corners) resize. CUDA tensors: the kernel; CPU tensors and
+  ``torch.export``: ``pyramid_down_plain``."""
+  if torch.compiler.is_compiling():
+    return pyramid_down_plain(frame)
   _check_image('frame', frame, (torch.float32, torch.uint8))
-  if _check_device(frame) == 'cpu':
+  if not _build.on_card('pyramid_down', frame):
     return pyramid_down_plain(frame)
   b, h, w, _ = frame.shape
   out = torch.empty((b, h // 2, w // 2, N_CHANNELS), dtype=torch.float32,
@@ -108,14 +94,10 @@ def pyramid_down(frame):
   if out.numel() == 0:
     return out
   taps = _taps(h, w, h // 2, w // 2, frame.device)
-  with torch.cuda.device(frame.device):
-    err = _build.library().lib.hdrnet_pyramid_down(
-        frame.data_ptr(), int(frame.dtype == torch.uint8),
-        *(t.data_ptr() for t in taps),
-        out.data_ptr(), b, h, w, h // 2, w // 2,
-        torch.cuda.current_stream(frame.device).cuda_stream)
-  _build.check(err, 'hdrnet_pyramid_down')
-  down_launches += 1
+  _build.launch('hdrnet_pyramid_down', frame.device, frame.data_ptr(),
+                int(frame.dtype == torch.uint8),
+                *(t.data_ptr() for t in taps), out.data_ptr(), b, h, w,
+                h // 2, w // 2)
   return out
 
 
@@ -124,9 +106,10 @@ def pyramid_up_add(current, level_out, clip_output=False, u8_output=False):
   bilinearly (align_corners) onto `level_out`'s (B, H, W, 3), plus
   `level_out`, both float32; then, with `clip_output`, clipped to [0, 1],
   and with `u8_output` (which needs the clip) requantized to uint8 as
-  trunc(v * 255 + 0.5). CUDA tensors: the kernel; CPU tensors:
-  ``pyramid_up_add_plain``."""
-  global up_launches
+  trunc(v * 255 + 0.5). CUDA tensors: the kernel; CPU tensors and
+  ``torch.export``: ``pyramid_up_add_plain``."""
+  if torch.compiler.is_compiling():
+    return pyramid_up_add_plain(current, level_out, clip_output, u8_output)
   _check_image('current', current, (torch.float32,))
   _check_image('level_out', level_out, (torch.float32,))
   b, h, w, _ = level_out.shape
@@ -137,7 +120,7 @@ def pyramid_up_add(current, level_out, clip_output=False, u8_output=False):
   if u8_output and not clip_output:
     raise ValueError('u8 output requires clip_output=True')
   with span('hdrnet.model.levels'):
-    if _check_device(current, level_out) == 'cpu':
+    if not _build.on_card('pyramid_up_add', current, level_out):
       return pyramid_up_add_plain(current, level_out, clip_output, u8_output)
     out = torch.empty(level_out.shape,
                       dtype=torch.uint8 if u8_output else torch.float32,
@@ -145,14 +128,10 @@ def pyramid_up_add(current, level_out, clip_output=False, u8_output=False):
     if out.numel() == 0:
       return out
     taps = _taps(h // 2, w // 2, h, w, level_out.device)
-    with torch.cuda.device(level_out.device):
-      err = _build.library().lib.hdrnet_pyramid_up_add(
-          current.data_ptr(), level_out.data_ptr(),
-          *(t.data_ptr() for t in taps), out.data_ptr(),
-          int(clip_output), int(u8_output), b, h // 2, w // 2, h, w,
-          torch.cuda.current_stream(level_out.device).cuda_stream)
-    _build.check(err, 'hdrnet_pyramid_up_add')
-    up_launches += 1
+    _build.launch('hdrnet_pyramid_up_add', level_out.device,
+                  current.data_ptr(), level_out.data_ptr(),
+                  *(t.data_ptr() for t in taps), out.data_ptr(),
+                  int(clip_output), int(u8_output), b, h // 2, w // 2, h, w)
     return out
 
 

@@ -25,8 +25,8 @@ import functools
 import numpy as np
 import torch
 
-# The device tables handed out inside ``holding_tables``, or None.
-_held = None
+# The lists of ``holding_tables`` blocks open now, innermost last.
+_holders = []
 
 
 @contextlib.contextmanager
@@ -35,12 +35,11 @@ def holding_tables():
   is also appended to the list this yields. A CUDA graph's capture keeps
   the tables its launches read: a replay reads them long after the cache
   may have dropped them."""
-  global _held
-  saved, _held = _held, []
+  _holders.append([])
   try:
-    yield _held
+    yield _holders[-1]
   finally:
-    _held = saved
+    _holders.pop()
 
 
 def device_table_cache(maxsize):
@@ -52,8 +51,8 @@ def device_table_cache(maxsize):
     @functools.wraps(build)
     def lookup(*args, **kwargs):
       tables = cached(*args, **kwargs)
-      if _held is not None:
-        _held.append(tables)
+      if _holders:
+        _holders[-1].append(tables)
       return tables
     lookup.cache_clear = cached.cache_clear
     return lookup

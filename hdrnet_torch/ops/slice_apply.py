@@ -45,12 +45,6 @@ from hdrnet_torch.ops import reference as ref
 # Dynamic shared memory one block may use on Hopper (sm_90).
 _MAX_SMEM = 227 * 1024
 
-# Kernel launches by the wrappers (never by the plain versions).
-fwd_launches = 0       # K3
-pix_bwd_launches = 0   # K4
-pix_bwd_image_launches = 0  # K4 launches that also give the image's cotangent
-grid_bwd_launches = 0  # K5
-
 
 def _ni_tot(n_in, has_offset):
   return n_in + 1 if has_offset else n_in
@@ -89,26 +83,11 @@ def _check(grid_shape, guide, image, ct, has_offset):
   return n_in, n_out
 
 
-def _on_card(name, *tensors):
-  """True for CUDA tensors (after checking them), False for CPU ones."""
-  devices = {t.device for t in tensors}
-  if len(devices) != 1:
-    raise ValueError(f'{name}: tensors on different devices: {devices}')
-  dev = devices.pop()
-  if dev.type == 'cpu':
-    return False
-  if dev.type != 'cuda':
-    raise ValueError(f'{name}: unsupported device {dev}')
+def _float32(name, *tensors):
+  """Raises unless the tensors are float32, the kernels' only dtype (the
+  plain versions take any floating one)."""
   if any(t.dtype != torch.float32 for t in tensors):
     raise TypeError(f'{name}: the kernel takes float32 tensors')
-  for t in tensors:
-    if not t.is_contiguous():
-      raise ValueError(f'{name}: tensors must be contiguous')
-  return True
-
-
-def _stream(dev):
-  return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _band(band, h):
@@ -202,21 +181,18 @@ def _(grid5, guide, image, has_offset):
 
 
 def _slice_apply_fwd(grid5, guide, image, has_offset, band=None):
-  global fwd_launches
   n_in, n_out = _check(tuple(grid5.shape), guide, image, None, has_offset)
   y_off, h_total = _band(band, guide.shape[1])
-  if not _on_card('slice_apply_fwd', grid5, guide, image):
+  if not _build.on_card('slice_apply_fwd', grid5, guide, image):
     return slice_apply_fwd_plain(grid5, guide, image, has_offset, band)
+  _float32('slice_apply_fwd', grid5, guide, image)
   b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image)
   out = torch.empty((b, h, w, n_out), dtype=torch.float32,
                     device=guide.device)
-  with torch.cuda.device(guide.device):
-    err = _build.library().lib.hdrnet_slice_apply_fwd(
-        grid5.data_ptr(), guide.data_ptr(), image.data_ptr(), out.data_ptr(),
-        b, h, w, gh, gw, gd, n_in, n_out, int(has_offset), y_off, h_total,
-        gh / h_total, gw / w, _stream(guide.device))
-  _build.check(err, 'hdrnet_slice_apply_fwd')
-  fwd_launches += 1
+  _build.launch('hdrnet_slice_apply_fwd', guide.device, grid5.data_ptr(),
+                guide.data_ptr(), image.data_ptr(), out.data_ptr(), b, h, w,
+                gh, gw, gd, n_in, n_out, int(has_offset), y_off, h_total,
+                gh / h_total, gw / w)
   return out
 
 
@@ -228,27 +204,25 @@ def slice_apply_pix_bwd(grid5, guide, image, ct, has_offset=True,
   ``need_input``). CUDA tensors: kernel K4. CPU tensors: the plain
   version.
   """
-  global pix_bwd_launches, pix_bwd_image_launches
   n_in, n_out = _check(tuple(grid5.shape), guide, image, ct, has_offset)
   y_off, h_total = _band(band, guide.shape[1])
-  if not _on_card('slice_apply_pix_bwd', grid5, guide, image, ct):
+  if not _build.on_card('slice_apply_pix_bwd', grid5, guide, image, ct):
     return slice_apply_pix_bwd_plain(grid5, guide, image, ct, has_offset,
                                      need_input, band)
+  _float32('slice_apply_pix_bwd', grid5, guide, image, ct)
   b, h, w, gh, gw, gd, _ = _dims(grid5.shape, guide, image)
   dev = guide.device
   d_guide = torch.empty((b, h, w), dtype=torch.float32, device=dev)
   d_image = (torch.empty((b, h, w, n_in), dtype=torch.float32, device=dev)
              if need_input else None)
-  with torch.cuda.device(dev):
-    err = _build.library().lib.hdrnet_slice_apply_pix_bwd(
-        grid5.data_ptr(), guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
-        d_guide.data_ptr(), None if d_image is None else d_image.data_ptr(),
-        b, h, w, gh, gw, gd, n_in, n_out, int(has_offset), y_off, h_total,
-        gh / h_total, gw / w, _stream(dev))
-  _build.check(err, 'hdrnet_slice_apply_pix_bwd')
-  pix_bwd_launches += 1
+  _build.launch('hdrnet_slice_apply_pix_bwd', dev, grid5.data_ptr(),
+                guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
+                d_guide.data_ptr(),
+                None if d_image is None else d_image.data_ptr(), b, h, w, gh,
+                gw, gd, n_in, n_out, int(has_offset), y_off, h_total,
+                gh / h_total, gw / w)
   if need_input:
-    pix_bwd_image_launches += 1
+    _build.launches['slice_apply_pix_bwd_image'] += 1
   return d_guide, d_image
 
 
@@ -306,25 +280,22 @@ def slice_apply_grid_bwd(grid_shape, guide, image, ct, has_offset=True,
   per block into a scratch tensor allocated here (``grid_bwd_plan``
   sizes it), then sums them. CPU tensors: the plain version.
   """
-  global grid_bwd_launches
   grid_shape = tuple(int(d) for d in grid_shape)
   n_in, n_out = _check(grid_shape, guide, image, ct, has_offset)
   y_off, h_total = _band(band, guide.shape[1])
-  if not _on_card('slice_apply_grid_bwd', guide, image, ct):
+  if not _build.on_card('slice_apply_grid_bwd', guide, image, ct):
     return slice_apply_grid_bwd_plain(grid_shape, guide, image, ct,
                                       has_offset, band)
+  _float32('slice_apply_grid_bwd', guide, image, ct)
   b, h, w, gh, gw, gd, _ = _dims(grid_shape, guide, image)
   strips, floats, _ = grid_bwd_plan(grid_shape, guide, band)
   pad_y, pad_x = _pad_y(h, w, h_total, gh, gw)
   dev = guide.device
   scratch = torch.empty((floats,), dtype=torch.float32, device=dev)
   out = torch.empty(grid_shape, dtype=torch.float32, device=dev)
-  with torch.cuda.device(dev):
-    err = _build.library().lib.hdrnet_slice_apply_grid_bwd(
-        guide.data_ptr(), image.data_ptr(), ct.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), b, h, w, gh, gw, gd, n_in, n_out,
-        int(has_offset), y_off, h_total, gh / h_total, gw / w, pad_y, pad_x,
-        strips, _stream(dev))
-  _build.check(err, 'hdrnet_slice_apply_grid_bwd')
-  grid_bwd_launches += 1
+  _build.launch('hdrnet_slice_apply_grid_bwd', dev, guide.data_ptr(),
+                image.data_ptr(), ct.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), b, h, w, gh, gw, gd, n_in, n_out,
+                int(has_offset), y_off, h_total, gh / h_total, gw / w, pad_y,
+                pad_x, strips)
   return out

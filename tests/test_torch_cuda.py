@@ -20,9 +20,21 @@ import pytest
 import torch
 
 from hdrnet_torch.inference import Enhancer, ModelConfig
-from hdrnet_torch.ops import downsample, fused, slice_apply, slice_ops
+from hdrnet_torch.ops import _build, downsample, fused, slice_apply, slice_ops
 
 pytestmark = pytest.mark.gpu
+
+# ``_build.launches`` keys of the kernels.
+K1, K2, K2X = ('hdrnet_enhance_fused', 'hdrnet_nearest_lowres',
+               'hdrnet_downsample_onehot')
+K3, K4, K5 = ('hdrnet_slice_apply_fwd', 'hdrnet_slice_apply_pix_bwd',
+              'hdrnet_slice_apply_grid_bwd')
+K6, K7 = 'hdrnet_enhance_fused_nn', 'enhance_fused_band'
+
+
+def _since(before):
+  """The launches counted since `before`, a copy of ``_build.launches``."""
+  return _build.launches - before
 
 
 @pytest.fixture
@@ -78,9 +90,9 @@ def _frame(dev, shape, u8, seed=0):
 def test_downsample_kernel_bit_exact(cuda, shape, u8):
   b, h, w, c, s = shape
   x = _frame(cuda, (b, h, w, c), u8)
-  before = downsample.launches
+  before = _build.launches.copy()
   got = downsample.nearest_lowres(x, s)
-  assert downsample.launches == before + 1
+  assert _since(before) == {K2: 1}
   want = downsample.nearest_lowres_plain(x, s)
   torch.cuda.synchronize()
   assert got.shape == (b, c, s, s) and got.dtype == torch.float32
@@ -108,9 +120,9 @@ def test_downsample_kernel_past_32_bit_index(cuda):
 def test_fused_kernel_f32(cuda, shape, grid_shape, clip):
   grid, frame, params = _inputs(1, *shape, cuda, u8=False, gh=grid_shape[0],
                                 gw=grid_shape[1], gd=grid_shape[2])
-  before = fused.launches
+  before = _build.launches.copy()
   got = fused.enhance_fused(grid, frame, params, clip_output=clip)
-  assert fused.launches == before + 1
+  assert _since(before) == {K1: 1}
   want = fused.enhance_fused_plain(grid, frame, params, clip_output=clip)
   torch.cuda.synchronize()
   assert got.shape == frame.shape and got.dtype == torch.float32
@@ -170,10 +182,10 @@ def _nn_inputs(seed, b, h, w, gc, dev, u8):
 def test_fused_nn_kernel(cuda, gc, b, u8_in, u8_out, clip):
   """K6: f32 clip off and on, u8 -> u8, u8 -> f32, at 101x60."""
   grid, frame, params = _nn_inputs(5, b, 101, 60, gc, cuda, u8_in)
-  counts = (fused.launches, fused.nn_launches)
+  before = _build.launches.copy()
   got = fused.enhance_fused(grid, frame, params, 'nn', clip_output=clip,
                             u8_output=u8_out)
-  assert (fused.launches, fused.nn_launches) == (counts[0], counts[1] + 1)
+  assert _since(before) == {K6: 1}
   want = fused.enhance_fused_plain(grid, frame, params, 'nn',
                                    clip_output=clip, u8_output=u8_out)
   torch.cuda.synchronize()
@@ -256,11 +268,11 @@ def test_nn_serving_matches_cpu(cuda, name):
   on_cpu = Enhancer(cfg, device='cpu', seed=4)
   rng = np.random.RandomState(6)
   frame = torch.from_numpy(rng.rand(2, 301, 533, 3).astype(np.float32))
-  counts = (downsample.launches, fused.nn_launches)
+  before = _build.launches.copy()
   got = on_card.process(frame.to(cuda)).cpu()
   k6 = 3 if name == 'HDRNetGaussianPyrNN' else 1
-  assert (downsample.launches, fused.nn_launches) == (counts[0] + 1,
-                                                      counts[1] + k6)
+  moved = _since(before)
+  assert (moved[K2], moved[K1], moved[K6]) == (1, 0, k6)
   torch.testing.assert_close(got, on_cpu.process(frame), rtol=0, atol=1e-4)
   frames = [(rng.rand(1, 301, 533, 3) * 255).astype(np.uint8)
             for _ in range(2)]
@@ -333,16 +345,14 @@ def test_slice_apply_kernels_match_plain(cuda, shape, n_in):
   n_out = 5 if n_in == 0 else 3
   grid, guide, image, ct = _train_inputs(6, b, h, w, n_in, cuda, gh, gw, gd,
                                          n_out)
-  counts = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
-            slice_apply.grid_bwd_launches)
+  before = _build.launches.copy()
   out = slice_apply.slice_apply_fwd(grid, guide, image)
   d_guide, d_image = slice_apply.slice_apply_pix_bwd(grid, guide, image, ct)
   d_grid = slice_apply.slice_apply_grid_bwd(grid.shape, guide, image, ct)
   again = slice_apply.slice_apply_grid_bwd(grid.shape, guide, image, ct)
   torch.cuda.synchronize()
-  assert (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
-          slice_apply.grid_bwd_launches) == (counts[0] + 1, counts[1] + 1,
-                                             counts[2] + 2)
+  assert _since(before) == {K3: 1, K4: 1, 'slice_apply_pix_bwd_image': 1,
+                            K5: 2}
   torch.testing.assert_close(
       out, slice_apply.slice_apply_fwd_plain(grid, guide, image), rtol=0,
       atol=1e-4)
@@ -483,10 +493,10 @@ def test_train_step_on_card_matches_cpu(cuda):
     model = make_model(cfg, generator=torch.Generator().manual_seed(4))
     model = model.to(dev)
     state = step.create_state(model, loop.make_optimizer(model, tc))
-    counts = slice_apply.fwd_launches
+    before = _build.launches.copy()
     state, m = step.make_train_step(guide_reg=0.5)(
         state, step.to_device(batch, dev))
-    assert slice_apply.fwd_launches == counts + (dev.type == 'cuda')
+    assert _since(before)[K3] == (dev.type == 'cuda')
     runs.append((float(m['loss']),
                  [p.grad.cpu() for p in model.parameters()]))
   (loss_card, g_card), (loss_cpu, g_cpu) = runs
@@ -504,9 +514,9 @@ def test_downsample_kernel_gather_cases(cuda, shape, u8):
   K2's kernel, one launch, bit-exact."""
   b, h, w, s = shape
   x = _frame(cuda, (b, h, w, 3), u8, seed=2)
-  before = downsample.launches
+  before = _build.launches.copy()
   got = downsample.nearest_lowres(x, s)
-  assert downsample.launches == before + 1
+  assert _since(before) == {K2: 1}
   assert torch.equal(got, downsample.nearest_lowres_plain(x, s))
 
 
@@ -522,7 +532,7 @@ def test_fused_kernel_bands(cuda, mode, u8):
     grid, frame, params = _inputs(9, 2, 203, 311, cuda, u8)
   kw = dict(clip_output=True, u8_output=u8)
   whole = fused.enhance_fused(grid, frame, params, mode, **kw)
-  counts = fused.band_launches
+  before = _build.launches.copy()
   bands = []
   for y0, y1 in ((0, 51), (51, 102), (102, 150), (150, 203)):
     band = frame[:, y0:y1].contiguous()
@@ -537,7 +547,7 @@ def test_fused_kernel_bands(cuda, mode, u8):
       torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
     bands.append(got)
   assert torch.equal(torch.cat(bands, 1), whole)
-  assert fused.band_launches == counts + 4
+  assert _since(before)[K7] == 4
   tile = frame[:, 40:90, 100:250].contiguous()
   got = fused.enhance_fused(grid, tile, params, mode, y_offset=40,
                             x_offset=100, h_total=203, w_total=311, **kw)
@@ -560,13 +570,14 @@ def test_enhance_sharded_on_card(cuda, name):
   frame = rng.rand(1, 544, 600, 3).astype(np.float32)
   low = downsample.nearest_lowres_plain(torch.from_numpy(frame), 256)
   low = low.permute(0, 2, 3, 1).numpy()
-  counts = (fused.launches, fused.nn_launches, fused.band_launches)
+  before = _build.launches.copy()
   got = on_card.enhance_sharded(low, frame, [cuda] * 4)
   torch.cuda.synchronize()
   k = 12 if name == 'HDRNetGaussianPyrNN' else 4
   curves = name == 'HDRNetCurves'
-  assert (fused.launches, fused.nn_launches, fused.band_launches) == (
-      counts[0] + k * curves, counts[1] + k * (not curves), counts[2] + k)
+  moved = _since(before)
+  assert (moved[K1], moved[K6], moved[K7]) == (k * curves, k * (not curves),
+                                               k)
   assert torch.equal(got, on_card.enhance_any(low, frame))
   torch.testing.assert_close(got.cpu(), on_cpu.enhance_any(low, frame),
                              rtol=0, atol=1e-4)
@@ -605,12 +616,12 @@ def test_evaluate_cli_on_card(cuda, tmp_path, capsys):
   train(cfg, str(ckpt), str(data))
   results = {}
   for serving in (False, True):
-    counts = (slice_apply.fwd_launches, fused.launches)
+    before = _build.launches.copy()
     evaluate.main([str(ckpt), str(data)] + ['--serving'] * serving)
     results[serving] = json.loads(
         capsys.readouterr().out.strip().splitlines()[-1])
-    moved = (slice_apply.fwd_launches - counts[0], fused.launches - counts[1])
-    assert moved == ((0, 3) if serving else (3, 0))
+    moved = _since(before)
+    assert (moved[K3], moved[K1]) == ((0, 3) if serving else (3, 0))
   assert results[False]['n_images'] == results[True]['n_images'] == 3
   assert np.isfinite(results[False]['mean_psnr_db'])
   np.testing.assert_allclose(results[True]['mean_psnr_db'],
@@ -636,9 +647,9 @@ def test_onehot_downsample_kernel_bit_exact(cuda, shape, offset, rows):
   gen = torch.Generator(device=cuda).manual_seed(1)
   x = torch.rand(b * 3 * h * w + offset, generator=gen, device=cuda)
   x = x[offset:].view(b, 3, h, w)
-  before = downsample.onehot_launches
+  before = _build.launches.copy()
   got = downsample.nearest_lowres_onehot(x, s, rows)
-  assert downsample.onehot_launches == before + 1
+  assert _since(before) == {K2X: 1}
   want = downsample.nearest_lowres_onehot_plain(x, s, rows)
   k2 = downsample.nearest_lowres(x.permute(0, 2, 3, 1).contiguous(), s)
   torch.cuda.synchronize()
@@ -701,7 +712,7 @@ def test_registered_ops_run_the_kernels(cuda):
   """The hdrnet:: ops that exported graphs call launch the same kernels
   as the direct wrappers, with the same bits."""
   grid, frame, params = _inputs(2, 1, 101, 61, cuda, False)
-  counts = (downsample.launches, fused.launches, slice_apply.fwd_launches)
+  before = _build.launches.copy()
   want = (downsample.nearest_lowres(frame, 32),
           fused.enhance_fused(grid, frame, params, clip_output=True),
           slice_apply.slice_apply_fwd(grid, frame[..., 0].contiguous(),
@@ -714,8 +725,7 @@ def test_registered_ops_run_the_kernels(cuda):
   torch.cuda.synchronize()
   for g, w in zip(got, want):
     assert torch.equal(g, w)
-  assert (downsample.launches, fused.launches,
-          slice_apply.fwd_launches) == tuple(c + 2 for c in counts)
+  assert _since(before) == {K2: 2, K1: 2, K3: 2}
 
 
 @pytest.mark.parametrize('name', ['HDRNetCurves', 'HDRNetGaussianPyrNN'])
@@ -746,10 +756,11 @@ def test_export_round_trip_on_card(cuda, name, tmp_path):
       ('serve_any_fn', (low, full[:, :77, :101].contiguous()),
        enh(low, full[:, :77, :101].contiguous()))]:
     fn = export.load_artifact(str(tmp_path / f'{fn_name}.pt2'))
-    before = fused.launches + fused.nn_launches
+    before = _build.launches.copy()
     got = fn(*args)
     torch.cuda.synchronize()
-    assert fused.launches + fused.nn_launches > before, fn_name
+    moved = _since(before)
+    assert moved[K1] + moved[K6] > 0, fn_name
     assert torch.equal(got, want), fn_name
 
 
@@ -937,7 +948,7 @@ def test_zoo_model_backward_on_card_matches_plain(cuda, name, cm, n_in):
       slice_apply.slice_apply_grid_bwd = slice_apply.slice_apply_grid_bwd_plain
       pix_bwd = slice_apply.slice_apply_pix_bwd_plain
     slice_apply.slice_apply_pix_bwd = pix_bwd
-    k4 = slice_apply.pix_bwd_launches
+    before = _build.launches.copy()
     try:
       with full_float32():
         out = m(low.to(dev), x)
@@ -948,7 +959,7 @@ def test_zoo_model_backward_on_card_matches_plain(cuda, name, cm, n_in):
        slice_apply.slice_apply_grid_bwd) = saved
     if not plain:
       n = 3 if 'Pyr' in name else 1
-      assert slice_apply.pix_bwd_launches == k4 + n and flags == [True] * n
+      assert _since(before)[K4] == n and flags == [True] * n
     runs.append([g.cpu() for g in grads])
   for got, want in zip(*runs):
     torch.testing.assert_close(got, want, rtol=0,
@@ -981,18 +992,21 @@ def test_composite_serving_on_card_matches_plain(cuda, name):
   cfg = ModelConfig(model_name=name, n_in=n_in, channel_multiplier=2)
   enh = Enhancer(cfg, device=cuda, seed=4)
   frame = torch.rand((1, 540, 964, n_in), device=cuda)
-  k2, k1, k6 = downsample.launches, fused.launches, fused.nn_launches
+  before = _build.launches.copy()
   got = enh.process(frame)
   torch.cuda.synchronize()
-  assert not enh.fused and downsample.launches == k2 + 1
-  assert (fused.launches, fused.nn_launches) == (k1, k6)
+  moved = _since(before)
+  assert not enh.fused and moved[K2] == 1
+  assert (moved[K1], moved[K6]) == (0, 0)
   saved = slice_apply.slice_apply_fwd, inference.nearest_lowres
   slice_apply.slice_apply_fwd = slice_apply.slice_apply_fwd_plain
   inference.nearest_lowres = downsample.nearest_lowres_plain
+  before = _build.launches.copy()
   try:
     want = enh.process(frame)
   finally:
     slice_apply.slice_apply_fwd, inference.nearest_lowres = saved
+  assert _build.launches == before  # the plain pass launched nothing
   assert got.shape == (1, 540, 964, 3)
   torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
@@ -1077,15 +1091,13 @@ def test_train_device_data_on_card(cuda, tmp_path):
                       net_input_size=32, device_data=True, rotate=True,
                       fliplr=True, device_normalize=True),
       train=TrainConfig(max_steps=4))
-  before = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
-            slice_apply.grid_bwd_launches)
+  before = _build.launches.copy()
   state = loop.train(cfg, str(tmp_path / 'ckpt'), str(tmp_path),
                      device=cuda)
   torch.cuda.synchronize()
-  after = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
-           slice_apply.grid_bwd_launches)
+  moved = _since(before)
   assert (state.step, state.data_route) == (4, 'device')
-  assert [a - b for a, b in zip(after, before)] == [4, 4, 4]
+  assert [moved[k] for k in (K3, K4, K5)] == [4, 4, 4]
   assert torch.isfinite(state.ema_loss)
 
 
@@ -1288,13 +1300,14 @@ def test_stream_graph_matches_eager_bit_for_bit(cuda, name, bf16, hw):
                  coeff_bf16=bf16)
   frames = _u8_frames(5, (1, *hw, 3))
   captures, replays = _graph_counts()
-  k2, k1, k6 = downsample.launches, fused.launches, fused.nn_launches
+  before = _build.launches.copy()
   outs = list(enh.stream(iter(frames)))
   assert _graph_counts() == (captures + 1, replays + 4)
   per_frame = ((0, 3) if name == 'HDRNetGaussianPyrNN'
                else (0, 1) if name == 'HDRNetPointwiseNNGuide' else (1, 0))
-  assert (downsample.launches - k2, fused.launches - k1,
-          fused.nn_launches - k6) == (5, 5 * per_frame[0], 5 * per_frame[1])
+  moved = _since(before)
+  assert (moved[K2], moved[K1], moved[K6]) == (5, 5 * per_frame[0],
+                                               5 * per_frame[1])
   assert len(outs) == len(frames)
   for f, out in zip(frames, outs):
     assert out.dtype == np.uint8 and out.shape == f.shape

@@ -17,7 +17,7 @@ import torch
 
 from hdrnet_torch.inference import Enhancer, ModelConfig
 from hdrnet_torch.models.hdrnet import gaussian_pyramid, upsample_add
-from hdrnet_torch.ops import levels
+from hdrnet_torch.ops import _build, levels
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
 
@@ -78,7 +78,8 @@ def _torch_route(enh, low, frame, clip=True, u8=False):
 
 
 def _launches():
-  return levels.down_launches, levels.up_launches
+  return (_build.launches['hdrnet_pyramid_down'],
+          _build.launches['hdrnet_pyramid_up_add'])
 
 
 @pytest.mark.parametrize('dtype', [torch.uint8, torch.float32])
@@ -143,7 +144,7 @@ def test_enhancer_pyramid_routes_give_the_torch_routes_values():
   enh = Enhancer(ModelConfig(**SMALL), device='cpu', seed=3)
   u8 = _frame((1, 43, 61), torch.uint8, seed=2)
   f32 = _frame((2, 40, 56), torch.float32, seed=3)
-  before = _launches()
+  before = _build.launches.copy()
   got = enh.make_stream_fn(u8.shape)(u8)
   want = _torch_route(enh, nearest_lowres(u8, 32), u8, clip=True, u8=True)
   assert got.dtype == torch.uint8 and torch.equal(got, want)
@@ -154,7 +155,7 @@ def test_enhancer_pyramid_routes_give_the_torch_routes_values():
   assert torch.equal(
       enh.enhance_any(low.permute(0, 2, 3, 1).numpy(), f32.numpy()),
       _torch_route(enh, low, f32))
-  assert _launches() == before
+  assert _build.launches == before
 
 
 # On the card.
@@ -177,9 +178,9 @@ CARD_SHAPES = [(1, 2160, 3840), (1, 2161, 3839), (1, 200, 320), (2, 43, 61),
 @pytest.mark.parametrize('shape', CARD_SHAPES)
 def test_pyramid_down_kernel_is_plain_bit_for_bit(cuda, shape, dtype):
   frame = _frame(shape, dtype).to(cuda)
-  n = levels.down_launches
+  n = _build.launches['hdrnet_pyramid_down']
   got = levels.pyramid_down(frame)
-  assert levels.down_launches == n + 1
+  assert _build.launches['hdrnet_pyramid_down'] == n + 1
   torch.cuda.synchronize()
   assert torch.equal(got, levels.pyramid_down_plain(frame))
   assert torch.equal(got.cpu(), levels.pyramid_down_plain(frame.cpu()))
@@ -190,9 +191,9 @@ def test_pyramid_down_kernel_is_plain_bit_for_bit(cuda, shape, dtype):
 @pytest.mark.parametrize('shape', CARD_SHAPES)
 def test_pyramid_up_add_kernel_is_plain_bit_for_bit(cuda, shape, clip, u8):
   current, level = (t.to(cuda) for t in _sum_inputs(shape))
-  n = levels.up_launches
+  n = _build.launches['hdrnet_pyramid_up_add']
   got = levels.pyramid_up_add(current, level, clip, u8)
-  assert levels.up_launches == n + 1
+  assert _build.launches['hdrnet_pyramid_up_add'] == n + 1
   torch.cuda.synchronize()
   assert torch.equal(got, levels.pyramid_up_add_plain(current, level, clip,
                                                       u8))

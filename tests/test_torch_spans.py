@@ -26,7 +26,7 @@ from hdrnet_torch.config import Config, DataConfig, ModelConfig, TrainConfig
 from hdrnet_torch.data.device import DeviceDataset, make_device_augment
 from hdrnet_torch.inference import Enhancer
 from hdrnet_torch.models import make_model
-from hdrnet_torch.ops import slice_apply
+from hdrnet_torch.ops import _build, slice_apply
 from hdrnet_torch.training import loop
 from hdrnet_torch.training.step import create_state, make_train_step
 from hdrnet_torch.utils import timing
@@ -184,11 +184,10 @@ def test_k4_gives_the_image_cotangent_only_to_learned_features(
     return whole(*args, **kwargs)
   monkeypatch.setattr(slice_apply, 'slice_apply_pix_bwd', spy)
   state, feed = _train_setup(name)
-  before = (slice_apply.pix_bwd_launches, slice_apply.pix_bwd_image_launches)
+  before = _build.launches.copy()
   make_train_step()(state, feed())
   assert len(asked) == 3 and sum(asked) == image
-  assert (slice_apply.pix_bwd_launches,
-          slice_apply.pix_bwd_image_launches) == before
+  assert _build.launches == before
 
 
 def test_no_profiler_enters_no_range(monkeypatch):
@@ -328,17 +327,19 @@ def test_stream_spans_on_the_card():
 @pytest.mark.parametrize('name,image', [('HDRNetFeaturesPyrNN3', 3),
                                         ('HDRNetGaussianPyrNN', 0)])
 def test_k4_image_launches_on_the_card(name, image):
-  """``pix_bwd_image_launches``: 3 a step where the towers learn, 0 in the
-  pyramid of the frame; ``pix_bwd_launches`` 3 a step in both."""
+  """K4 launches that give the image's cotangent
+  (``'slice_apply_pix_bwd_image'``): 3 a step where the towers learn, 0
+  in the pyramid of the frame; K4 launches 3 a step in both."""
   if not torch.cuda.is_available():
     pytest.skip('needs a CUDA device: run on the card with `python -m '
                 'pytest --noconftest -m gpu tests/test_torch_spans.py`')
   state, feed = _train_setup(name, device='cuda')
   step = make_train_step()
   state, _ = step(state, feed())  # builds the kernels
-  before = (slice_apply.pix_bwd_launches, slice_apply.pix_bwd_image_launches)
+  before = _build.launches.copy()
   for _ in range(2):
     state, _ = step(state, feed())
   torch.cuda.synchronize()
-  assert (slice_apply.pix_bwd_launches - before[0],
-          slice_apply.pix_bwd_image_launches - before[1]) == (6, 2 * image)
+  moved = _build.launches - before
+  assert (moved['hdrnet_slice_apply_pix_bwd'],
+          moved['slice_apply_pix_bwd_image']) == (6, 2 * image)

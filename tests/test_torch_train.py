@@ -33,7 +33,7 @@ from hdrnet_torch.convert import convert_flax_variables
 from hdrnet_torch.inference import Enhancer
 from hdrnet_torch.models import make_model
 from hdrnet_torch.models.guides import CurveGuide
-from hdrnet_torch.ops import slice_apply
+from hdrnet_torch.ops import _build
 from hdrnet_torch.ops.downsample import nearest_lowres_plain
 from hdrnet_torch.training import loop, step
 
@@ -237,8 +237,7 @@ def dataset(tmp_path):
 
 def test_train_converges_resumes_and_serves(dataset, tmp_path):
   ckpt = str(tmp_path / 'ckpt')
-  counts = (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
-            slice_apply.grid_bwd_launches)
+  before = _build.launches.copy()
   cfg = _config(30, eval_interval=0)
   cfg.train.profile_dir = str(tmp_path / 'trace')
   state = loop.train(cfg, ckpt, str(dataset), eval_data_dir=str(dataset),
@@ -268,8 +267,7 @@ def test_train_converges_resumes_and_serves(dataset, tmp_path):
     want = torch.clamp(state2.model.eval()(low, frame), 0, 1)
   np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-4)
   # The CPU path ran no kernel.
-  assert (slice_apply.fwd_launches, slice_apply.pix_bwd_launches,
-          slice_apply.grid_bwd_launches) == counts
+  assert _build.launches == before
 
 
 def test_normalize_batch_matches_jax():

@@ -1777,25 +1777,6 @@ def _check_fit_grid(dev, tag, slice_launches):
 
 # --- the extended zoo and the baselines -------------------------------------
 
-
-@contextlib.contextmanager
-def _k4_input_flags():
-  """The need_input argument of every K4 call inside the block, in a
-  list: whether the call also gave the input's cotangent (the wrapper
-  still counts its own launches)."""
-  from hdrnet_torch.ops import slice_apply as sa
-  kernel, flags = sa.slice_apply_pix_bwd, []
-
-  def spy(*args, need_input=True, **kw):
-    flags.append(need_input)
-    return kernel(*args, need_input=need_input, **kw)
-  sa.slice_apply_pix_bwd = spy
-  try:
-    yield flags
-  finally:
-    sa.slice_apply_pix_bwd = kernel
-
-
 def _slice_counts():
   return _launches('K3', 'K4', 'K5')
 
@@ -1905,28 +1886,32 @@ def _zoo_train_full_width(dev, tag, slice_launches, full_float32):
   torch.cuda.reset_peak_memory_stats()
   _reset_launch_counts()
   step_ms, losses = [], []
-  with _k4_input_flags() as flags:
-    for i in range(ZOO_STEPS):
-      t0 = time.perf_counter()
-      state, m = train_step(state, step.to_device(host[i % 4], dev))
-      torch.cuda.synchronize()
-      step_ms.append((time.perf_counter() - t0) * 1e3)
-      losses.append(float(m['loss']))
-      if i == 0:
-        grad_worst, failures = _hold_grads(state.model, want_grads,
-                                           f'{FPYR} first step')
-        if failures:
-          raise AssertionError('; '.join(failures))
-        if abs(losses[0] - want_loss) > 1e-5 * abs(want_loss):
-          raise AssertionError(f'{FPYR} first loss {losses[0]} vs plain '
-                               f'{want_loss}')
+  for i in range(ZOO_STEPS):
+    t0 = time.perf_counter()
+    state, m = train_step(state, step.to_device(host[i % 4], dev))
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(m['loss']))
+    if i == 0:
+      grad_worst, failures = _hold_grads(state.model, want_grads,
+                                         f'{FPYR} first step')
+      if failures:
+        raise AssertionError('; '.join(failures))
+      if abs(losses[0] - want_loss) > 1e-5 * abs(want_loss):
+        raise AssertionError(f'{FPYR} first loss {losses[0]} vs plain '
+                             f'{want_loss}')
   peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
   launches = _slice_counts()
+  # K4 launches that also gave the input's cotangent, counted by the
+  # wrapper (and, from the step's second call, by the replays of its
+  # CUDA graph).
+  from hdrnet_torch.ops import _build
+  with_input = _build.launches['slice_apply_pix_bwd_image']
   n = 3 * ZOO_STEPS
-  if launches != {'K3': n, 'K4': n, 'K5': n} or flags != [True] * n:
+  if launches != {'K3': n, 'K4': n, 'K5': n} or with_input != n:
     raise AssertionError(f'{FPYR} launches over {ZOO_STEPS} steps '
                          f'{launches}, K4 with the input cotangent '
-                         f'{sum(flags)} of {len(flags)}; expected {n} each')
+                         f'{with_input}; expected {n} each')
   _tally_slice(slice_launches, n, n, n)
   if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
     raise AssertionError(f'{FPYR} training: losses {losses}')

@@ -43,12 +43,11 @@ from hdrnet_torch.config import Config, ModelConfig
 from hdrnet_torch.models import make_model
 from hdrnet_torch.models.hdrnet import (HDRNetCurves, HDRNetGaussianPyrNN,
                                         HDRNetPointwiseNNGuide)
-from hdrnet_torch.ops import _build
 from hdrnet_torch.ops.downsample import nearest_lowres, to_unit
 from hdrnet_torch.ops.fused import enhance_fused
+from hdrnet_torch.ops.graph import CapturedGraph
 from hdrnet_torch.ops.levels import (gaussian_levels, pyramid_down,
                                      pyramid_up_add, requantize)
-from hdrnet_torch.ops.resize import holding_tables
 from hdrnet_torch.training.checkpoint import latest_checkpoint, load
 from hdrnet_torch.utils.timing import span
 
@@ -429,7 +428,7 @@ class Enhancer:
     return graph
 
 
-class _StreamGraph:
+class _StreamGraph(CapturedGraph):
   """`fn` on a uint8 frame of `shape`, captured as a CUDA graph: the
   frame goes into ``frame``, and ``replay()`` runs the captured launches
   and returns the output, which the next replay overwrites. ``tables``
@@ -438,34 +437,15 @@ class _StreamGraph:
   def __init__(self, fn, shape, device):
     global graph_captures
     self.frame = torch.empty(shape, dtype=torch.uint8, device=device)
-    self.graph = torch.cuda.CUDAGraph()
-    counts = _build.launches.copy()
-    # cuBLAS holds a 32 MiB workspace a stream. Dropped before the capture
-    # and after it, as torch's own graph trees do: the capture's then lies
-    # in the graph's pool, allocated to nothing, and the eager stream's is
-    # not held while the graphs run.
-    torch._C._cuda_clearCublasWorkspaces()
-    try:
-      # Relaxed: a launcher may set a kernel attribute on its first call
-      # at a shape, which global capture mode refuses as unsafe.
-      with (span('hdrnet.serve.capture'), torch.no_grad(),
-            holding_tables() as self.tables,
-            torch.cuda.graph(self.graph, capture_error_mode='relaxed')):
-        self.out = fn(self.frame)
-    finally:
-      torch._C._cuda_clearCublasWorkspaces()
-      # A capture launches nothing and a replay launches what it
-      # captured: the capture's counts move to its replays.
-      self.launches = _build.launches - counts
-      _build.launches.subtract(self.launches)
+    with torch.no_grad():
+      super().__init__(lambda: fn(self.frame), 'hdrnet.serve.capture')
     graph_captures += 1
 
   def replay(self):
     global graph_replays
-    self.graph.replay()
-    _build.launches.update(self.launches)
+    out = super().replay()
     graph_replays += 1
-    return self.out
+    return out
 
 
 def _banded(packed, frame, params, mode, devices, **ends):

@@ -20,24 +20,50 @@ all-reduce after ``backward`` (a sum, not DDP's average: a spatial
 band's gradient is a part, not a sample), the batch norms reduce over
 their groups, and the metrics and EMAs are the global ones.
 
-With a profiler recording, a step's phases are the spans
-``hdrnet.train.forward`` (normalize, learning rates, forward, loss),
-``hdrnet.train.backward`` (with the mesh's gradient all-reduce),
-``hdrnet.train.optimizer`` and ``hdrnet.train.metrics``.
+On a CUDA device with no mesh, the step's normalize, forward, loss,
+backward and Adam are captured as one CUDA graph at the second call with
+a batch of the same signature (keys, shapes, dtypes, device, and the
+cuDNN flags that chose the captured kernels) and the same model and
+optimizer, and replayed by every later such call; the first call, a new
+signature, another state, an optimizer that is not capturable, the CPU,
+the mesh (collectives in the step) and a failed capture (one warning)
+run eagerly. A replay copies the batch into the graph's input buffers;
+the metrics and EMAs run eagerly after it.
+
+With a profiler recording, an eager step's phases are the spans
+``hdrnet.train.forward`` (normalize, forward, loss),
+``hdrnet.train.backward`` (with the mesh's gradient all-reduce) and
+``hdrnet.train.optimizer``; a replayed step's are
+``hdrnet.train.replay`` (learning rates, the batch's copy-in and the
+replay); a capture is ``hdrnet.train.capture``; every step ends in
+``hdrnet.train.metrics``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
 
 import torch
 from torch import nn
 
 from hdrnet_torch.inference import full_float32
+from hdrnet_torch.ops.graph import CapturedGraph
 from hdrnet_torch.parallel.collectives import (all_reduce, all_reduce_grads,
                                                all_reduce_sum_)
 from hdrnet_torch.training import metrics
 from hdrnet_torch.utils.timing import span
+
+log = logging.getLogger('hdrnet_torch.train')
+
+# The batch keys the step reads: a graph's input buffers.
+BATCH_KEYS = ('lowres_input', 'image_input', 'image_output')
+
+# CUDA graphs captured and replayed by make_train_step's steps in this
+# process.
+graph_captures = 0
+graph_replays = 0
 
 
 @dataclasses.dataclass
@@ -96,12 +122,22 @@ def normalize_batch(batch):
 def set_learning_rates(state):
   """The schedule's value at the optimizer's update count, times each
   group's ``lr_scale``: optax evaluates the schedule at the count of
-  updates so far, so the first update uses schedule(0)."""
+  updates so far, so the first update uses schedule(0). A capturable
+  group keeps it in a 0-dim float32 tensor on its device, written in
+  place, so that a captured step reads the value of each replay."""
   if state.schedule is None:
     return
   lr = state.schedule(state.step)
   for group in state.optimizer.param_groups:
-    group['lr'] = lr * group.get('lr_scale', 1.0)
+    value = lr * group.get('lr_scale', 1.0)
+    if not group.get('capturable'):
+      group['lr'] = value
+    elif isinstance(group['lr'], torch.Tensor):
+      group['lr'].fill_(value)
+    else:
+      # A captured Adam reads its lr from this tensor at every replay.
+      group['lr'] = torch.tensor(value, dtype=torch.float32,
+                                 device=group['params'][0].device)
 
 
 def guide_range_hinge(guide, target, mesh=None):
@@ -140,6 +176,96 @@ def top_level_guides(model, intermediates):
   return guides
 
 
+def _signature(state, batch):
+  """What a captured step depends on besides the values in its buffers:
+  the model, the optimizer and its state (a restore replaces the state),
+  each batch key's shape, dtype and device, and the cuDNN flags that
+  chose the captured kernels. None where no graph may run: a CPU batch,
+  or an optimizer group that is not capturable."""
+  opt = state.optimizer
+  xs = [batch[k] for k in BATCH_KEYS]
+  if not (all(x.is_cuda for x in xs)
+          and all(g.get('capturable') for g in opt.param_groups)):
+    return None
+  return (state.model, opt, opt.state,
+          tuple((tuple(x.shape), x.dtype, x.device) for x in xs),
+          torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+
+
+def _same(a, b):
+  """Whether two signatures agree: the objects by identity, the rest by
+  value."""
+  return (a is not None and b is not None
+          and all(x is y for x, y in zip(a[:3], b[:3])) and a[3:] == b[3:])
+
+
+class _StepGraph(CapturedGraph):
+  """`run(inputs)`, the step's normalize, forward, loss, backward and Adam
+  on a batch of `batch`'s signature, captured as one CUDA graph:
+  ``replay(batch)`` copies the batch into ``inputs``, runs the captured
+  launches and returns a fresh copy of the loss, and the target and the
+  output, which the next replay overwrites."""
+
+  def __init__(self, run, state, batch, key):
+    global graph_captures
+    self.key = key
+    self.inputs = {k: torch.empty(batch[k].shape, dtype=batch[k].dtype,
+                                  device=batch[k].device)
+                   for k in BATCH_KEYS}
+    # The backward captured with no gradient held allocates the
+    # gradients in the graph's pool, and each replay writes them anew.
+    state.optimizer.zero_grad(set_to_none=True)
+    super().__init__(lambda: run(self.inputs), 'hdrnet.train.capture')
+    graph_captures += 1
+
+  def replay(self, batch):
+    global graph_replays
+    for k, x in self.inputs.items():
+      x.copy_(batch[k])
+    loss, target, out = super().replay()
+    graph_replays += 1
+    # The caller keeps a step's loss past later replays.
+    return loss.clone(), target, out
+
+
+class _CapturedStep:
+  """The one graph of a step function: captured at the second call in a
+  row with one signature (the first builds the tables, plans and Adam
+  state that a capture must find made), dropped at a call with another;
+  a signature whose capture failed runs eagerly."""
+
+  def __init__(self):
+    self.graph = None
+    self.seen = None  # the signature of the last eager call
+    self.failed = None
+
+  def graph_for(self, state, batch, run):
+    """The graph to replay for this call, or None to run it eagerly."""
+    key = _signature(state, batch)
+    if key is None:
+      return None
+    if self.graph is not None:
+      if _same(self.graph.key, key):
+        return self.graph
+      torch.cuda.synchronize()  # no replay of the dropped graph in flight
+      self.graph = None
+    if _same(self.failed, key):
+      return None
+    if not _same(self.seen, key):
+      self.seen = key
+      return None
+    self.seen = None
+    set_learning_rates(state)
+    try:
+      self.graph = _StepGraph(run, state, batch, key)
+    except RuntimeError:
+      log.warning('make_train_step: capturing the step on %s batches as a '
+                  'CUDA graph failed; it runs eagerly', key[3],
+                  exc_info=True)
+      self.failed = key
+    return self.graph
+
+
 def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2,
                     mesh=None):
   """Returns step(state, batch, band=None) -> (state, metrics dict of 0-dim
@@ -158,40 +284,62 @@ def make_train_step(ema_decay=0.99, guide_reg=0.0, guide_reg_target=0.2,
   share and `band` its H-band (``parallel.mesh.shard_batch``), and the
   model readied by ``parallel.mesh.replicate``. Every rank of the mesh
   must call the step together.
+
+  Without a mesh, on a CUDA device with a capturable optimizer
+  (``training.loop.make_optimizer``'s there), the step holds one CUDA
+  graph of itself (this module's docstring): the returned loss is the
+  caller's, but the model's gradients, like the optimizer's state, are
+  the graph's tensors, which the next replay overwrites.
   """
 
-  def step(state, batch, band=None):
+  def run(state, batch, band=None):
+    """normalize, forward, loss, backward and Adam: what a graph captures.
+    Returns the loss, the target and the output, detached."""
     model, opt = state.model, state.optimizer
     kw = {} if band is None else {'band': band}
+    with span('hdrnet.train.forward'):
+      batch = normalize_batch(batch)
+      model.train()
+      target = batch['image_output']
+      if guide_reg > 0.0:
+        out, inter = model.forward_with_intermediates(
+            batch['lowres_input'], batch['image_input'], **kw)
+        guides = top_level_guides(model, inter)
+        hinges = [guide_range_hinge(g, guide_reg_target, mesh)
+                  for g in guides]
+        loss = (metrics.l2_loss(target, out, mesh)
+                + guide_reg * sum(hinges) / len(hinges))
+      else:
+        out = model(batch['lowres_input'], batch['image_input'], **kw)
+        loss = metrics.l2_loss(target, out, mesh)
+    with span('hdrnet.train.backward'):
+      opt.zero_grad(set_to_none=True)
+      loss.backward()
+      if mesh is not None:
+        all_reduce_grads(model.parameters(), mesh.group)
+    with span('hdrnet.train.optimizer'):
+      opt.step()
+    return loss.detach(), target, out.detach()
+
+  captured = _CapturedStep()
+
+  def step(state, batch, band=None):
     with full_float32():
-      with span('hdrnet.train.forward'):
-        batch = normalize_batch(batch)
-        model.train()
+      graph = None
+      if mesh is None:
+        graph = captured.graph_for(state, batch,
+                                   functools.partial(run, state))
+      if graph is None:
         set_learning_rates(state)
-        target = batch['image_output']
-        if guide_reg > 0.0:
-          out, inter = model.forward_with_intermediates(
-              batch['lowres_input'], batch['image_input'], **kw)
-          guides = top_level_guides(model, inter)
-          hinges = [guide_range_hinge(g, guide_reg_target, mesh)
-                    for g in guides]
-          loss = (metrics.l2_loss(target, out, mesh)
-                  + guide_reg * sum(hinges) / len(hinges))
-        else:
-          out = model(batch['lowres_input'], batch['image_input'], **kw)
-          loss = metrics.l2_loss(target, out, mesh)
-      with span('hdrnet.train.backward'):
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-          all_reduce_grads(model.parameters(), mesh.group)
-      with span('hdrnet.train.optimizer'):
-        opt.step()
+        loss, target, out = run(state, batch, band)
+      else:
+        with span('hdrnet.train.replay'):
+          set_learning_rates(state)
+          loss, target, out = graph.replay(batch)
     with span('hdrnet.train.metrics'):
-      loss = loss.detach()
       if mesh is not None:
         loss = all_reduce_sum_(loss.clone(), mesh.group)
-      p = metrics.psnr(target, out.detach(), mesh)
+      p = metrics.psnr(target, out, mesh)
       if state.step == 0:
         state.ema_loss, state.ema_psnr = loss, p
       else:

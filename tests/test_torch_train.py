@@ -12,6 +12,7 @@ Batch-norm statistics 1e-6; the guide's gradients 1e-6, in float64 so
 that only the gradient rules at exact ties can differ.
 """
 
+import copy
 import json
 import os
 
@@ -351,3 +352,157 @@ def test_cli_builds_the_jax_config():
     return next(a.choices for a in parser._actions if a.dest == 'model_name')
   assert sorted(model_choices(cli.build_parser())) == sorted(
       model_choices(jax_cli.build_parser()))
+
+
+# --- make_train_step's CUDA graph: what the CPU can check ---------------------
+# The graphs themselves run on the card: tests/test_torch_train_graph.py.
+
+def _small_state(tc=None, schedule=None, seed=7):
+  port = make_model(ModelConfig(model_name='HDRNetCurves', **SMALL),
+                    generator=torch.Generator().manual_seed(seed))
+  tc = tc or TrainConfig(learning_rate=1e-3)
+  return step.create_state(port, loop.make_optimizer(port, tc), schedule)
+
+
+def test_make_optimizer_keeps_plain_adam_on_the_cpu():
+  """On the CPU Adam is neither capturable nor fused and its lr a number,
+  also after loading a state dict that the card's optimizer saved (its
+  groups capturable and fused, a scheduled lr in a tensor)."""
+  tc = TrainConfig(learning_rate=1e-3, guide_lr_scale=0.5)
+  state = _small_state(tc)
+  opt = state.optimizer
+  assert len(opt.param_groups) == 2
+  assert [g['capturable'] for g in opt.param_groups] == [False, False]
+  assert [g['fused'] for g in opt.param_groups] == [None, None]
+  train_step = step.make_train_step()
+  batch = step.to_device(_batch(5), 'cpu')
+  state, _ = train_step(state, batch)
+  saved = copy.deepcopy(opt.state_dict())
+  for g in saved['param_groups']:
+    g['capturable'] = g['fused'] = True
+    g['lr'] = torch.tensor(g['lr'], dtype=torch.float64)
+  other = _small_state(tc)
+  other.optimizer.load_state_dict(saved)
+  groups = other.optimizer.param_groups
+  assert [g['capturable'] for g in groups] == [False, False]
+  assert [g['fused'] for g in groups] == [None, None]
+  assert [g['lr'] for g in groups] == [1e-3, 5e-4]
+  assert all(type(g['lr']) is float for g in groups)
+  other.model.load_state_dict(state.model.state_dict())
+  _, m_a = train_step(state, batch)
+  _, m_b = train_step(other, batch)
+  assert float(m_a['loss']) == float(m_b['loss'])
+  for a, b in zip(state.model.parameters(), other.model.parameters()):
+    assert torch.equal(a, b)
+
+
+def test_cpu_step_takes_no_graph():
+  """The CPU step runs eagerly every call: no capture, no replay, no
+  launch, and the phases' values are those of the plain step."""
+  state = _small_state()
+  train_step = step.make_train_step()
+  batch = step.to_device(_batch(6), 'cpu')
+  counts = step.graph_captures, step.graph_replays
+  before = _build.launches.copy()
+  for _ in range(4):
+    state, _ = train_step(state, batch)
+  assert (step.graph_captures, step.graph_replays) == counts
+  assert _build.launches == before
+  assert step._signature(state, batch) is None
+
+
+def test_step_loss_is_not_overwritten_by_the_next():
+  """The loss of step k, kept past later steps as ``loop.train`` keeps
+  it (RUNAHEAD), still reads its own value."""
+  state = _small_state()
+  train_step = step.make_train_step()
+  kept = []
+  for seed in range(4):
+    state, m = train_step(state, step.to_device(_batch(10 + seed), 'cpu'))
+    kept.append((m['loss'], float(m['loss'])))
+  assert len({v for _, v in kept}) == 4
+  for t, v in kept:
+    assert float(t) == v
+
+
+class _Replaying:
+  """Stands in for ``step._StepGraph`` on the CPU: records what it
+  captured, and a replay runs the captured function eagerly on the
+  batch; or raises like a failed capture."""
+  made = []
+  fail = False
+  eager = []
+
+  def __init__(self, run, state, batch, key):
+    if _Replaying.fail:
+      raise RuntimeError('operation not permitted when stream is capturing')
+    self.run, self.key = run, key
+    _Replaying.made.append(key[3])
+
+  def replay(self, batch):
+    loss, target, out = self.run(batch)
+    return loss.clone(), target, out
+
+
+@pytest.fixture
+def replaying(monkeypatch):
+  """The step's graph logic on CPU batches: `_signature` without its
+  device test (None for the models in ``eager``), `_StepGraph` replaced
+  by ``_Replaying``."""
+  def signature(state, batch):
+    if state.model in _Replaying.eager:
+      return None
+    xs = [batch[k] for k in step.BATCH_KEYS]
+    return (state.model, state.optimizer, state.optimizer.state,
+            tuple((tuple(x.shape), x.dtype, x.device) for x in xs),
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+  monkeypatch.setattr(step, '_signature', signature)
+  monkeypatch.setattr(step, '_StepGraph', _Replaying)
+  monkeypatch.setattr(torch.cuda, 'synchronize', lambda: None)
+  _Replaying.made, _Replaying.fail, _Replaying.eager = [], False, []
+  return _Replaying
+
+
+def test_step_captures_at_the_second_call_of_a_signature(replaying):
+  """The first call runs eagerly and the second captures; a new batch
+  shape drops the graph and captures at its own second call; so do
+  another state and a restored optimizer state (a new ``opt.state``)."""
+  a, b = (step.to_device(_batch(1, hw=hw), 'cpu') for hw in (64, 32))
+  train_step = step.make_train_step()
+  state = _small_state()
+  captured = []
+  for batch in [a, a, a, b, b, a, a, a]:
+    state, _ = train_step(state, batch)
+    captured.append(len(replaying.made))
+  assert captured == [0, 1, 1, 1, 2, 2, 3, 3]
+  # made: each capture's (shape, dtype, device) of the batch keys.
+  assert [k[1][0] for k in replaying.made] == [(2, 64, 64, 3),
+                                               (2, 32, 32, 3),
+                                               (2, 64, 64, 3)]
+  other = _small_state(seed=8)
+  for n in (3, 4, 4):
+    other, _ = train_step(other, a)
+    assert len(replaying.made) == n
+  other.optimizer.load_state_dict(other.optimizer.state_dict())
+  for n in (4, 5, 5):
+    other, _ = train_step(other, a)
+    assert len(replaying.made) == n
+
+
+def test_failed_capture_runs_eagerly_with_one_warning(replaying, caplog):
+  """A capture that raises: one warning, and the signature runs eagerly
+  from then on, with the eager step's values."""
+  import logging
+  replaying.fail = True
+  train_step, eager = step.make_train_step(), step.make_train_step()
+  state, twin = _small_state(), _small_state()
+  replaying.eager.append(twin.model)
+  batch = step.to_device(_batch(2), 'cpu')
+  with caplog.at_level(logging.WARNING, logger='hdrnet_torch.train'):
+    for _ in range(5):
+      state, m = train_step(state, batch)
+      twin, want = eager(twin, batch)
+      assert float(m['loss']) == float(want['loss'])
+  assert len([r for r in caplog.records
+              if 'CUDA graph' in r.getMessage()]) == 1

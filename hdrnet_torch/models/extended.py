@@ -96,16 +96,22 @@ class HDRNetStack(nn.Module):
     return self.forward_with_intermediates(lowres, fullres, band)[0]
 
   def forward_with_intermediates(self, lowres, fullres, band=None):
+    """Spans: ``hdrnet.model.stage`` around each stage's forward and
+    ``hdrnet.model.stage_preview`` around each handoff preview (one fewer
+    than the stages: the last stage's output feeds no preview)."""
     n = self.cfg.net_input_size
     if band is not None:
       halo.require_group(band, "HDRNetStack's preview of the whole frame")
     inter = {}
     for s in range(self.n_stages):
-      fullres, inter[f'stage{s}'] = getattr(self, f'stage{s}')(
-          lowres, fullres, band, return_intermediates=True)
-      rows = fullres if band is None else halo.gather_rows(
-          fullres, band, _nearest_indices(band.h_total, n), 1)
-      lowres = resize_nearest(rows, (n, n))
+      if s > 0:
+        with span('hdrnet.model.stage_preview'):
+          rows = fullres if band is None else halo.gather_rows(
+              fullres, band, _nearest_indices(band.h_total, n), 1)
+          lowres = resize_nearest(rows, (n, n))
+      with span('hdrnet.model.stage'):
+        fullres, inter[f'stage{s}'] = getattr(self, f'stage{s}')(
+            lowres, fullres, band, return_intermediates=True)
     return fullres, inter
 
 

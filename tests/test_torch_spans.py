@@ -190,6 +190,41 @@ def test_k4_gives_the_image_cotangent_only_to_learned_features(
   assert _build.launches == before
 
 
+def test_stack_records_a_span_a_stage():
+  """``HDRNetStack``: one ``hdrnet.model.stage`` a stage and one
+  ``hdrnet.model.stage_preview`` between them, in the step's forward; the
+  preview follows the first stage and precedes the second."""
+  state, feed = _train_setup('HDRNetStack')
+  spans = _profile(lambda: make_train_step()(state, feed()))
+  counts = _counts(spans)
+  assert counts['hdrnet.model.stage'] == 2
+  assert counts['hdrnet.model.stage_preview'] == 1
+  assert counts['hdrnet.model.backbone'] == 2
+  assert counts['hdrnet.ops.slice_apply'] == 2
+  for child in ('hdrnet.model.stage', 'hdrnet.model.stage_preview'):
+    assert _inside(spans, child, 'hdrnet.train.forward'), child
+  assert _inside(spans, 'hdrnet.model.backbone', 'hdrnet.model.stage')
+  first, second = sorted(spans['hdrnet.model.stage'])
+  (preview,) = spans['hdrnet.model.stage_preview']
+  assert first[1] <= preview[0] and preview[1] <= second[0]
+
+
+def test_k4_gives_the_image_cotangent_to_the_second_stage_only(monkeypatch):
+  """In ``HDRNetStack`` K4 runs once a stage and is asked for the image's
+  cotangent once a step: the second stage's image is the first stage's
+  output; the first stage's is the frame."""
+  whole = slice_apply.slice_apply_pix_bwd
+  asked = []
+
+  def spy(*args, **kwargs):
+    asked.append(kwargs['need_input'])
+    return whole(*args, **kwargs)
+  monkeypatch.setattr(slice_apply, 'slice_apply_pix_bwd', spy)
+  state, feed = _train_setup('HDRNetStack')
+  make_train_step()(state, feed())
+  assert sorted(asked) == [False, True]
+
+
 def test_no_profiler_enters_no_range(monkeypatch):
   """With no profiler running a span is the one shared null context: the
   stream, the composite route and a train step run with
@@ -343,3 +378,23 @@ def test_k4_image_launches_on_the_card(name, image):
   moved = _build.launches - before
   assert (moved['hdrnet_slice_apply_pix_bwd'],
           moved['slice_apply_pix_bwd_image']) == (6, 2 * image)
+
+
+@pytest.mark.gpu
+def test_k4_image_launches_of_the_stack_on_the_card():
+  """``HDRNetStack``'s K4 launches on the card: 2 a step, 1 of them
+  with the image's cotangent (``'slice_apply_pix_bwd_image'``), through
+  the step's graph replays too."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device: run on the card with `python -m '
+                'pytest --noconftest -m gpu tests/test_torch_spans.py`')
+  state, feed = _train_setup('HDRNetStack', device='cuda')
+  step = make_train_step()
+  state, _ = step(state, feed())  # builds the kernels
+  before = _build.launches.copy()
+  for _ in range(3):
+    state, _ = step(state, feed())
+  torch.cuda.synchronize()
+  moved = _build.launches - before
+  assert (moved['hdrnet_slice_apply_pix_bwd'],
+          moved['slice_apply_pix_bwd_image']) == (6, 3)
